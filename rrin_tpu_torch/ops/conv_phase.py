@@ -1,0 +1,194 @@
+"""Low-channel NHWC convolution: hand-written CUDA kernel and its wrapper.
+
+Replaces the phase-packed Pallas kernel of the JAX package
+(``ops/conv_phase.py``: ``_phase_kernel`` via ``_conv_phase_impl``, public
+``conv2d_fused``): stride-1 SAME conv with odd k, + bias + optional LeakyReLU,
+bfloat16 inputs and weights, float32 accumulation and bias, one rounding to
+bfloat16 at the store. These are the U-Net sites with few output channels
+(stem 7x7 at 32, down/up stages at 32-64, the 2-4 channel heads), which hold
+most of the cascade's operations.
+
+What bounds it on an H100: operations, not bytes, at every site but the heads
+(the 32->32 7x7 stem does 3,136 multiply-adds for each byte pair it reads and
+writes). So the kernel feeds the tensor cores (``mma.sync`` m16n8k16) from a
+shared-memory halo tile that is read once per block and reused by all k*k
+taps and all output channels; see ``csrc/conv_phase.cu`` for the tiling. It
+drops what existed for the TPU's lanes: no packing factor, no block-Toeplitz
+weights with their redundant multiply-adds, no width or height gates. cin in
+{6, 9, 10} and cout in {2, 3, 4} are zero-padded to the MMA tile in shared
+memory and masked at the store, so those sites stay on the kernel.
+
+Routing (:func:`supports`): odd k, cout <= 64 and a tile that fits shared
+memory, bfloat16 only. Everything else (float32, cout >= 128) is
+``F.conv2d``, as the JAX package leaves those sites to XLA. The plain version
+of the kernel is :func:`_conv_plain`; the wrapper takes it only for CPU
+tensors. Forward only: inputs that require grad are refused on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from rrin_tpu_torch import _build
+
+# Tile constants of csrc/conv_phase.cu (kept equal to the kernel's).
+_TH, _TW, _CPAD = 8, 32, 8
+# Dynamic shared memory a block may use on sm_90 (227 KB).
+_SMEM_MAX = 232448
+MAX_COUT = 64
+
+
+def _n_tiles(cout: int) -> int:
+    return next(n for n in (1, 2, 4, 8) if n * 8 >= cout)
+
+
+def _smem_bytes(k: int, cchunk: int, n_tiles: int) -> int:
+    halo = (_TH + k - 1) * (_TW + k - 1) * (cchunk + _CPAD) * 2
+    wrow = k * (cchunk // 16) * n_tiles * 32 * 8
+    return halo + wrow
+
+
+def _plan(k: int, cin: int, cout: int) -> Optional[Tuple[int, int, int]]:
+    """(cchunk, n_chunks, n_tiles) of the kernel for this site, or None."""
+    if k % 2 == 0 or k < 1 or cin < 1 or not 1 <= cout <= MAX_COUT:
+        return None
+    n_tiles = _n_tiles(cout)
+    cin16 = -(-cin // 16) * 16
+    for cchunk in (64, 48, 32, 16):
+        if cchunk > cin16:
+            continue
+        if _smem_bytes(k, cchunk, n_tiles) <= _SMEM_MAX:
+            return cchunk, -(-cin // cchunk), n_tiles
+    return None
+
+
+def supports(
+    x_shape: Tuple[int, ...], w_shape: Tuple[int, ...]
+) -> Optional[int]:
+    """Return the kernel's input-channel chunk if it applies, else None.
+
+    Routes every site the JAX package's ``supports`` routes and more: there
+    is no gate on W or H here (those were DMA alignment rules).
+    """
+    if len(x_shape) != 4 or len(w_shape) != 4:
+        return None
+    kh, kw, cin, cout = w_shape
+    if x_shape[3] != cin or kh != kw:
+        return None
+    plan = _plan(kh, cin, cout)
+    return None if plan is None else plan[0]
+
+
+def _leaky(y: torch.Tensor, slope: Optional[float]) -> torch.Tensor:
+    return y if slope is None else torch.where(y >= 0, y, slope * y)
+
+
+def _conv_plain(
+    x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+    slope: Optional[float],
+) -> torch.Tensor:
+    """conv (stride 1, SAME) + bias + optional LeakyReLU in ``x.dtype`` with
+    ``F.conv2d``: the plain version of the kernel and the path of every site
+    the kernel does not take. float32 runs without TF32, as the JAX package's
+    float32 convs run at HIGHEST precision."""
+    pad = (w.shape[0] - 1) // 2
+    xn = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory = channels_last
+    wn = w.to(x.dtype).permute(3, 2, 0, 1)
+    if x.is_cuda and x.dtype == torch.float32:
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            y = F.conv2d(xn, wn, padding=pad)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+    else:
+        y = F.conv2d(xn, wn, padding=pad)
+    y = y.permute(0, 2, 3, 1).contiguous() + bias.to(x.dtype)
+    return _leaky(y, slope)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("conv_phase")
+    if not getattr(lib, "_rrin_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.rrin_conv_phase_launch.argtypes = (
+            [vp] * 4 + [ci] * 10 + [ctypes.c_float, vp])
+        lib.rrin_conv_phase_launch.restype = ci
+        lib.rrin_conv_phase_smem.argtypes = [ci, ci, ci]
+        lib.rrin_conv_phase_smem.restype = ctypes.c_longlong
+        lib._rrin_typed = True
+    return lib
+
+
+def _weight_fragments(
+    w: torch.Tensor, cchunk: int, n_chunks: int, n_tiles: int
+) -> torch.Tensor:
+    """HWIO weights -> bf16 in the kernel's B-fragment order
+    ``[chunk][dy][dx][k16][n-tile][lane = g*4+tig][reg r][pair p]`` where the
+    element is ``w[dy, dx, chunk*cchunk + k16*16 + r*8 + tig*2 + p, n-tile*8 + g]``
+    (zero where cin or cout is padding)."""
+    k, _, cin, cout = w.shape
+    wp = torch.zeros(
+        (k, k, n_chunks * cchunk, n_tiles * 8), dtype=torch.bfloat16, device=w.device)
+    wp[:, :, :cin, :cout] = w.to(torch.bfloat16)
+    wp = wp.view(k, k, n_chunks, cchunk // 16, 2, 4, 2, n_tiles, 8)
+    #            dy dx ch        k16          r  tig p  nt      g
+    return wp.permute(2, 0, 1, 3, 7, 8, 5, 4, 6).contiguous()
+
+
+def _conv_kernel(x, w, bias, slope, plan) -> torch.Tensor:
+    cchunk, n_chunks, n_tiles = plan
+    if w.device != x.device or bias.device != x.device:
+        raise ValueError("x, w and bias must lie on one device")
+    if not x.is_contiguous():
+        raise ValueError("the conv kernel takes an NHWC-contiguous input")
+    if x.requires_grad or w.requires_grad or bias.requires_grad:
+        raise RuntimeError(
+            "the conv kernel is forward-only; detach its inputs "
+            "(or run under torch.no_grad())")
+    b, h, width, cin = x.shape
+    k, _, _, cout = w.shape
+    if bias.shape != (cout,):
+        raise ValueError(f"bias must be ({cout},), got {tuple(bias.shape)}")
+    if x.data_ptr() % 16:
+        raise ValueError("the conv kernel takes a 16-byte aligned input")
+    lib = _lib()
+    if lib.rrin_conv_phase_smem(k, cchunk, n_tiles) != _smem_bytes(k, cchunk, n_tiles):
+        raise RuntimeError("conv_phase.cu and conv_phase.py disagree on the tile")
+    wfrag = _weight_fragments(w, cchunk, n_chunks, n_tiles)
+    bias32 = bias.to(torch.float32).contiguous()
+    out = torch.empty((b, h, width, cout), dtype=torch.bfloat16, device=x.device)
+    with torch.cuda.device(x.device):
+        _build.launch(
+            "conv_phase", lib.rrin_conv_phase_launch,
+            x.data_ptr(), wfrag.data_ptr(), bias32.data_ptr(), out.data_ptr(),
+            b, h, width, cin, cout, k, cchunk, n_chunks, n_tiles,
+            int(slope is not None), 0.0 if slope is None else float(slope),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    return out
+
+
+def conv2d_fused(
+    x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+    slope: Optional[float] = None,
+) -> torch.Tensor:
+    """conv2d(stride 1, SAME) + bias + optional LeakyReLU.
+
+    x: (B, H, W, cin) NHWC; w: (kh, kw, cin, cout) HWIO; bias: (cout,).
+    A bfloat16 input at a site :func:`supports` accepts goes to the CUDA
+    kernel when it lies on the card (launch or raise) and to the plain
+    version when it lies on the CPU. float32 inputs and the other sites are
+    ``F.conv2d``.
+    """
+    if supports(tuple(x.shape), tuple(w.shape)) is None or x.dtype != torch.bfloat16:
+        return _conv_plain(x, w, bias, slope)
+    if x.device.type == "cpu":
+        return _conv_plain(x, w, bias, slope)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"no conv kernel for device {x.device}")
+    return _conv_kernel(x, w, bias, slope, _plan(w.shape[0], w.shape[2], w.shape[3]))
