@@ -34,6 +34,8 @@ NVCC_FLAGS = [
 # Kernel name -> launches since the last reset_launch_counts().
 LAUNCHES: Dict[str, int] = {
     "conv_phase": 0, "warp_u8": 0, "warp_f32": 0, "warp_bf16": 0,
+    "conv_packed": 0, "conv_pool_packed": 0, "conv_up_m_packed": 0,
+    "conv_up_f_packed": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

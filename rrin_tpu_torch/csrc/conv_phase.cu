@@ -29,21 +29,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int TH = 8;            // output rows per block = warps per block
 constexpr int TW = 32;           // output columns per block = 2 m-tiles
 constexpr int THREADS = TH * 32;
 constexpr int CPAD = 8;          // bf16 elements of padding per halo pixel
-
-__device__ __forceinline__ void mma_m16n8k16_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                                  const uint2 b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
 
 template <int NT>
 __global__ void __launch_bounds__(THREADS)

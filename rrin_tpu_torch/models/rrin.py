@@ -29,7 +29,13 @@ import torch
 
 from rrin_tpu_torch._device import DeviceLike, resolve_device
 from rrin_tpu_torch.config import ModelConfig
-from rrin_tpu_torch.models.unet import unet_apply, unet_init
+from rrin_tpu_torch.models.unet import (
+    packed_bf16_supported,
+    packed_supported,
+    unet_apply,
+    unet_apply_packed,
+    unet_init,
+)
 from rrin_tpu_torch.ops.warp import warp_pair
 
 Params = Dict[str, Any]
@@ -163,16 +169,20 @@ def forward(
       i0, i1: (B, H, W, 3) float frames in [0, 1] (tensors or numpy arrays;
         moved to ``device``); H, W divisible by 16 (use ops.pad_to_multiple).
       t: scalar or (B,) interpolation time(s) in (0, 1).
-      compute_dtype: dtype of the U-Net convs (``torch.bfloat16`` sends the
-        low-channel sites to the CUDA conv kernel on the card); warp, time
-        projection and blend stay float32.
+      compute_dtype: dtype of the U-Net convs (``torch.bfloat16`` sends them
+        to the CUDA conv kernels on the card); warp, time projection and
+        blend stay float32.
       use_pallas: route the double warp through the hand-written warp kernel
         (the flag keeps the JAX package's name).
       remat: training-time rematerialization; not ported yet (ROADMAP Queue
         A, "training") and raises ``NotImplementedError`` when set.
-      packed: the carried packed layout is not ported yet (ROADMAP Queue A,
-        "packed serving path"): ``True`` raises ``NotImplementedError``;
-        ``False`` and ``None`` both run the plain path in this slice.
+      packed: run the U-Nets through the packed-path kernels
+        (``models.unet.unet_apply_packed``): the serving path, inference
+        only. ``None`` follows ``use_pallas``. A shape or config that
+        ``packed_supported`` rejects takes the plain path (routing by shape,
+        as in the JAX package). On the card the packed kernels are bfloat16:
+        ``compute_dtype=torch.float32`` there raises ``NotImplementedError``,
+        so float32 requests pass ``packed=False``.
       flows: optional precomputed flow-U-Net output (B, H, W, 4) from a
         ``flows_only=True`` call on the same (i0, i1); skips that U-Net.
       flows_only: run only the t-independent flow U-Net and return its
@@ -182,10 +192,10 @@ def forward(
     Returns (B, H, W, 3) float32 frame in [0, 1] (or flows, see above).
     """
     dev = resolve_device(device)
-    if packed:
-        raise NotImplementedError(
-            "packed=True (carried packed layout, conv_packed kernels) is not "
-            "ported yet: ROADMAP.md Queue A item 'packed serving path'")
+    if packed is None:
+        packed = use_pallas
+    if packed and remat:
+        raise ValueError("packed=True is inference-only (no remat/VJP)")
     if remat:
         raise NotImplementedError(
             "remat=True belongs to training, which is not ported yet: "
@@ -202,10 +212,14 @@ def forward(
         )
     tb = _as_t(t, i0f.shape[0], dev)
     cd = compute_dtype
+    use_packed = (
+        bool(packed) and packed_supported(i0f.shape[-3], i0f.shape[-2], cfg)
+        and packed_bf16_supported(i0f.shape[-2]))
+    apply_fn = unet_apply_packed if use_packed else unet_apply
 
     def run_unet(name: str, *feats: torch.Tensor) -> torch.Tensor:
         x = torch.cat([f.to(cd) for f in feats], dim=-1)
-        return unet_apply(params[name], x, cfg).to(f32)
+        return apply_fn(params[name], x, cfg).to(f32)
 
     with torch.no_grad():
         if flows_only:
@@ -227,7 +241,7 @@ class RRIN:
     cfg: ModelConfig = ModelConfig()
     compute_dtype: torch.dtype = torch.float32
     use_pallas: bool = False
-    packed: Optional[bool] = None  # None: the plain path in this slice
+    packed: Optional[bool] = None  # None: follow use_pallas
     device: DeviceLike = "cuda"
 
     @classmethod

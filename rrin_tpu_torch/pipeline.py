@@ -13,8 +13,9 @@ decode -> normalize -> pad16 -> interpolate -> unpad -> quantize -> encode:
     in-flight window blocks only at the device-to-host copy of a result.
   * Per-stage wall-clock timers are collected into a structured JSON report.
 
-This slice serves the plain path on one device; the options that belong to
-paths not ported yet raise ``NotImplementedError`` (see ROADMAP.md).
+Serves the packed path (``packed=None`` follows ``use_pallas``) or the plain
+path on one device; the options that belong to paths not ported yet raise
+``NotImplementedError`` (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -71,7 +72,8 @@ def _step_body(
     ``pad_hw`` is the (pad_h, pad_w) bottom/right padding to /16.
     ``mode="times"`` interpolates each pair at the times ``ts`` ((B, m)
     floats in (0, 1)) instead of the 2^k midpoint grid: the arbitrary-fps
-    retiming step. ``packed=None`` resolves to the plain path in this slice.
+    retiming step. ``packed=None`` follows ``use_pallas``: the packed serving
+    path is the inference configuration (``models.unet.unet_apply_packed``).
     """
     dev = pairs_u8.device
     b, _, h, w, _ = pairs_u8.shape
@@ -86,7 +88,8 @@ def _step_body(
     def run(a, c, t, **kw):
         return forward(
             params, a, c, t, cfg=cfg, compute_dtype=compute_dtype,
-            use_pallas=use_pallas, packed=bool(packed), device=dev, **kw)
+            use_pallas=use_pallas,
+            packed=use_pallas if packed is None else packed, device=dev, **kw)
 
     def _run_times(tm: torch.Tensor) -> torch.Tensor:
         """Interpolate every pair at its (B, m) times -> (B, m, H, W, 3)
@@ -151,8 +154,6 @@ def device_step(
     pair batch (numpy or tensor) and ``ts`` there and returns the uint8
     result on that device without waiting for it."""
     dev = resolve_device(device)
-    if packed:
-        raise _not_ported("packed=True", "packed serving path")
     pairs = torch.as_tensor(pairs_u8)
     if pairs.dtype != torch.uint8 or pairs.ndim != 5 or pairs.shape[1] != 2:
         raise ValueError(
@@ -257,14 +258,12 @@ class PipelineReport:
         return json.dumps(self.__dict__, indent=2)
 
 
-
-
 class Interpolator:
     """Holds params + step configuration for one video job on one device.
 
     The options of paths that are not ported yet are accepted by name and
-    raise ``NotImplementedError``: ``packed=True``, ``int8``,
-    ``data_parallel != 1``, ``spatial != 1``.
+    raise ``NotImplementedError``: ``int8``, ``data_parallel != 1``,
+    ``spatial != 1``. ``packed=None`` follows ``use_pallas``.
     """
 
     def __init__(
@@ -289,8 +288,6 @@ class Interpolator:
             raise ValueError("spatial must be >= 1")
         if int8:
             raise _not_ported("int8=True", "int8")
-        if packed:
-            raise _not_ported("packed=True", "packed serving path")
         if data_parallel != 1:
             raise _not_ported(f"data_parallel={data_parallel}", "parallel/")
         if spatial != 1:
@@ -368,6 +365,7 @@ def interpolate_video(
     int8: bool = False,
     retime_fps: Optional[float] = None,
     slowmo: Optional[float] = None,
+    packed: Optional[bool] = None,
     device: DeviceLike = "cuda",
 ) -> PipelineReport:
     """2^exp-upsample ``input_path``'s frame rate into ``output_path``.
@@ -392,6 +390,7 @@ def interpolate_video(
     resumable jobs: consecutive segments concatenate seamlessly when only
     the last one writes the trailing source frame.
 
+    ``packed`` selects the U-Net path (``None`` follows ``use_pallas``).
     ``device`` defaults to the card and raises without one.
     """
     from rrin_tpu_torch.io.video import VideoReader, VideoWriter
@@ -419,7 +418,7 @@ def interpolate_video(
     interp = Interpolator(
         params, cfg, exp=exp, mode=mode, compute_dtype=compute_dtype,
         use_pallas=use_pallas, data_parallel=data_parallel, spatial=spatial,
-        int8=int8, device=device,
+        int8=int8, packed=packed, device=device,
     )
     # Sharded batches must divide evenly over the data mesh axis.
     batch_size = -(-batch_size // interp.shard_count) * interp.shard_count

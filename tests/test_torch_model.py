@@ -110,10 +110,13 @@ class TestForwardFp32:
         with pytest.raises(ValueError, match="multiples of 16"):
             forward(tp, x, x, device="cpu")
         x = np.zeros((1, 16, 16, 3), np.float32)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            forward(tp, x, x, packed=True, device="cpu")
+        # packed=True is ported: it runs, and equals the plain path in float32
+        assert torch.equal(forward(tp, x, x, packed=True, device="cpu"),
+                           forward(tp, x, x, packed=False, device="cpu"))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             forward(tp, x, x, remat=True, device="cpu")
+        with pytest.raises(ValueError, match="inference-only"):
+            forward(tp, x, x, packed=True, remat=True, device="cpu")
 
 
 def test_forward_bf16(weights, frames):

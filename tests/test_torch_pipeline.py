@@ -101,7 +101,7 @@ class TestInterpolator:
         assert tpipe.Interpolator(tp, exp=3, device="cpu").mids_per_pair == 7
 
     @pytest.mark.parametrize("kw", [
-        dict(packed=True), dict(int8=True), dict(data_parallel=2),
+        dict(int8=True, packed=True), dict(int8=True), dict(data_parallel=2),
         dict(data_parallel=0), dict(spatial=2)])
     def test_unported_options_raise(self, kw):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -115,9 +115,10 @@ class TestInterpolator:
     def test_device_step_rejects_bad_input(self):
         with pytest.raises(ValueError):
             tpipe.device_step({}, np.zeros((1, 2, 16, 16, 3), np.float32), device="cpu")
-        with pytest.raises(NotImplementedError):
-            tpipe.device_step({}, np.zeros((1, 2, 16, 16, 3), np.uint8),
+        with pytest.raises(ValueError):  # packed=True is ported; the check stays
+            tpipe.device_step({}, np.zeros((1, 2, 16, 16, 3), np.float32),
                               packed=True, device="cpu")
+        assert tpipe.Interpolator({}, packed=True, device="cpu").packed is True
 
 
 def _write_clip(path, n, h=32, w=48, fps=10.0):
