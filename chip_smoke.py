@@ -10,13 +10,19 @@ and numpy; nothing else and no network. It builds the CUDA kernels of
   device       the card's name and power limit
   build        nvcc over every kernel source, in parallel
   kernels      every kernel against its plain PyTorch version on the card at
-               the shapes of the 1080p paths, with times and bounds
+               the shapes of the 1080p paths (K6 and K9 also at the 4K up
+               sites), in bfloat16 and in int8, with times and bounds
   serve        the main path: the default Interpolator (bfloat16, kernels,
                packed U-Net path, full model width) answering 1080p requests
+  serve_4k     the same Interpolator answering 2160x3840 requests, whose up
+               sites u3c1 and u4c1 take K6 (conv_up_packed)
+  serve_int8   ``Interpolator(int8=True)``: calibration, then int8 requests
+               at 1080p (beside bfloat16 ones) and one at 2160x3840
   serve_plain  one 1080p request on the plain U-Net path (``packed=False``)
   serve_fp32   the float32 path (float32 warp kernel) and the bf16-source warp
-  agreement    card (kernels) against CPU (plain versions), and packed against
-               plain path on the card, on one request
+  agreement    card (kernels) against CPU (plain versions), packed against
+               plain path on the card, int8 card against int8 CPU, and the K6
+               route at a 4K width, on one request each
 
 Any failed check raises, so the exit code is non-zero and the closing lines
 are not printed. The closing lines are: the card's name and power limit, one
@@ -25,8 +31,9 @@ served paths, times measured in this run), and ``{"ok": true, "device":
 {...}}``.
 
 ``python3 chip_smoke.py --profile`` adds one phase after ``serve_plain``:
-``torch.profiler`` traces of two 1080p requests on each U-Net path, printed
-as device time by group of kernels (where the time of a request goes).
+``torch.profiler`` traces of two 1080p requests on each U-Net path, of one
+int8 1080p request and of one bfloat16 4K request, printed as device time by
+group of kernels (where the time of a request goes).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from rrin_tpu_torch import ModelConfig, _build, init_params
+from rrin_tpu_torch.models.rrin import scale_quant_stats
 from rrin_tpu_torch.ops import conv_packed, conv_phase, warp_kernel
 from rrin_tpu_torch.ops.resize import avg_pool_2x, upsample_2x_bilinear
 from rrin_tpu_torch.ops.warp import warp_pair
@@ -50,12 +58,14 @@ from rrin_tpu_torch.params.checkpoint import (
     params_from_numpy,
     unflatten_params,
 )
-from rrin_tpu_torch.pipeline import Interpolator
+from rrin_tpu_torch.pipeline import Interpolator, device_calibrate
 
 # Published peaks of one H100 SXM (dense): the bounds are stated against these.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 FP32_FLOPS = 67e12
+NO_INT8_LIBRARY = "no PyTorch call computes an int8 conv on CUDA"
 
 # Tolerances, fixed before any run.
 # K1: kernel rounds once to bf16 from a float32 sum; the plain version is a
@@ -79,10 +89,21 @@ WARP_ATOL_LARGE = 5e-5
 # bf16 card vs bf16 CPU on one request: both round 76 convs to bf16 at other
 # places (tensor-core kernel and cuDNN against oneDNN).
 BF16_PSNR_DB = 40.0
+# int8 kernels: the int32 sum is exact and the plain version's float32
+# fake-quant sum is not, so an output rounded to the int8 grid may land one
+# step away where it sits near a tie; a bf16 output is held to K1's bar.
+INT8_STEPS = 1
+# int8 request against the bf16 one: the JAX package's bar for its int8
+# cascade against float32 (tests/test_int8.py); int8 card against int8 CPU
+# with the same stats: the bf16 card-vs-CPU bar.
+INT8_VS_BF16_PSNR_DB = 35.0
+INT8_CARD_CPU_PSNR_DB = 40.0
 
 H1080, W1080 = 1080, 1920
 HP, WP = 1088, 1920            # 1080p padded to the /16 grid
+H4K, W4K = 2160, 3840          # on the /16 grid already
 SMALL_HW = (256, 448)
+K6_ROUTE_HW = (64, 3200)       # the narrowest width the reference sends to K6
 
 
 def check(cond: bool, msg: str) -> None:
@@ -196,32 +217,41 @@ def _upsampled(xs):
     return upsample_2x_bilinear(xs[0].float()).to(torch.bfloat16)
 
 
-# kernel name -> (wrapper, plain version, how the input of the conv is
-# materialised for the plain version and the library yardstick, the host-side
-# weight layout that prepared= takes).
+# kernel name -> (wrapper, plain version, int8 plain version, how the input of
+# the conv is materialised for the plain version and the library yardstick,
+# the host-side weight layout that prepared= takes).
 PACKED_KERNELS = {
     "conv_packed": (
         conv_packed.conv_packed, conv_packed._conv_packed_plain,
+        conv_packed._conv_packed_q_plain,
         lambda xs: xs[0] if len(xs) == 1 else torch.cat(xs, dim=-1),
         conv_packed.prep_conv),
     "conv_pool_packed": (
         conv_packed.conv_pool_packed, conv_packed._conv_pool_plain,
+        conv_packed._conv_pool_q_plain,
         lambda xs: avg_pool_2x(xs[0].float()).to(torch.bfloat16),
-        lambda w, b, cins: conv_packed.prep_conv_pool(w, b)),
+        lambda w, b, cins, *q: conv_packed.prep_conv_pool(w, b, *q)),
+    "conv_up_packed": (
+        conv_packed.conv_up_packed, conv_packed._conv_up_wh_plain,
+        conv_packed._conv_up_q_plain, _upsampled,
+        lambda w, b, cins, *q: conv_packed.prep_conv_up(w, b, *q)),
     "conv_up_m_packed": (
-        conv_packed.conv_up_m_packed, conv_packed._conv_up_plain, _upsampled,
-        lambda w, b, cins: conv_packed.prep_conv_up_m(w, b)),
+        conv_packed.conv_up_m_packed, conv_packed._conv_up_plain,
+        conv_packed._conv_up_m_q_plain, _upsampled,
+        lambda w, b, cins, *q: conv_packed.prep_conv_up_m(w, b, *q)),
     "conv_up_f_packed": (
-        conv_packed.conv_up_f_packed, conv_packed._conv_up_plain, _upsampled,
-        lambda w, b, cins: conv_packed.prep_conv_up_f(w, b)),
+        conv_packed.conv_up_f_packed, conv_packed._conv_up_plain,
+        conv_packed._conv_up_f_q_plain, _upsampled,
+        lambda w, b, cins, *q: conv_packed.prep_conv_up_f(w, b, *q)),
 }
 
 
-def packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope):
+def packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope, int8=None):
     """One site of a packed-path kernel; (h, w) is the resolution the conv
     runs at, i.e. of its output. The stored input is (2h, 2w) for the pool
-    kernel and (h/2, w/2) for the upsampling kernels."""
-    wrapper, plain, materialise, prepare = PACKED_KERNELS[kernel]
+    kernel and (h/2, w/2) for the upsampling kernels. ``int8``: None for
+    bfloat16, else (which operands arrive as int8 already, int8 output)."""
+    wrapper, plain, plain_q, materialise, prepare = PACKED_KERNELS[kernel]
     hs, ws = {"conv_packed": (h, w), "conv_pool_packed": (2 * h, 2 * w)}.get(
         kernel, (h // 2, w // 2))
     xs = [torch.from_numpy(rng.standard_normal((1, hs, ws, c)).astype(np.float32))
@@ -231,22 +261,52 @@ def packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope):
     wt = torch.from_numpy(
         rng.uniform(-bound, bound, (k, k, cin, cout)).astype(np.float32)).to(dev)
     bias = torch.from_numpy(rng.uniform(-bound, bound, (cout,)).astype(np.float32)).to(dev)
-    arg = xs if kernel == "conv_packed" else xs[0]
+    single = kernel != "conv_packed"
+    if int8 is not None:
+        in_i8, out_q = int8
+        axs = [x.float().abs().amax() for x in xs]
+        xs = [conv_packed._quantize_act(x, a) if q else x for x, a, q in zip(xs, axs, in_i8)]
+        qarg = axs[0] if single else axs
+        oax = None
+        if out_q:  # the output's own range, as calibration would find it
+            oax = 1.2 * plain_q(xs[0] if single else xs, wt, bias, slope, qarg, None,
+                                torch.float32).abs().amax()
+        qkw = dict(in_absmax=qarg, out_absmax=oax)
+        prep_q = (qarg, oax)
+    else:
+        qkw, prep_q = {}, ()
+    arg = xs[0] if single else xs
+    count = kernel + ("_int8" if int8 is not None else "")
 
-    before = _build.launch_counts()[kernel]
-    got = wrapper(arg, wt, bias, slope)
+    before = _build.launch_counts()[count]
+    got = wrapper(arg, wt, bias, slope, **qkw)
     torch.cuda.synchronize()
-    check(_build.launch_counts()[kernel] == before + 1,
-          f"{name}: {kernel} did not launch its kernel")
-    want = plain(arg, wt, bias, slope)
-    check(got.shape == want.shape == (1, h, w, cout) and got.dtype == torch.bfloat16,
+    check(_build.launch_counts()[count] == before + 1,
+          f"{name}: {kernel} did not launch its {'int8 ' if int8 else ''}kernel")
+    if int8 is None:
+        run_plain = lambda: plain(arg, wt, bias, slope)  # noqa: E731
+    else:
+        run_plain = lambda: plain_q(arg, wt, bias, slope, qarg, oax, None)  # noqa: E731
+    want = run_plain()
+    check(got.shape == want.shape == (1, h, w, cout) and got.dtype == want.dtype,
           f"{name}: shape/dtype {tuple(got.shape)} {got.dtype}")
     check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite output")
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
     out = {"site": name, "kernel": kernel, "out_shape": [1, h, w, cout], "cins": list(cins),
-           "k": k, "slope": slope, "max_abs_err": err}
-    if kernel == "conv_up_f_packed":
+           "k": k, "slope": slope, "max_abs_err": err,
+           "dtype": "bfloat16" if int8 is None else "int8"}
+    if int8 is not None:
+        out.update({"int8_inputs": list(int8[0]), "int8_output": int8[1]})
+        if got.dtype == torch.int8:
+            check(err <= INT8_STEPS, f"{name}: {err} int8 steps from the plain version")
+            out.update({"max_int8_steps": int(err), "int8_steps_bar": INT8_STEPS,
+                        "share_differing": float((diff > 0).float().mean())})
+        else:
+            check(bool((diff <= CONV_ATOL + CONV_RTOL * want.float().abs()).all()),
+                  f"{name}: int8 kernel disagrees with plain version, max abs err {err}")
+            out.update({"atol": CONV_ATOL, "rtol": CONV_RTOL})
+    elif kernel == "conv_up_f_packed":
         peak = float(want.float().abs().max())
         psnr = 10 * np.log10(peak * peak / max(float((diff.double() ** 2).mean()), 1e-20))
         atol = UPF_STEPS * 2.0 ** -8 * peak
@@ -263,27 +323,35 @@ def packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope):
               f"{name}: kernel disagrees with plain version, max abs err {err}")
         out.update({"atol": CONV_ATOL, "rtol": CONV_RTOL})
 
-    # The library yardstick: one F.conv2d call on the materialised input
-    # (concatenated, pooled or upsampled beforehand, outside the timing), bf16
-    # channels-last with bias, no activation; used nowhere in the port.
-    xn = materialise(xs).permute(0, 3, 1, 2)
-    wn = wt.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    bn = bias.to(torch.bfloat16)
-    pad = (k - 1) // 2
-    out["kernel_ms"] = time_ms(lambda: wrapper(arg, wt, bias, slope))
-    out["plain_ms"] = time_ms(lambda: plain(arg, wt, bias, slope))
-    out["library_ms"] = time_ms(lambda: F.conv2d(xn, wn, bn, padding=pad))
+    out["kernel_ms"] = time_ms(lambda: wrapper(arg, wt, bias, slope, **qkw))
+    out["plain_ms"] = time_ms(run_plain)
+    if int8 is None:
+        # The library yardstick: one F.conv2d call on the materialised input
+        # (concatenated, pooled or upsampled beforehand, outside the timing),
+        # bf16 channels-last with bias, no activation; used nowhere in the port.
+        xn = materialise(xs).permute(0, 3, 1, 2)
+        wn = wt.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        bn = bias.to(torch.bfloat16)
+        pad = (k - 1) // 2
+        out["library_ms"] = time_ms(lambda: F.conv2d(xn, wn, bn, padding=pad))
+    else:
+        out.update({"library_ms": None, "library_null_reason": NO_INT8_LIBRARY})
     # The kernel without the per-call weight re-layout (prepared= given).
-    prep = prepare(wt, bias, cins)
-    check(torch.equal(wrapper(arg, wt, bias, slope, prepared=prep), got),
+    prep = prepare(wt, bias, cins, *prep_q)
+    check(torch.equal(wrapper(arg, wt, bias, slope, prepared=prep, **qkw), got),
           f"{name}: prepared= changes the result")
-    out["kernel_prepared_ms"] = time_ms(lambda: wrapper(arg, wt, bias, slope, prepared=prep))
+    out["kernel_prepared_ms"] = time_ms(
+        lambda: wrapper(arg, wt, bias, slope, prepared=prep, **qkw))
 
     # The bytes the fused kernel must move: each stored operand once (no
-    # pooled, upsampled or concatenated tensor), weights, bias, the output.
+    # pooled, upsampled or concatenated tensor; an int8 one at one byte an
+    # element), weights, bias, the output; int8 operations at the int8 peak.
     flops = 2.0 * h * w * k * k * cin * cout
-    nbytes = sum(x.numel() for x in xs) * 2 + wt.numel() * 4 + bias.numel() * 4 + got.numel() * 2
-    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    nbytes = (sum(x.numel() * x.element_size() for x in xs) + wt.numel() * 4
+              + bias.numel() * 4 + got.numel() * got.element_size())
+    peak_ops = BF16_FLOPS if int8 is None else INT8_OPS
+    t_ops, t_bytes = flops / peak_ops * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     out.update({"bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "flops": flops, "bytes": nbytes})
@@ -294,7 +362,7 @@ def packed_cases(rng, dev):
     s = ModelConfig().leaky_slope
     specs = [
         # (kernel, name, h, w, cins, cout, k, slope, launches of this site in
-        #  the flow U-Net at 1088x1920)
+        #  the flow U-Net at 1088x1920, or at 2160x3840 for the 4K rows)
         ("conv_packed", "c1_flow_cin6", HP, WP, (6,), 32, 7, s, 1),
         ("conv_packed", "c1_refine_cin10", HP, WP, (10,), 32, 7, s, 0),
         ("conv_packed", "c1_mask_cin16", HP, WP, (16,), 32, 7, s, 0),
@@ -323,6 +391,13 @@ def packed_cases(rng, dev):
         ("conv_up_f_packed", "u3c1", HP // 2, WP // 2, (128,), 64, 3, s, 1),
         ("conv_up_f_packed", "u4c1", HP, WP, (64,), 32, 3, s, 1),
         ("conv_up_f_packed", "ragged_270x486", 270, 486, (64,), 32, 3, s, 0),
+        # K6 where the 4K request takes it, and K9 at the same sites beside it
+        ("conv_up_packed", "u3c1_4k", H4K // 2, W4K // 2, (128,), 64, 3, s, 1),
+        ("conv_up_packed", "u4c1_4k", H4K, W4K, (64,), 32, 3, s, 1),
+        ("conv_up_packed", "k5_270x480", 270, 480, (64,), 32, 5, s, 0),
+        ("conv_up_packed", "k1_ragged_270x486", 270, 486, (32,), 16, 1, s, 0),
+        ("conv_up_f_packed", "u3c1_4k", H4K // 2, W4K // 2, (128,), 64, 3, s, 0),
+        ("conv_up_f_packed", "u4c1_4k", H4K, W4K, (64,), 32, 3, s, 0),
     ]
     cases = []
     for kernel, name, h, w, cins, cout, k, slope, mult in specs:
@@ -330,6 +405,27 @@ def packed_cases(rng, dev):
         c["per_flow_unet"] = mult
         cases.append(c)
     return cases
+
+
+def int8_cases(rng, dev):
+    """One int8 site or more of each packed kernel, at the shapes of the int8
+    requests: (which operands arrive as int8, int8 output) as the carry plan
+    of ``models.unet.carry_plan`` has them there."""
+    s = ModelConfig().leaky_slope
+    specs = [
+        ("conv_packed", "c1_flow_cin6", HP, WP, (6,), 32, 7, ((False,), True)),
+        ("conv_packed", "d4c2", HP // 16, WP // 16, (512,), 512, 3, ((True,), False)),
+        ("conv_packed", "u1c2", HP // 8, WP // 8, (256, 256), 256, 3, ((True, False), True)),
+        ("conv_pool_packed", "d1c1", HP // 2, WP // 2, (32,), 64, 5, ((True,), True)),
+        ("conv_up_m_packed", "u2c1", HP // 4, WP // 4, (256,), 128, 3, ((True,), True)),
+        ("conv_up_f_packed", "u3c1", HP // 2, WP // 2, (128,), 64, 3, ((True,), True)),
+        ("conv_up_f_packed", "u4c1", HP, WP, (64,), 32, 3, ((True,), True)),
+        ("conv_up_packed", "u3c1_4k", H4K // 2, W4K // 2, (128,), 64, 3, ((True,), True)),
+        ("conv_up_packed", "u4c1_4k", H4K, W4K, (64,), 32, 3, ((True,), True)),
+        ("conv_up_packed", "k5_bf16_in_out", 270, 480, (64,), 32, 5, ((False,), False)),
+    ]
+    return [packed_case(rng, dev, kernel, name, h, w, cins, cout, k, s, int8=q)
+            for kernel, name, h, w, cins, cout, k, q in specs]
 
 
 # ------------------------------------------------------------ kernels: K2-K4
@@ -436,10 +532,20 @@ def serve_request(interp, pairs):
     return mids, (time.perf_counter() - t0) * 1e3
 
 
-# Launches of one 1080p exp=1 request (4 U-Nets, 2 warps) on each U-Net path.
+# Launches of one exp=1 request (4 U-Nets, 2 warps) on each U-Net path: 1080p
+# and 4K differ at u3c1 and u4c1 (K9 below width 3200, K6 from there on); in
+# int8 every conv but the four heads is int8; the int8 calibration pass runs
+# the plain path.
 PACKED_PER_REQUEST = {"conv_packed": 56, "conv_pool_packed": 8, "conv_up_m_packed": 4,
                       "conv_up_f_packed": 8, "warp_u8": 2}
+PACKED_4K_PER_REQUEST = {"conv_packed": 56, "conv_pool_packed": 8, "conv_up_m_packed": 4,
+                         "conv_up_packed": 8, "warp_u8": 2}
+INT8_PER_REQUEST = {"conv_packed_int8": 52, "conv_packed": 4, "conv_pool_packed_int8": 8,
+                    "conv_up_m_packed_int8": 4, "conv_up_f_packed_int8": 8, "warp_u8": 2}
+INT8_4K_PER_REQUEST = {"conv_packed_int8": 52, "conv_packed": 4, "conv_pool_packed_int8": 8,
+                       "conv_up_m_packed_int8": 4, "conv_up_packed_int8": 8, "warp_u8": 2}
 PLAIN_PER_REQUEST = {"conv_phase": 36, "warp_u8": 2}
+CALIBRATION_LAUNCHES = PLAIN_PER_REQUEST
 
 
 def check_launches(what, before, after, want, times=1):
@@ -457,6 +563,7 @@ def phase_serve(params, dev):
     interp = Interpolator(params, compute_dtype="bfloat16", use_pallas=True, exp=1,
                           device=dev)
     check(interp.packed is None, "serve: the Interpolator's packed default is not None")
+    torch.cuda.reset_peak_memory_stats()
     serve_request(interp, pairs)  # warm-up
     _build.reset_launch_counts()
     times = []
@@ -489,6 +596,85 @@ def phase_serve(params, dev):
     return counts
 
 
+def phase_serve_4k(params, dev):
+    """The default Interpolator on 2160x3840 requests: the reference routes
+    u3c1 and u4c1 to K6 at this width, and so does the port."""
+    interp = Interpolator(params, compute_dtype="bfloat16", use_pallas=True, exp=1,
+                          device=dev)
+    serve_request(interp, moving_squares(0, H4K, W4K))  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    times = []
+    for i in range(3):
+        before = _build.launch_counts()
+        mids, ms = serve_request(interp, moving_squares(i, H4K, W4K))
+        times.append(ms)
+        check(mids.shape == (1, 1, H4K, W4K, 3) and mids.dtype == np.uint8,
+              f"serve_4k: output {mids.dtype} {mids.shape}")
+        check_launches("serve_4k", before, _build.launch_counts(), PACKED_4K_PER_REQUEST)
+        check(mids.std() > 1.0, "serve_4k: output frame is constant")
+    counts = _build.launch_counts()
+    emit("serve_4k", path="packed", requests=3, shape=[1, 2, H4K, W4K, 3],
+         compute_dtype="bfloat16", ms_per_request=times, launches=counts,
+         launches_per_request=PACKED_4K_PER_REQUEST,
+         peak_device_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return counts
+
+
+def phase_serve_int8(params, dev):
+    """``Interpolator(int8=True)``: the first request at each resolution
+    calibrates on the plain path, the others serve int8 on K5-K9 (K6 at 4K).
+    bfloat16 requests of the default Interpolator run beside them, in turns."""
+    pairs = [moving_squares(i, H1080, W1080) for i in range(3)]
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = device_calibrate(params, pairs[0], compute_dtype=torch.bfloat16,
+                             use_pallas=True, pad_hw=(HP - H1080, 0), device=dev)
+    torch.cuda.synchronize()
+    calib_ms = (time.perf_counter() - t0) * 1e3
+    check_launches("int8 calibration", {k: 0 for k in _build.LAUNCHES},
+                   _build.launch_counts(), CALIBRATION_LAUNCHES)
+    check(all(bool(torch.isfinite(v) and v > 0) for st in stats.values() for v in st.values()),
+          "int8 calibration: a range is not finite and positive")
+
+    q8 = Interpolator(params, compute_dtype="bfloat16", use_pallas=True, int8=True,
+                      device=dev)
+    bf = Interpolator(params, compute_dtype="bfloat16", use_pallas=True, device=dev)
+    _, first_ms = serve_request(q8, pairs[0])  # calibrates, then serves
+    serve_request(bf, pairs[0])  # warm-up
+    _build.reset_launch_counts()
+    ms8, ms16, agree = [], [], []
+    for p in pairs:
+        before = _build.launch_counts()
+        m8, t8 = serve_request(q8, p)
+        check_launches("serve_int8", before, _build.launch_counts(), INT8_PER_REQUEST)
+        m16, t16 = serve_request(bf, p)
+        ms8.append(t8)
+        ms16.append(t16)
+        check(m8.shape == (1, 1, H1080, W1080, 3) and m8.std() > 1.0, "serve_int8: output")
+        agree.append(_u8_agreement(m8, m16))
+    counts = _build.launch_counts()
+    for a in agree:
+        check(a["psnr_db"] >= INT8_VS_BF16_PSNR_DB, f"serve_int8: int8 vs bf16 {a}")
+
+    # One int8 request at 4K: its own calibration, then K6 in int8.
+    q8.step(moving_squares(0, H4K, W4K)).cpu()
+    before = _build.launch_counts()
+    m4k, ms4k = serve_request(q8, moving_squares(1, H4K, W4K))
+    check_launches("serve_int8 4K", before, _build.launch_counts(), INT8_4K_PER_REQUEST)
+    check(m4k.shape == (1, 1, H4K, W4K, 3) and m4k.std() > 1.0, "serve_int8 4K: output")
+    emit("serve_int8", shape=[1, 2, H1080, W1080, 3], calibration_ms=calib_ms,
+         first_request_ms_with_calibration=first_ms, int8_ms_per_request=ms8,
+         bf16_ms_per_request_same_run=ms16, int8_vs_bf16=agree,
+         int8_vs_bf16_psnr_bar_db=INT8_VS_BF16_PSNR_DB,
+         launches_per_request=INT8_PER_REQUEST, launches=counts,
+         ms_4k_int8_request=ms4k, launches_per_4k_request=INT8_4K_PER_REQUEST,
+         peak_device_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return _build.launch_counts()
+
+
 def phase_serve_plain(params, dev):
     """One request on the plain U-Net path, which K1 serves."""
     pairs = moving_squares(0, H1080, W1080)
@@ -512,14 +698,16 @@ def phase_serve_plain(params, dev):
 
 
 _PACKED_MODES = {"0": "conv_packed (K5)", "1": "conv_pool_packed (K7)",
-                 "2": "conv_up_m_packed (K8)", "3": "conv_up_f_packed (K9)"}
+                 "2": "conv_up_m_packed (K8)", "3": "conv_up_f_packed (K9)",
+                 "4": "conv_up_packed (K6)"}
 
 
 def _profile_group(name: str) -> str:
     low = name.lower()
-    packed = re.search(r"conv_packed_kernel<\s*\d+,\s*(?:\(.*?\))?(\d+)\s*>", low)
-    if packed:  # conv_packed_kernel<NT, MODE>: the mode is the entry point
-        return _PACKED_MODES[packed.group(1)]
+    packed = re.search(
+        r"conv_packed_kernel<\s*\d+,\s*(?:\(.*?\))?(\d+),\s*(true|false)\s*>", low)
+    if packed:  # conv_packed_kernel<NT, MODE, Q>: the mode is the entry point
+        return _PACKED_MODES[packed.group(1)] + (" int8" if packed.group(2) == "true" else "")
     if "conv_phase_kernel" in low:
         return "conv_phase (K1)"
     if "warp_kernel" in low or "pack_u8" in low or "pack_bf16" in low:
@@ -533,16 +721,15 @@ def _profile_group(name: str) -> str:
     return "elementwise PyTorch"
 
 
-def phase_profile(params, dev, packed, top: int = 12):
-    """Device time of two served 1080p requests by group of kernels, on the
-    packed (``packed=None``) or the plain (``packed=False``) U-Net path."""
+def phase_profile(params, dev, path, top: int = 12, hw=(H1080, W1080), n=2, **kw):
+    """Device time of ``n`` served requests by group of kernels, on the path
+    the Interpolator's keywords ``kw`` select (named ``path``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    interp = Interpolator(params, compute_dtype="bfloat16", use_pallas=True,
-                          packed=packed, exp=1, device=dev)
-    pairs = moving_squares(0, H1080, W1080)
+    interp = Interpolator(params, compute_dtype="bfloat16", use_pallas=True, exp=1,
+                          device=dev, **kw)
+    pairs = moving_squares(0, *hw)
     serve_request(interp, pairs)
-    n = 2
     plain_ms = sum(serve_request(interp, pairs)[1] for _ in range(n)) / n
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
@@ -558,7 +745,7 @@ def phase_profile(params, dev, packed, top: int = 12):
         groups[_profile_group(key)] = groups.get(_profile_group(key), 0.0) + ms
     # The profiler slows the host, so the idle share is taken against the
     # requests timed just before it was switched on.
-    emit("profile", path="plain" if packed is False else "packed", requests=n,
+    emit("profile", path=path, shape=[1, 2, *hw, 3], requests=n,
          ms_per_request_unprofiled=plain_ms, device_busy_ms_per_request=busy,
          device_idle_share=max(0.0, 1.0 - busy / plain_ms),
          kernels_per_request=sum(r[2] for r in rows), by_group=groups,
@@ -626,13 +813,37 @@ def phase_agreement(params, dev):
         "packed_vs_plain_on_card": _u8_agreement(card["bfloat16", True],
                                                  card["bfloat16", False]),
     }
+    # int8 with the same stats on both sides (calibrated on the card, margin
+    # applied, handed to each Interpolator as preset stats)
+    stats = scale_quant_stats(device_calibrate(
+        params, pairs, compute_dtype=torch.bfloat16, use_pallas=True, device=dev), 1.2)
+    card_int8 = Interpolator(params, compute_dtype="bfloat16", use_pallas=True, int8=True,
+                             quant_stats=stats, device=dev).step(pairs).cpu().numpy()
+    cpu_int8 = Interpolator(
+        cpu_params, compute_dtype="bfloat16", use_pallas=True, int8=True, device="cpu",
+        quant_stats={u: {k: v.cpu() for k, v in st.items()} for u, st in stats.items()},
+    ).step(pairs).cpu().numpy()
+    out["int8"] = _u8_agreement(card_int8, cpu_int8)
+    # the K6 route (a width the reference sends to conv_up_packed), bfloat16
+    hk, wk = K6_ROUTE_HW
+    wide = moving_squares(10, hk, wk)
+    before = _build.launch_counts()
+    card_k6 = Interpolator(params, compute_dtype="bfloat16", use_pallas=True,
+                           device=dev).step(wide).cpu().numpy()
+    moved = _build.launch_counts()["conv_up_packed"] - before["conv_up_packed"]
+    check(moved == 8, f"agreement: {moved} conv_up_packed launches at {hk}x{wk}, want 8")
+    out["bfloat16_k6_route"] = _u8_agreement(card_k6, Interpolator(
+        cpu_params, compute_dtype="bfloat16", use_pallas=True,
+        device="cpu").step(wide).cpu().numpy())
     f32 = out["float32"]
     # the JAX package's bar between two programs computing the same frames
     check(f32["max_u8_steps"] <= 1 and f32["share_differing"] < 1e-3,
           f"agreement float32: {f32}")
-    for key in ("bfloat16", "bfloat16_packed", "packed_vs_plain_on_card"):
+    for key in ("bfloat16", "bfloat16_packed", "packed_vs_plain_on_card", "bfloat16_k6_route"):
         check(out[key]["psnr_db"] >= BF16_PSNR_DB, f"agreement {key}: {out[key]}")
-    emit("agreement", shape=[1, 2, h, w, 3], bf16_psnr_bar_db=BF16_PSNR_DB, **out)
+    check(out["int8"]["psnr_db"] >= INT8_CARD_CPU_PSNR_DB, f"agreement int8: {out['int8']}")
+    emit("agreement", shape=[1, 2, h, w, 3], bf16_psnr_bar_db=BF16_PSNR_DB,
+         int8_psnr_bar_db=INT8_CARD_CPU_PSNR_DB, k6_route_shape=[1, 2, hk, wk, 3], **out)
 
 
 # ------------------------------------------------------------------- summary
@@ -644,6 +855,7 @@ TPU_KERNEL_LINES = {
     "warp_bf16": "rrin_tpu/ops/warp_pallas.py:211",
     "conv_packed": "rrin_tpu/ops/conv_packed.py:506",
     "conv_pool_packed": "rrin_tpu/ops/conv_packed.py:1115",
+    "conv_up_packed": "rrin_tpu/ops/conv_packed.py:824",
     "conv_up_m_packed": "rrin_tpu/ops/conv_packed.py:1845",
     "conv_up_f_packed": "rrin_tpu/ops/conv_packed.py:2373",
 }
@@ -670,7 +882,18 @@ def _conv_entry(name, source, cases, launches, what):
     }
 
 
-def kernels_summary(conv, packed, warps, serve_counts, plain_counts, fp32_counts):
+def _int8_entry(cases, launches):
+    """The int8 mode of one packed kernel: its sites as timed above and its
+    launches on the int8 path."""
+    keep = ("site", "out_shape", "cins", "k", "int8_inputs", "int8_output", "max_abs_err",
+            "kernel_ms", "kernel_prepared_ms", "plain_ms", "bound_ms", "bound_by")
+    return {"launches": launches, "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "library_ms": None, "library_null_reason": NO_INT8_LIBRARY,
+            "sites": [{k: c[k] for k in keep} for c in cases]}
+
+
+def kernels_summary(conv, packed, int8, warps, serve_counts, counts_4k, int8_counts,
+                    plain_counts, fp32_counts):
     """The per-kernel closing object: launches from the served paths (each
     kernel from the path it belongs to), every other number measured above
     in this run."""
@@ -691,19 +914,30 @@ def kernels_summary(conv, packed, warps, serve_counts, plain_counts, fp32_counts
             "library_ms": timed["library_ms"],
             "what": "one warp at 1088x1920 (source packing pass included)",
         })
-    for name in ("conv_packed", "conv_pool_packed", "conv_up_m_packed", "conv_up_f_packed"):
+    for name in ("conv_packed", "conv_pool_packed", "conv_up_packed", "conv_up_m_packed",
+                 "conv_up_f_packed"):
         cases = [c for c in packed if c["kernel"] == name]
         n = sum(c["per_flow_unet"] for c in cases)
-        entries.append(_conv_entry(
-            name, "rrin_tpu_torch/csrc/conv_packed.cu", cases, serve_counts[name],
-            f"sum over the {n} launches of one flow U-Net at 1088x1920 (packed path)"))
+        if name == "conv_up_packed":
+            entry = _conv_entry(
+                name, "rrin_tpu_torch/csrc/conv_packed.cu", cases, counts_4k[name],
+                f"sum over the {n} launches of one flow U-Net at 2160x3840 (packed path, "
+                "launches from serve_4k)")
+            entry["k9_same_sites_ms"] = sum(
+                c["kernel_ms"] for c in packed
+                if c["kernel"] == "conv_up_f_packed" and c["site"].endswith("_4k"))
+        else:
+            entry = _conv_entry(
+                name, "rrin_tpu_torch/csrc/conv_packed.cu", cases, serve_counts[name],
+                f"sum over the {n} launches of one flow U-Net at 1088x1920 (packed path)")
+        entry["int8"] = _int8_entry([c for c in int8 if c["kernel"] == name],
+                                    int8_counts[f"{name}_int8"])
+        check(entry["int8"]["launches"] > 0, f"{name}: no int8 launch on the int8 path")
+        entries.append(entry)
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was never launched by the path it belongs to")
-    not_ported = [{
-        "name": "conv_up_packed", "replaces": "rrin_tpu/ops/conv_packed.py:824",
-        "status": "not ported: no site of a 1080p request takes it (ROADMAP.md Queue B)",
-    }]
-    return {"kernels": entries, "not_ported": not_ported}
+    check(len(entries) == len(TPU_KERNEL_LINES) == 9, "the closing line lists nine kernels")
+    return {"kernels": entries, "not_ported": []}
 
 
 def main() -> int:
@@ -729,21 +963,27 @@ def main() -> int:
     rng = np.random.default_rng(0)
     conv = conv_cases(rng, dev)
     packed = packed_cases(rng, dev)
+    int8 = int8_cases(rng, dev)
     warps = warp_cases(rng, dev)
-    emit("kernels", conv_phase=conv, conv_packed=packed, warp=warps,
+    emit("kernels", conv_phase=conv, conv_packed=packed, conv_packed_int8=int8, warp=warps,
          peaks={"hbm_bytes_per_s": HBM_BYTES_PER_S, "bf16_flops": BF16_FLOPS,
-                "fp32_flops": FP32_FLOPS})
+                "int8_ops": INT8_OPS, "fp32_flops": FP32_FLOPS})
 
     params = init_params(torch.Generator().manual_seed(0), ModelConfig(), device=dev)
     serve_counts = phase_serve(params, dev)
+    counts_4k = phase_serve_4k(params, dev)
+    int8_counts = phase_serve_int8(params, dev)
     plain_counts = phase_serve_plain(params, dev)
     if "--profile" in sys.argv[1:]:
-        phase_profile(params, dev, packed=None)
-        phase_profile(params, dev, packed=False)
+        phase_profile(params, dev, "packed")
+        phase_profile(params, dev, "plain", packed=False)
+        phase_profile(params, dev, "int8", n=1, int8=True)
+        phase_profile(params, dev, "packed 4K", hw=(H4K, W4K), n=1)
     fp32_counts = phase_serve_fp32(params, dev)
     phase_agreement(params, dev)
 
-    summary = kernels_summary(conv, packed, warps, serve_counts, plain_counts, fp32_counts)
+    summary = kernels_summary(conv, packed, int8, warps, serve_counts, counts_4k,
+                              int8_counts, plain_counts, fp32_counts)
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,11 +31,13 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# Kernel name -> launches since the last reset_launch_counts().
+# Kernel name -> launches since the last reset_launch_counts(). The packed
+# convs count their int8 launches under "<name>_int8".
+_PACKED = ("conv_packed", "conv_pool_packed", "conv_up_packed", "conv_up_m_packed",
+           "conv_up_f_packed")
 LAUNCHES: Dict[str, int] = {
     "conv_phase": 0, "warp_u8": 0, "warp_f32": 0, "warp_bf16": 0,
-    "conv_packed": 0, "conv_pool_packed": 0, "conv_up_m_packed": 0,
-    "conv_up_f_packed": 0,
+    **{name: 0 for name in _PACKED}, **{f"{name}_int8": 0 for name in _PACKED},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -30,15 +30,19 @@ import torch
 from rrin_tpu_torch._device import DeviceLike, resolve_device
 from rrin_tpu_torch.config import ModelConfig
 from rrin_tpu_torch.models.unet import (
+    _PERCENTILE_ITEM,
     packed_bf16_supported,
     packed_supported,
     unet_apply,
     unet_apply_packed,
+    unet_apply_stats,
     unet_init,
 )
 from rrin_tpu_torch.ops.warp import warp_pair
 
 Params = Dict[str, Any]
+# unet name -> producer site -> calibrated |x| maximum (float32 scalars).
+QuantStats = Dict[str, Dict[str, Any]]
 TimeLike = Union[float, np.ndarray, torch.Tensor]
 
 # Warp source format on the bfloat16 compute path: the byte-packed variant
@@ -156,6 +160,7 @@ def forward(
     use_pallas: bool = False,
     remat: bool = False,
     packed: Optional[bool] = False,
+    quant_stats: Optional[QuantStats] = None,
     flows: Optional[torch.Tensor] = None,
     flows_only: bool = False,
     device: DeviceLike = "cuda",
@@ -183,6 +188,11 @@ def forward(
         as in the JAX package). On the card the packed kernels are bfloat16:
         ``compute_dtype=torch.float32`` there raises ``NotImplementedError``,
         so float32 requests pass ``packed=False``.
+      quant_stats: calibration stats from :func:`forward_calibrate` (per
+        U-Net |x| maxima, on ``device``). Requires the packed path (raises
+        ``ValueError`` without it); every packed conv but the heads then runs
+        int8 x int8 -> int32. Quality bar: > 35 dB PSNR against the float32
+        output (the JAX package's).
       flows: optional precomputed flow-U-Net output (B, H, W, 4) from a
         ``flows_only=True`` call on the same (i0, i1); skips that U-Net.
       flows_only: run only the t-independent flow U-Net and return its
@@ -215,11 +225,16 @@ def forward(
     use_packed = (
         bool(packed) and packed_supported(i0f.shape[-3], i0f.shape[-2], cfg)
         and packed_bf16_supported(i0f.shape[-2]))
+    if quant_stats is not None and not use_packed:
+        raise ValueError(
+            "quant_stats (int8) requires the packed fast path: pass packed=True "
+            "on a supported shape/config")
     apply_fn = unet_apply_packed if use_packed else unet_apply
 
     def run_unet(name: str, *feats: torch.Tensor) -> torch.Tensor:
         x = torch.cat([f.to(cd) for f in feats], dim=-1)
-        return apply_fn(params[name], x, cfg).to(f32)
+        absmax = () if quant_stats is None else (quant_stats[name],)
+        return apply_fn(params[name], x, cfg, *absmax).to(f32)
 
     with torch.no_grad():
         if flows_only:
@@ -229,6 +244,73 @@ def forward(
             flows=None if flows is None else torch.as_tensor(flows).to(
                 device=dev, dtype=f32),
         )
+
+
+def forward_calibrate(
+    params: Params,
+    i0: torch.Tensor,
+    i1: torch.Tensor,
+    t: TimeLike = 0.5,
+    cfg: ModelConfig = ModelConfig(),
+    compute_dtype: torch.dtype = torch.float32,
+    use_pallas: bool = False,
+    quantile=None,
+    device: DeviceLike = "cuda",
+) -> tuple:
+    """:func:`forward` + int8 calibration stats.
+
+    Runs the plain (unpacked) cascade recording every conv operand's |x|
+    maximum per U-Net (``models.unet.unet_apply_stats``). Returns ``(out,
+    stats)`` with stats as device scalars; fold stats over several
+    calibration pairs with :func:`merge_quant_stats`, scale them with
+    :func:`scale_quant_stats`, then pass them as ``forward(...,
+    quant_stats=...)``. ``quantile`` (percentile clipping) is not ported and
+    raises ``NotImplementedError``.
+    """
+    if quantile is not None:
+        raise NotImplementedError(
+            f"forward_calibrate(quantile=) is not ported yet: {_PERCENTILE_ITEM}")
+    dev = resolve_device(device)
+    f32 = torch.float32
+    i0f = torch.as_tensor(i0).to(device=dev, dtype=f32).contiguous()
+    i1f = torch.as_tensor(i1).to(device=dev, dtype=f32).contiguous()
+    tb = _as_t(t, i0f.shape[0], dev)
+    cd = compute_dtype
+    stats: QuantStats = {}
+
+    def run_unet(name: str, *feats: torch.Tensor) -> torch.Tensor:
+        x = torch.cat([f.to(cd) for f in feats], dim=-1)
+        out, stats[name] = unet_apply_stats(params[name], x, cfg)
+        return out.to(f32)
+
+    with torch.no_grad():
+        out = _cascade(run_unet, i0f, i1f, tb, cfg, use_pallas,
+                       pairs=_warp_pairs_mode(cd))
+    return out, stats
+
+
+def forward_saturation(*args, **kwargs):
+    """int8 saturation telemetry (the fraction of activations the serving
+    grid clips): not ported yet."""
+    raise NotImplementedError(f"forward_saturation is not ported yet: {_PERCENTILE_ITEM}")
+
+
+def _map_stats(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _map_stats(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def merge_quant_stats(a: QuantStats, b: QuantStats) -> QuantStats:
+    """Elementwise maximum of two calibration-stats trees."""
+    return _map_stats(torch.maximum, a, b)
+
+
+def scale_quant_stats(stats: QuantStats, margin: float) -> QuantStats:
+    """Scale calibration ranges by a safety margin (> 1 guards frames whose
+    activations exceed the calibration set's; costs about log2(margin)
+    bits)."""
+    return _map_stats(lambda v: v * margin, stats)
 
 
 @dataclasses.dataclass
@@ -243,6 +325,7 @@ class RRIN:
     use_pallas: bool = False
     packed: Optional[bool] = None  # None: follow use_pallas
     device: DeviceLike = "cuda"
+    quant_stats: Optional[QuantStats] = None  # set via quantize()
 
     @classmethod
     def init(
@@ -252,11 +335,20 @@ class RRIN:
         return cls(params=init_params(gen, cfg, device=device), cfg=cfg,
                    device=device, **kw)
 
+    def quantize(self, i0, i1, t: TimeLike = 0.5, margin: float = 1.2) -> "RRIN":
+        """Calibrate int8 activation ranges on a representative pair and
+        return a copy whose calls run the packed int8 path."""
+        _, stats = forward_calibrate(
+            self.params, i0, i1, t, cfg=self.cfg, compute_dtype=self.compute_dtype,
+            use_pallas=self.use_pallas, device=self.device)
+        return dataclasses.replace(
+            self, packed=True, quant_stats=scale_quant_stats(stats, margin))
+
     def __call__(self, i0, i1, t: TimeLike = 0.5) -> torch.Tensor:
         return forward(
             self.params, i0, i1, t, cfg=self.cfg,
             compute_dtype=self.compute_dtype, use_pallas=self.use_pallas,
-            packed=self.packed, device=self.device,
+            packed=self.packed, quant_stats=self.quant_stats, device=self.device,
         )
 
     # Alias matching the reference method name.

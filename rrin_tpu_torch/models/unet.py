@@ -37,8 +37,10 @@ from rrin_tpu_torch.ops.conv_packed import (
     conv_pool_packed,
     conv_up_f_packed,
     conv_up_m_packed,
+    conv_up_packed,
     supports,
     supports_pool,
+    supports_up,
     supports_up_f,
     supports_up_m,
 )
@@ -103,35 +105,92 @@ def _conv_act(x: torch.Tensor, p: Params, slope: Optional[float]) -> torch.Tenso
     return conv2d_fused(x, p["w"], p["b"], slope)
 
 
-def _down(x: torch.Tensor, p: Params, slope: float) -> torch.Tensor:
-    x = avg_pool_2x(x)
-    x = _conv_act(x, p["conv1"], slope)
-    x = _conv_act(x, p["conv2"], slope)
-    return x
+def _unet(p: Params, x: torch.Tensor, cfg: ModelConfig, rec) -> torch.Tensor:
+    """The plain U-Net; ``rec(name, t)`` sees the input ("in") and every
+    conv's output (c1, c2, d1c1 ... u4c2) and returns the tensor to go on
+    with."""
+    s = cfg.leaky_slope
 
+    def conv(name, t, prm):
+        return rec(name, _conv_act(t, prm, s))
 
-def _up(x: torch.Tensor, skip: torch.Tensor, p: Params, slope: float) -> torch.Tensor:
-    x = upsample_2x_bilinear(x)
-    x = _conv_act(x, p["conv1"], slope)
-    x = _conv_act(torch.cat([x, skip], dim=-1), p["conv2"], slope)
-    return x
+    def down(i, t):
+        t = conv(f"d{i}c1", avg_pool_2x(t), p[f"down{i}"]["conv1"])
+        return conv(f"d{i}c2", t, p[f"down{i}"]["conv2"])
+
+    def up(i, t, skip):
+        t = conv(f"u{i}c1", upsample_2x_bilinear(t), p[f"up{i}"]["conv1"])
+        return conv(f"u{i}c2", torch.cat([t, skip], dim=-1), p[f"up{i}"]["conv2"])
+
+    t = conv("c1", rec("in", x), p["conv1"])
+    s1 = conv("c2", t, p["conv2"])
+    s2 = down(1, s1)
+    s3 = down(2, s2)
+    s4 = down(3, s3)
+    t = down(4, s4)
+    t = up(1, t, s4)
+    t = up(2, t, s3)
+    t = up(3, t, s2)
+    t = up(4, t, s1)
+    return _conv(t, p["conv3"])
 
 
 def unet_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Apply one U-Net. x: (B, H, W, in_ch), H and W divisible by 16; runs
     on the device and in the dtype of ``x``."""
-    s = cfg.leaky_slope
-    x = _conv_act(x, p["conv1"], s)
-    s1 = _conv_act(x, p["conv2"], s)
-    s2 = _down(s1, p["down1"], s)
-    s3 = _down(s2, p["down2"], s)
-    s4 = _down(s3, p["down3"], s)
-    x = _down(s4, p["down4"], s)
-    x = _up(x, s4, p["up1"], s)
-    x = _up(x, s3, p["up2"], s)
-    x = _up(x, s2, p["up3"], s)
-    x = _up(x, s1, p["up4"], s)
-    return _conv(x, p["conv3"])
+    return _unet(p, x, cfg, lambda name, t: t)
+
+
+# ---------------------------------------------------------------------------
+# int8 calibration. Conv input(s) per site of the int8 packed path: which
+# producer tensor's calibrated |x| max quantises each conv operand ("in" = the
+# U-Net input). Heads stay bf16 (flows, weights and residues need the
+# precision). The JAX package's table, copied.
+# ---------------------------------------------------------------------------
+
+QUANT_SITES = {
+    "c1": ("in",), "c2": ("c1",),
+    "d1c1": ("c2",), "d1c2": ("d1c1",),
+    "d2c1": ("d1c2",), "d2c2": ("d2c1",),
+    "d3c1": ("d2c2",), "d3c2": ("d3c1",),
+    "d4c1": ("d3c2",), "d4c2": ("d4c1",),
+    "u1c1": ("d4c2",), "u1c2": ("u1c1", "d3c2"),
+    "u2c1": ("u1c2",), "u2c2": ("u2c1", "d2c2"),
+    "u3c1": ("u2c2",), "u3c2": ("u3c1", "d1c2"),
+    "u4c1": ("u3c2",), "u4c2": ("u4c1", "c2"),
+}
+
+# What the deferred calibration modes raise with.
+_PERCENTILE_ITEM = (
+    "ROADMAP.md Queue A item 'percentile calibration and saturation telemetry'")
+
+
+def unet_apply_stats(
+    p: Params, x: torch.Tensor, cfg: ModelConfig, quantile=None, ranges=None,
+) -> tuple:
+    """:func:`unet_apply` + per-tensor |x| maxima for int8 calibration.
+
+    Returns (out, stats): stats maps each conv-output name (plus "in") to a
+    float32 scalar tensor on the device of ``x``, the absmax that the int8
+    packed path consumes (pool and upsample between sites are convex
+    combinations, so a producer's absmax bounds every consumer). Nothing is
+    read back to the host.
+
+    The JAX package's two other modes, ``quantile`` (percentile clipping) and
+    ``ranges`` (saturation rates), are not ported and raise
+    ``NotImplementedError``.
+    """
+    if quantile is not None or ranges is not None:
+        raise NotImplementedError(
+            "unet_apply_stats(quantile=/ranges=) is not ported yet: "
+            f"{_PERCENTILE_ITEM}")
+    stats = {}
+
+    def rec(name, t):
+        stats[name] = t.abs().amax().float()
+        return t
+
+    return _unet(p, x, cfg, rec), stats
 
 
 # ---------------------------------------------------------------------------
@@ -145,21 +204,41 @@ def unet_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 #   u1c1                        conv_packed on a materialised upsample
 #   u1c2, u2c2, u3c2, u4c2      conv_packed, two operands (skip concat fused)
 #   u2c1                        conv_up_m_packed   (upsample built in the load)
-#   u3c1, u4c1                  conv_up_f_packed   (W-upsample folded)
+#   u3c1, u4c1                  conv_up_f_packed   (W-upsample folded), or
+#                               conv_up_packed at 4K widths, where the JAX
+#                               package routes them so
 #   head                        conv_packed, no activation
 #
 # The pools before d3c1 and d4c1 and the upsample before u1c1 are plain
 # PyTorch ops, as the JAX package materialises those three itself.
 # ---------------------------------------------------------------------------
 
+# The JAX package's bound on the folded kernel (its scoped-memory limit):
+# u3c1 and u4c1 go to conv_up_packed where the level-0 group count exceeds it.
+_UP_F_M_MAX = 800
+
+
+def _packed_m0(w: int) -> int:
+    """The JAX package's level-0 group count of a frame ``w`` wide (the M of
+    its packed layout), a copy: it decides where the reference leaves the
+    folded kernel."""
+    return -(-(w + 6) // 4 // 8) * 8
+
 
 def packed_branch_flags(h: int, w: int, cfg: ModelConfig):
     """The branch configuration of :func:`unet_apply_packed`, in the JAX
     package's order: (l2_kernel, l3_kernel, fuse_d1, fuse_d2, fuse_u3,
-    fuse_u4, l4_kernel, fuse_u2); fuse_u3/fuse_u4 are 2 for the folded
-    kernel and 0 otherwise. The kernels have no gate on H, W or M, so ``h``
-    and ``w`` do not enter: the flags depend on the channel widths and kernel
-    sizes only."""
+    fuse_u4, l4_kernel, fuse_u2).
+
+    fuse_u3/fuse_u4 are tri-state as in the JAX package: 2 for the folded
+    kernel (``conv_up_f_packed``), 1 for ``conv_up_packed`` where the JAX
+    package's folded kernel rejects the site for its width alone
+    (``_packed_m0(w) > 800``: w >= 3200, 4K frames), 0 for neither. Beyond
+    that the CUDA kernels have no gate on H, W or M, so ``h`` does not enter
+    and the other flags depend on the channel widths and kernel sizes only.
+    The JAX package's flags differ at some shapes: it gates fuse_d2 and
+    fuse_u2 on H alignment (False at 2160x3840) and its l2/l3/l4 branches and
+    fused up sites on minimum heights (h < 64)."""
     w1, w2, w3, w4, w5 = cfg.widths
     k = cfg.down_kernels
     sk = cfg.stem_kernel
@@ -175,11 +254,17 @@ def packed_branch_flags(h: int, w: int, cfg: ModelConfig):
         and supports((w5,), 3, w4) and supports((w4, w4), 3, w4)   # u1c1, u1c2
     )
     l4_kernel = l3_kernel and supports((w4,), k[3], w5) and supports((w5,), k[3], w5)
+    folded = _packed_m0(w) <= _UP_F_M_MAX
+
+    def fuse_up(cin, cout):
+        if folded and supports_up_f(cin, 3, cout):
+            return 2
+        return 1 if supports_up(cin, 3, cout) else 0
+
     return (
         l2_kernel, l3_kernel,
         supports_pool(w1, k[0], w2), supports_pool(w2, k[1], w3),
-        2 if supports_up_f(w3, 3, w2) else 0,
-        2 if supports_up_f(w2, 3, w1) else 0,
+        fuse_up(w3, w2), fuse_up(w2, w1),
         l4_kernel, supports_up_m(w4, 3, w3),
     )
 
@@ -190,7 +275,7 @@ def packed_supported(h: int, w: int, cfg: ModelConfig) -> bool:
     config it rejects takes the plain path in ``models.rrin.forward``."""
     flags = packed_branch_flags(h, w, cfg)
     return h % 16 == 0 and w % 16 == 0 and all(
-        f == (2 if i in (4, 5) else True) for i, f in enumerate(flags))
+        f in ((1, 2) if i in (4, 5) else (True,)) for i, f in enumerate(flags))
 
 
 def packed_bf16_supported(w: int) -> bool:
@@ -198,6 +283,29 @@ def packed_bf16_supported(w: int) -> bool:
     (their windows must fit the TPU's scoped memory). The tiles of the CUDA
     kernels do not grow with the frame, so every width is supported."""
     return True
+
+
+def carry_plan(flags) -> set:
+    """The int8 carry plan ``_CARRY`` of the JAX package's
+    ``unet_apply_packed``: the sites whose output stays on its own int8 grid
+    (the kernel's epilogue emits int8) because every consumer reads it
+    straight into a packed kernel; a site feeding a materialised pool or
+    upsample stays bfloat16. Derived from the port's own flags, which differ
+    from the JAX package's where that gates fuse_d2 and fuse_u2 on H
+    alignment: at 2160x3840 the JAX package carries neither d1c2 nor u1c2,
+    the port carries both."""
+    l2_kernel, _, fuse_d1, fuse_d2, _, _, _, fuse_u2 = flags
+    carry = {
+        "c1", "d1c1", "d2c1", "d3c1", "d4c1", "u1c1",
+        "u2c1", "u2c2", "u3c1", "u3c2", "u4c1",
+    }
+    if fuse_d1:
+        carry.add("c2")
+    if fuse_d2 and l2_kernel:
+        carry.add("d1c2")
+    if fuse_u2:
+        carry.add("u1c2")
+    return carry
 
 
 def unet_apply_packed(
@@ -216,14 +324,15 @@ def unet_apply_packed(
     of ``x`` (bfloat16 on the card; float32 only on the CPU, through the
     kernels' plain versions).
 
-    ``absmax`` (int8 from calibration stats) and ``prep``/``collect``
-    (prepare-once weight constants) are not ported yet and raise
-    ``NotImplementedError``.
+    ``absmax``: calibration stats from :func:`unet_apply_stats` (producer
+    name -> |x| max, device scalars). Every conv but the head then runs int8:
+    its operands are quantised per ``QUANT_SITES`` and the sites of
+    :func:`carry_plan` emit int8 for their consumers; the head stays in the
+    dtype of ``x``.
+
+    ``prep``/``collect`` (prepare-once weight constants) are not ported yet
+    and raise ``NotImplementedError``.
     """
-    if absmax is not None:
-        raise NotImplementedError(
-            "absmax= (the int8 packed path) is not ported yet: ROADMAP.md "
-            "Queue A item 2, 'int8'")
     if prep is not None or collect is not None:
         raise NotImplementedError(
             "prep=/collect= (prepare-once packed params) are not ported yet: "
@@ -233,27 +342,45 @@ def unet_apply_packed(
         raise ValueError(
             f"unet_apply_packed does not apply to {h}x{w} with {cfg}: check "
             "packed_supported first")
+    flags = packed_branch_flags(h, w, cfg)
     s = cfg.leaky_slope
+    dt = x.dtype
+    carry = carry_plan(flags) if absmax is not None else set()
 
-    def conv(parts, prm, slope=s):
-        return conv_packed(parts, prm["w"], prm["b"], slope)
+    def q(site):
+        """(in_absmax, out_absmax) of a site, or Nones in bfloat16."""
+        if absmax is None or site not in QUANT_SITES:
+            return None, None
+        return (tuple(absmax[n] for n in QUANT_SITES[site]),
+                absmax[site] if site in carry else None)
 
-    t = conv([x.contiguous()], p["conv1"])
-    s1 = conv([t], p["conv2"])
-    t = conv_pool_packed(s1, p["down1"]["conv1"]["w"], p["down1"]["conv1"]["b"], s)
-    s2 = conv([t], p["down1"]["conv2"])
-    t = conv_pool_packed(s2, p["down2"]["conv1"]["w"], p["down2"]["conv1"]["b"], s)
-    s3 = conv([t], p["down2"]["conv2"])
-    t = conv([avg_pool_2x(s3)], p["down3"]["conv1"])
-    s4 = conv([t], p["down3"]["conv2"])
-    t = conv([avg_pool_2x(s4)], p["down4"]["conv1"])
-    t = conv([t], p["down4"]["conv2"])
-    t = conv([upsample_2x_bilinear(t)], p["up1"]["conv1"])
-    t = conv([t, s4], p["up1"]["conv2"])
-    t = conv_up_m_packed(t, p["up2"]["conv1"]["w"], p["up2"]["conv1"]["b"], s)
-    t = conv([t, s3], p["up2"]["conv2"])
-    t = conv_up_f_packed(t, p["up3"]["conv1"]["w"], p["up3"]["conv1"]["b"], s)
-    t = conv([t, s2], p["up3"]["conv2"])
-    t = conv_up_f_packed(t, p["up4"]["conv1"]["w"], p["up4"]["conv1"]["b"], s)
-    t = conv([t, s1], p["up4"]["conv2"])
-    return conv([t], p["conv3"], slope=None)
+    def conv(parts, prm, site, slope=s):
+        am, oam = q(site)
+        return conv_packed(parts, prm["w"], prm["b"], slope, in_absmax=am,
+                           out_absmax=oam, out_dtype=dt)
+
+    def fused(fn, t, prm, site):
+        am, oam = q(site)
+        return fn(t, prm["w"], prm["b"], s, in_absmax=None if am is None else am[0],
+                  out_absmax=oam, out_dtype=dt)
+
+    up_fn = {2: conv_up_f_packed, 1: conv_up_packed}
+    t = conv([x.contiguous()], p["conv1"], "c1")
+    s1 = conv([t], p["conv2"], "c2")
+    t = fused(conv_pool_packed, s1, p["down1"]["conv1"], "d1c1")
+    s2 = conv([t], p["down1"]["conv2"], "d1c2")
+    t = fused(conv_pool_packed, s2, p["down2"]["conv1"], "d2c1")
+    s3 = conv([t], p["down2"]["conv2"], "d2c2")
+    t = conv([avg_pool_2x(s3)], p["down3"]["conv1"], "d3c1")
+    s4 = conv([t], p["down3"]["conv2"], "d3c2")
+    t = conv([avg_pool_2x(s4)], p["down4"]["conv1"], "d4c1")
+    t = conv([t], p["down4"]["conv2"], "d4c2")
+    t = conv([upsample_2x_bilinear(t)], p["up1"]["conv1"], "u1c1")
+    t = conv([t, s4], p["up1"]["conv2"], "u1c2")
+    t = fused(conv_up_m_packed, t, p["up2"]["conv1"], "u2c1")
+    t = conv([t, s3], p["up2"]["conv2"], "u2c2")
+    t = fused(up_fn[flags[4]], t, p["up3"]["conv1"], "u3c1")
+    t = conv([t, s2], p["up3"]["conv2"], "u3c2")
+    t = fused(up_fn[flags[5]], t, p["up4"]["conv1"], "u4c1")
+    t = conv([t, s1], p["up4"]["conv2"], "u4c2")
+    return conv([t], p["conv3"], "head", slope=None)

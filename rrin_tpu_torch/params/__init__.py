@@ -4,10 +4,12 @@ checkpoints are flat ``.npz`` files shared with the JAX package."""
 from rrin_tpu_torch.params.checkpoint import (
     convert_torch_state_dict,
     flatten_params,
+    load_calibration,
     load_params,
     load_torch_checkpoint,
     params_from_numpy,
     params_to_torch_state_dict,
+    save_calibration,
     save_params,
     unflatten_params,
 )
@@ -15,6 +17,8 @@ from rrin_tpu_torch.params.checkpoint import (
 __all__ = [
     "save_params",
     "load_params",
+    "save_calibration",
+    "load_calibration",
     "flatten_params",
     "unflatten_params",
     "params_from_numpy",

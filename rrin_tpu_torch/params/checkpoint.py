@@ -89,6 +89,31 @@ def load_params(
     return params_from_numpy(tree, device=device, dtype=dtype)
 
 
+CALIB_PREFIX = "__calib__."
+
+
+def save_calibration(path: str, quant_stats: Params) -> None:
+    """Persist int8 calibration stats (per-tensor |x| maxima from
+    ``forward_calibrate``, usually already margin-scaled) as a flat ``.npz``
+    with the JAX package's keys (``__calib__.<unet>.<site>``), so one file
+    loads in both packages. The stats are per-tensor scalars, so one file
+    serves every resolution."""
+    flat = {CALIB_PREFIX + k: v for k, v in flatten_params(quant_stats).items()}
+    np.savez(path, **flat)
+
+
+def load_calibration(path: str, device: DeviceLike = "cuda") -> Params:
+    """Inverse of :func:`save_calibration`, as float32 scalars on ``device``.
+    Also accepts an ``.npz`` written without the prefix (plain flattened
+    stats)."""
+    with np.load(path) as data:
+        flat = {(k[len(CALIB_PREFIX):] if k.startswith(CALIB_PREFIX) else k): data[k]
+                for k in data.files}
+    if not flat:
+        raise ValueError(f"no calibration entries in {path}")
+    return params_from_numpy(unflatten_params(flat), device=device)
+
+
 def convert_torch_state_dict(
     state_dict: Mapping[str, Any], strict: bool = True,
     device: DeviceLike = "cuda",

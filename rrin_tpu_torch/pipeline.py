@@ -13,9 +13,10 @@ decode -> normalize -> pad16 -> interpolate -> unpad -> quantize -> encode:
     in-flight window blocks only at the device-to-host copy of a result.
   * Per-stage wall-clock timers are collected into a structured JSON report.
 
-Serves the packed path (``packed=None`` follows ``use_pallas``) or the plain
-path on one device; the options that belong to paths not ported yet raise
-``NotImplementedError`` (see ROADMAP.md).
+Serves the packed path (``packed=None`` follows ``use_pallas``), in bfloat16
+or calibrated int8 (``int8=True``), or the plain path on one device; the
+options that belong to paths not ported yet raise ``NotImplementedError``
+(see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -32,7 +33,13 @@ import torch
 
 from rrin_tpu_torch._device import DeviceLike, resolve_device
 from rrin_tpu_torch.config import ModelConfig
-from rrin_tpu_torch.models.rrin import forward
+from rrin_tpu_torch.models.rrin import (
+    QuantStats,
+    forward,
+    forward_calibrate,
+    scale_quant_stats,
+)
+from rrin_tpu_torch.models.unet import _PERCENTILE_ITEM, packed_supported
 from rrin_tpu_torch.ops.pad import _edge_pad_hw, padded_size
 
 
@@ -64,6 +71,7 @@ def _step_body(
     pad_hw: Optional[Tuple[int, int]] = None,
     packed: Optional[bool] = None,
     ts: Optional[torch.Tensor] = None,
+    quant_stats: Optional[QuantStats] = None,
 ) -> torch.Tensor:
     """One device step: (B, 2, H, W, 3) uint8 -> (B, m, H, W, 3) uint8 with
     m = 2^exp - 1 (direct/cascade) or ts.shape[1] (times). ``pairs_u8`` (and
@@ -74,6 +82,7 @@ def _step_body(
     floats in (0, 1)) instead of the 2^k midpoint grid: the arbitrary-fps
     retiming step. ``packed=None`` follows ``use_pallas``: the packed serving
     path is the inference configuration (``models.unet.unet_apply_packed``).
+    ``quant_stats`` (from :func:`device_calibrate`) runs it in int8.
     """
     dev = pairs_u8.device
     b, _, h, w, _ = pairs_u8.shape
@@ -89,7 +98,8 @@ def _step_body(
         return forward(
             params, a, c, t, cfg=cfg, compute_dtype=compute_dtype,
             use_pallas=use_pallas,
-            packed=use_pallas if packed is None else packed, device=dev, **kw)
+            packed=use_pallas if packed is None else packed,
+            quant_stats=quant_stats, device=dev, **kw)
 
     def _run_times(tm: torch.Tensor) -> torch.Tensor:
         """Interpolate every pair at its (B, m) times -> (B, m, H, W, 3)
@@ -148,25 +158,75 @@ def device_step(
     pad_hw: Optional[Tuple[int, int]] = None,
     packed: Optional[bool] = None,
     ts=None,
+    quant_stats: Optional[QuantStats] = None,
     device: DeviceLike = "cuda",
 ) -> torch.Tensor:
     """:func:`_step_body` on ``device`` (default: the card): moves the uint8
     pair batch (numpy or tensor) and ``ts`` there and returns the uint8
     result on that device without waiting for it."""
     dev = resolve_device(device)
-    pairs = torch.as_tensor(pairs_u8)
-    if pairs.dtype != torch.uint8 or pairs.ndim != 5 or pairs.shape[1] != 2:
-        raise ValueError(
-            "pairs_u8 must be uint8 (B, 2, H, W, 3), got "
-            f"{pairs.dtype} {tuple(pairs.shape)}")
-    pairs = pairs.to(dev, non_blocking=True)
+    pairs = _pairs_on(pairs_u8, dev)
     if ts is not None:
         ts = torch.as_tensor(ts, dtype=torch.float32).to(dev)
     return _step_body(
         params, pairs, exp=exp, mode=mode, cfg=cfg,
         compute_dtype=compute_dtype, use_pallas=use_pallas, pad_hw=pad_hw,
-        packed=packed, ts=ts,
+        packed=packed, ts=ts, quant_stats=quant_stats,
     )
+
+
+def _pairs_on(pairs_u8, dev: torch.device) -> torch.Tensor:
+    pairs = torch.as_tensor(pairs_u8)
+    if pairs.dtype != torch.uint8 or pairs.ndim != 5 or pairs.shape[1] != 2:
+        raise ValueError(
+            "pairs_u8 must be uint8 (B, 2, H, W, 3), got "
+            f"{pairs.dtype} {tuple(pairs.shape)}")
+    return pairs.to(dev, non_blocking=True)
+
+
+def _calibrate_body(
+    params: Dict[str, Any],
+    pairs_u8: torch.Tensor,
+    cfg: ModelConfig = ModelConfig(),
+    compute_dtype: torch.dtype = torch.bfloat16,
+    use_pallas: bool = False,
+    pad_hw: Optional[Tuple[int, int]] = None,
+    quantile=None,
+) -> QuantStats:
+    """int8 calibration pass: (B, 2, H, W, 3) uint8 on the device -> the
+    activation stats. The preprocessing of :func:`_step_body`, then the plain
+    cascade at t = 0.5 (where the flow-projection magnitudes peak) recording
+    every U-Net's activation |x| maxima. ``quantile`` is not ported and
+    raises."""
+    _, _, h, w, _ = pairs_u8.shape
+    ph, pw = pad_hw if pad_hw is not None else (
+        padded_size(h, cfg.pad_multiple) - h,
+        padded_size(w, cfg.pad_multiple) - w,
+    )
+    x = _normalize_pad(pairs_u8, ph, pw)
+    _, stats = forward_calibrate(
+        params, x[:, 0].contiguous(), x[:, 1].contiguous(), 0.5, cfg=cfg,
+        compute_dtype=compute_dtype, use_pallas=use_pallas, quantile=quantile,
+        device=pairs_u8.device)
+    return stats
+
+
+def device_calibrate(
+    params: Dict[str, Any],
+    pairs_u8,
+    cfg: ModelConfig = ModelConfig(),
+    compute_dtype: torch.dtype = torch.bfloat16,
+    use_pallas: bool = False,
+    pad_hw: Optional[Tuple[int, int]] = None,
+    quantile=None,
+    device: DeviceLike = "cuda",
+) -> QuantStats:
+    """:func:`_calibrate_body` on ``device`` (default: the card); the stats
+    stay there as float32 scalars."""
+    return _calibrate_body(
+        params, _pairs_on(pairs_u8, resolve_device(device)), cfg=cfg,
+        compute_dtype=compute_dtype, use_pallas=use_pallas, pad_hw=pad_hw,
+        quantile=quantile)
 
 
 @dataclass(frozen=True)
@@ -261,9 +321,16 @@ class PipelineReport:
 class Interpolator:
     """Holds params + step configuration for one video job on one device.
 
+    ``int8=True`` serves the packed path in int8: the first batch at each
+    padded resolution runs a calibration pass (:func:`device_calibrate`)
+    whose ranges, scaled by ``int8_margin``, quantise every later batch of
+    that resolution; preset ``quant_stats`` (e.g. from
+    ``params.load_calibration``, margin already applied) skip it.
+
     The options of paths that are not ported yet are accepted by name and
-    raise ``NotImplementedError``: ``int8``, ``data_parallel != 1``,
-    ``spatial != 1``. ``packed=None`` follows ``use_pallas``.
+    raise ``NotImplementedError``: ``int8_percentile``,
+    ``data_parallel != 1``, ``spatial != 1``. ``packed=None`` follows
+    ``use_pallas``.
     """
 
     def __init__(
@@ -278,6 +345,9 @@ class Interpolator:
         packed: Optional[bool] = None,
         spatial: int = 1,
         int8: bool = False,
+        int8_margin: float = 1.2,
+        int8_percentile: Optional[float] = None,
+        quant_stats: Optional[QuantStats] = None,
         device: DeviceLike = "cuda",
     ):
         if mode not in ("direct", "cascade", "times"):
@@ -286,8 +356,14 @@ class Interpolator:
             raise ValueError("exp must be >= 1")
         if spatial < 1:
             raise ValueError("spatial must be >= 1")
-        if int8:
-            raise _not_ported("int8=True", "int8")
+        if int8 and spatial > 1:
+            raise ValueError(
+                "int8 composes with data_parallel but not with spatial sharding: "
+                "the spatial path is the plain path by design, where int8 would "
+                "only add fake-quant noise")
+        if int8_percentile is not None:
+            raise NotImplementedError(
+                f"int8_percentile is not ported yet: {_PERCENTILE_ITEM}")
         if data_parallel != 1:
             raise _not_ported(f"data_parallel={data_parallel}", "parallel/")
         if spatial != 1:
@@ -308,7 +384,36 @@ class Interpolator:
         self.mode = mode
         self.compute_dtype = _dtype_from_name(compute_dtype)
         self.use_pallas = use_pallas
-        self.packed = packed
+        self.packed = True if int8 else packed
+        self.int8 = int8
+        self.int8_margin = int8_margin
+        self._preset_stats = quant_stats
+        # padded (H, W) -> the stats that serve it
+        self._quant_stats: Dict[Tuple[int, int], QuantStats] = {}
+
+    def _ensure_quant_stats(self, pairs_u8, pad_hw, hw_key) -> None:
+        """Calibrate (or install the preset) for this padded resolution if
+        not done yet; calibrated ranges get the margin, preset ones do not."""
+        if hw_key in self._quant_stats:
+            return
+        if not packed_supported(hw_key[0], hw_key[1], self.cfg):
+            raise ValueError(
+                f"int8 mode needs the packed fast path, which does not support "
+                f"{pairs_u8.shape[2]}x{pairs_u8.shape[3]} with this config")
+        if self._preset_stats is not None:
+            stats = {u: {k: torch.as_tensor(v, dtype=torch.float32).to(self.device)
+                         for k, v in sites.items()}
+                     for u, sites in self._preset_stats.items()}
+        else:
+            stats = scale_quant_stats(device_calibrate(
+                self.params, pairs_u8, cfg=self.cfg, compute_dtype=self.compute_dtype,
+                use_pallas=self.use_pallas, pad_hw=pad_hw, device=self.device),
+                self.int8_margin)
+        self._quant_stats[hw_key] = stats
+
+    def saturation_rates(self, pairs_u8: np.ndarray) -> Dict[str, float]:
+        """int8 clip telemetry: not ported yet."""
+        raise NotImplementedError(f"saturation_rates is not ported yet: {_PERCENTILE_ITEM}")
 
     @property
     def mids_per_pair(self) -> int:
@@ -327,7 +432,10 @@ class Interpolator:
 
         ``mode="times"`` requires ``ts``: a (B, m) float array of per-pair
         interpolation times in (0, 1) (padded slots are computed and
-        host-dropped, see :func:`retime_plan`)."""
+        host-dropped, see :func:`retime_plan`).
+
+        In int8 mode the first batch at each padded resolution also runs the
+        calibration pass (see the class docstring)."""
         if (ts is not None) != (self.mode == "times"):
             raise ValueError("ts is required (exactly) when mode='times'")
         _, _, h, w, _ = pairs_u8.shape
@@ -335,10 +443,15 @@ class Interpolator:
             padded_size(h, self.cfg.pad_multiple) - h,
             padded_size(w, self.cfg.pad_multiple) - w,
         )
+        hw_key = (h + pad_hw[0], w + pad_hw[1])
+        pairs = _pairs_on(pairs_u8, self.device)
+        if self.int8:
+            self._ensure_quant_stats(pairs, pad_hw, hw_key)
         return device_step(
-            self.params, pairs_u8, exp=self.exp, mode=self.mode, cfg=self.cfg,
+            self.params, pairs, exp=self.exp, mode=self.mode, cfg=self.cfg,
             compute_dtype=self.compute_dtype, use_pallas=self.use_pallas,
-            pad_hw=pad_hw, packed=self.packed, ts=ts, device=self.device,
+            pad_hw=pad_hw, packed=self.packed, ts=ts,
+            quant_stats=self._quant_stats.get(hw_key), device=self.device,
         )
 
 
@@ -363,6 +476,11 @@ def interpolate_video(
     data_parallel: int = 1,
     spatial: int = 1,
     int8: bool = False,
+    int8_margin: float = 1.2,
+    int8_percentile: Optional[float] = None,
+    int8_saturation: bool = False,
+    quant_stats: Optional[QuantStats] = None,
+    save_calib: Optional[str] = None,
     retime_fps: Optional[float] = None,
     slowmo: Optional[float] = None,
     packed: Optional[bool] = None,
@@ -391,12 +509,18 @@ def interpolate_video(
     the last one writes the trailing source frame.
 
     ``packed`` selects the U-Net path (``None`` follows ``use_pallas``).
-    ``device`` defaults to the card and raises without one.
+    ``int8``, ``int8_margin`` and ``quant_stats`` are the
+    :class:`Interpolator`'s; ``save_calib`` writes the ranges the run
+    calibrated (``params.save_calibration``) for later runs to pass back as
+    ``quant_stats``. ``int8_saturation`` (clip telemetry) is not ported and
+    raises. ``device`` defaults to the card and raises without one.
     """
     from rrin_tpu_torch.io.video import VideoReader, VideoWriter
 
     if retime_fps is not None and slowmo is not None:
         raise ValueError("retime_fps and slowmo are mutually exclusive")
+    if int8_saturation:
+        raise NotImplementedError(f"int8_saturation is not ported yet: {_PERCENTILE_ITEM}")
     if retime_fps is not None:
         if retime_fps <= 0:
             raise ValueError("retime_fps must be > 0")
@@ -418,7 +542,8 @@ def interpolate_video(
     interp = Interpolator(
         params, cfg, exp=exp, mode=mode, compute_dtype=compute_dtype,
         use_pallas=use_pallas, data_parallel=data_parallel, spatial=spatial,
-        int8=int8, packed=packed, device=device,
+        int8=int8, int8_margin=int8_margin, int8_percentile=int8_percentile,
+        quant_stats=quant_stats, packed=packed, device=device,
     )
     # Sharded batches must divide evenly over the data mesh axis.
     batch_size = -(-batch_size // interp.shard_count) * interp.shard_count
@@ -608,6 +733,13 @@ def interpolate_video(
         writer.close()
         if progress:
             print()
+
+    if save_calib and interp._quant_stats:
+        # The (margin-scaled) ranges this run calibrated: later runs pass
+        # them back as quant_stats and skip calibration.
+        from rrin_tpu_torch.params import save_calibration
+
+        save_calibration(save_calib, next(iter(interp._quant_stats.values())))
 
     timers.total = time.perf_counter() - t_start
     report.frames_in = frames_in

@@ -8,7 +8,7 @@ import torch
 
 from rrin_tpu_torch import _build
 from rrin_tpu_torch.ops import conv_packed as tcp
-from torch_packed_util import case, fresh_rng, gather, t
+from torch_packed_util import case, fresh_rng, gather, one_torch_thread, t  # noqa: F401
 
 
 @pytest.fixture

@@ -12,7 +12,9 @@ from rrin_tpu.ops import conv_packed as jcp
 from rrin_tpu.ops.packed import pack, unpack
 from rrin_tpu_torch.ops import conv_packed as tcp
 from rrin_tpu_torch.ops.conv_phase import _conv_plain
-from torch_packed_util import BF16_PSNR_DB, F32_TOL, case, fresh_rng, interpreted, psnr, t
+from torch_packed_util import (  # noqa: F401
+    BF16_PSNR_DB, case, F32_TOL, fresh_rng, interpreted, one_torch_thread, psnr, t,
+)
 
 
 @pytest.fixture

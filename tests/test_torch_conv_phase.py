@@ -10,6 +10,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from rrin_tpu.ops import conv_phase as jcp
 from rrin_tpu_torch.ops import conv_phase as tcp
+from torch_packed_util import one_torch_thread  # noqa: F401
 
 # (cin, cout, k): the U-Net's kernel-eligible shape classes.
 SHAPES = [

@@ -7,7 +7,7 @@ import pytest
 import torch
 
 from rrin_tpu_torch.ops import conv_packed as tcp
-from torch_packed_util import case, fresh_rng, t
+from torch_packed_util import case, fresh_rng, one_torch_thread, t  # noqa: F401
 
 
 @pytest.fixture

@@ -17,6 +17,7 @@ from rrin_tpu_torch import RRIN, ModelConfig, forward, init_params
 from rrin_tpu_torch.models import rrin as trrin
 from rrin_tpu_torch.models.unet import unet_apply
 from rrin_tpu_torch.params import checkpoint as tckpt
+from torch_packed_util import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -20,6 +20,7 @@ from rrin_tpu_torch._device import resolve_device
 from rrin_tpu_torch.ops import pad as tpad
 from rrin_tpu_torch.ops import resize as tresize
 from rrin_tpu_torch.ops import warp as twarp
+from torch_packed_util import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 

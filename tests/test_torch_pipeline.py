@@ -11,6 +11,7 @@ from rrin_tpu import pipeline as jpipe
 from rrin_tpu.models import rrin as jrrin
 from rrin_tpu_torch import pipeline as tpipe
 from rrin_tpu_torch.params.checkpoint import params_from_numpy
+from torch_packed_util import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -101,8 +102,8 @@ class TestInterpolator:
         assert tpipe.Interpolator(tp, exp=3, device="cpu").mids_per_pair == 7
 
     @pytest.mark.parametrize("kw", [
-        dict(int8=True, packed=True), dict(int8=True), dict(data_parallel=2),
-        dict(data_parallel=0), dict(spatial=2)])
+        dict(int8=True, int8_percentile=99.9), dict(int8_percentile=99.9),
+        dict(data_parallel=2), dict(data_parallel=0), dict(spatial=2)])
     def test_unported_options_raise(self, kw):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpipe.Interpolator({}, device="cpu", **kw)

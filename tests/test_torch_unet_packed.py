@@ -18,6 +18,7 @@ from rrin_tpu_torch import pipeline as tpipe
 from rrin_tpu_torch.models import rrin as trrin
 from rrin_tpu_torch.models import unet as tunet
 from rrin_tpu_torch.params import checkpoint as tckpt
+from torch_packed_util import one_torch_thread  # noqa: F401
 
 CFG = ModelConfig()
 
@@ -78,8 +79,8 @@ class TestUnetApplyPacked:
     def test_unported_options_raise(self, weights):
         _, tp = weights
         x = torch.zeros((1, 16, 16, 6))
-        with pytest.raises(NotImplementedError, match="Queue A item 2"):
-            tunet.unet_apply_packed(tp["flow"], x, CFG, absmax={})
+        with pytest.raises(NotImplementedError, match="percentile calibration"):
+            tunet.unet_apply_stats(tp["flow"], x, CFG, quantile=0.999)
         with pytest.raises(NotImplementedError, match="Queue A item 3"):
             tunet.unet_apply_packed(tp["flow"], x, CFG, collect={})
         with pytest.raises(NotImplementedError, match="Queue A item 3"):
@@ -90,13 +91,15 @@ class TestUnetApplyPacked:
     def test_gates_hold_no_shape(self):
         """The CUDA kernels need channel multiples and kernel sizes, never a
         height, width or group count: every /16 shape is supported, and the
-        flags do not depend on the shape."""
+        flags do not depend on the shape, but for the up sites' routing, which
+        follows the JAX package's width bound (K6 from width 3200 on)."""
         flags = tunet.packed_branch_flags(1088, 1920, CFG)
         assert flags == (True, True, True, True, 2, 2, True, True)
         assert flags == junet.packed_branch_flags(1088, 1920, JConfig())
         for hw in ((16, 16), (32, 64), (48, 64), (2160, 3840), (720, 1280)):
             assert tunet.packed_supported(*hw, CFG)
-            assert tunet.packed_branch_flags(*hw, CFG) == flags
+            want = flags[:4] + ((1, 1) if hw[1] >= 3200 else (2, 2)) + flags[6:]
+            assert tunet.packed_branch_flags(*hw, CFG) == want
         assert not tunet.packed_supported(24, 64, CFG)
         assert not tunet.packed_supported(48, 64, ModelConfig(base_width=12))
         assert not tunet.packed_supported(48, 64, ModelConfig(stem_kernel=9))

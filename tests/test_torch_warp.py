@@ -10,6 +10,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from rrin_tpu.ops import warp_pallas as jwp
 from rrin_tpu_torch.ops import warp_kernel as twk
+from torch_packed_util import one_torch_thread  # noqa: F401
 
 
 def _run_jax_kernel(img, flow, align_corners, pairs, planar_out=False):
