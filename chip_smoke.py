@@ -10,8 +10,9 @@ and numpy; nothing else and no network. It builds the CUDA kernels of
   device       the card's name and power limit
   build        nvcc over every kernel source, in parallel
   kernels      every kernel against its plain PyTorch version on the card at
-               the shapes of the 1080p paths (K6 and K9 also at the 4K up
-               sites), in bfloat16 and in int8, with times and bounds
+               the shapes of the 1080p paths (K6, K8 and K9 also at the 4K up
+               sites), in bfloat16 and in int8, with times and bounds; the
+               K8/K9 weight-prep kernel bit-equal to its plain version
   serve        the main path: the default Interpolator (bfloat16, kernels,
                packed U-Net path, full model width) answering 1080p requests
   serve_4k     the same Interpolator answering 2160x3840 requests, whose up
@@ -246,6 +247,11 @@ PACKED_KERNELS = {
 }
 
 
+# The kernels of csrc/conv_up_sm90.cu, whose bf16 wrappers lay out (and
+# fold) their weights on the card.
+UP_SM90 = ("conv_up_m_packed", "conv_up_f_packed")
+
+
 def packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope, int8=None):
     """One site of a packed-path kernel; (h, w) is the resolution the conv
     runs at, i.e. of its output. The stored input is (2h, 2w) for the pool
@@ -343,6 +349,22 @@ def packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope, int8=None):
           f"{name}: prepared= changes the result")
     out["kernel_prepared_ms"] = time_ms(
         lambda: wrapper(arg, wt, bias, slope, prepared=prep, **qkw))
+    if int8 is None and kernel in UP_SM90:
+        # The weight prep that the wrapper runs on the card without
+        # prepared=, against prep_* (its plain version): bit-equal.
+        on_card = conv_packed._prep_on_card(kernel, wt, bias)
+        check(torch.equal(on_card["wfrag"], prep["wfrag"])
+              and torch.equal(on_card["bias"], prep["bias"]) and on_card["plan"] == prep["plan"],
+              f"{name}: the weight-prep kernel differs from prep_*")
+        prep_err = (on_card["wfrag"].float() - prep["wfrag"].float()).abs().max()
+        out.update({
+            "prep_bit_equal": True,
+            "prep_max_abs_err": float(prep_err),
+            "prep_ms": time_ms(lambda: conv_packed._prep_on_card(kernel, wt, bias)),
+            "prep_plain_ms": time_ms(lambda: prepare(wt, bias, cins)),
+            "prep_bytes": wt.numel() * 4 + bias.numel() * 4 + on_card["wfrag"].numel() * 2
+                          + on_card["bias"].numel() * 4,
+        })
 
     # The bytes the fused kernel must move: each stored operand once (no
     # pooled, upsampled or concatenated tensor; an int8 one at one byte an
@@ -388,9 +410,15 @@ def packed_cases(rng, dev):
         ("conv_pool_packed", "ragged_135x243", 135, 243, (32,), 64, 5, s, 0),
         ("conv_up_m_packed", "u2c1", HP // 4, WP // 4, (256,), 128, 3, s, 1),
         ("conv_up_m_packed", "ragged_270x486", 270, 486, (64,), 64, 3, s, 0),
+        # a width that is no multiple of 64, its last column inside a tile
+        ("conv_up_m_packed", "edge_in_tile_272x300", 272, 300, (128,), 64, 3, s, 0),
+        ("conv_up_m_packed", "k5_136x200", 136, 200, (64,), 32, 5, s, 0),
         ("conv_up_f_packed", "u3c1", HP // 2, WP // 2, (128,), 64, 3, s, 1),
         ("conv_up_f_packed", "u4c1", HP, WP, (64,), 32, 3, s, 1),
         ("conv_up_f_packed", "ragged_270x486", 270, 486, (64,), 32, 3, s, 0),
+        ("conv_up_f_packed", "edge_in_tile_272x300", 272, 300, (64,), 32, 3, s, 0),
+        # K8 where the 4K request takes it (u2c1 at 2160x3840)
+        ("conv_up_m_packed", "u2c1_4k", H4K // 4, W4K // 4, (256,), 128, 3, s, 0),
         # K6 where the 4K request takes it, and K9 at the same sites beside it
         ("conv_up_packed", "u3c1_4k", H4K // 2, W4K // 2, (128,), 64, 3, s, 1),
         ("conv_up_packed", "u4c1_4k", H4K, W4K, (64,), 32, 3, s, 1),
@@ -533,13 +561,14 @@ def serve_request(interp, pairs):
 
 
 # Launches of one exp=1 request (4 U-Nets, 2 warps) on each U-Net path: 1080p
-# and 4K differ at u3c1 and u4c1 (K9 below width 3200, K6 from there on); in
-# int8 every conv but the four heads is int8; the int8 calibration pass runs
-# the plain path.
+# and 4K differ at u3c1 and u4c1 (K9 below width 3200, K6 from there on); a
+# bf16 K8 or K9 launch comes with one launch of their weight prep; in int8
+# every conv but the four heads is int8 (weights quantised in PyTorch); the
+# int8 calibration pass runs the plain path.
 PACKED_PER_REQUEST = {"conv_packed": 56, "conv_pool_packed": 8, "conv_up_m_packed": 4,
-                      "conv_up_f_packed": 8, "warp_u8": 2}
+                      "conv_up_f_packed": 8, "conv_up_prep": 12, "warp_u8": 2}
 PACKED_4K_PER_REQUEST = {"conv_packed": 56, "conv_pool_packed": 8, "conv_up_m_packed": 4,
-                         "conv_up_packed": 8, "warp_u8": 2}
+                         "conv_up_packed": 8, "conv_up_prep": 4, "warp_u8": 2}
 INT8_PER_REQUEST = {"conv_packed_int8": 52, "conv_packed": 4, "conv_pool_packed_int8": 8,
                     "conv_up_m_packed_int8": 4, "conv_up_f_packed_int8": 8, "warp_u8": 2}
 INT8_4K_PER_REQUEST = {"conv_packed_int8": 52, "conv_packed": 4, "conv_pool_packed_int8": 8,
@@ -698,8 +727,8 @@ def phase_serve_plain(params, dev):
 
 
 _PACKED_MODES = {"0": "conv_packed (K5)", "1": "conv_pool_packed (K7)",
-                 "2": "conv_up_m_packed (K8)", "3": "conv_up_f_packed (K9)",
-                 "4": "conv_up_packed (K6)"}
+                 "2": "conv_up_packed (K6)"}
+_SM90_MODES = {"0": "conv_up_m_packed (K8)", "1": "conv_up_f_packed (K9)"}
 
 
 def _profile_group(name: str) -> str:
@@ -708,6 +737,12 @@ def _profile_group(name: str) -> str:
         r"conv_packed_kernel<\s*\d+,\s*(?:\(.*?\))?(\d+),\s*(true|false)\s*>", low)
     if packed:  # conv_packed_kernel<NT, MODE, Q>: the mode is the entry point
         return _PACKED_MODES[packed.group(1)] + (" int8" if packed.group(2) == "true" else "")
+    sm90 = re.search(
+        r"conv_up_sm90_kernel<\s*\d+,\s*(?:\(.*?\))?(\d+),\s*(true|false)", low)
+    if sm90:  # conv_up_sm90_kernel<N, MODE, Q, K>
+        return _SM90_MODES[sm90.group(1)] + (" int8" if sm90.group(2) == "true" else "")
+    if "conv_up_prep_kernel" in low:
+        return "K8/K9 weight prep"
     if "conv_phase_kernel" in low:
         return "conv_phase (K1)"
     if "warp_kernel" in low or "pack_u8" in low or "pack_bf16" in low:
@@ -918,9 +953,11 @@ def kernels_summary(conv, packed, int8, warps, serve_counts, counts_4k, int8_cou
                  "conv_up_f_packed"):
         cases = [c for c in packed if c["kernel"] == name]
         n = sum(c["per_flow_unet"] for c in cases)
+        source = "rrin_tpu_torch/csrc/" + ("conv_up_sm90.cu" if name in UP_SM90
+                                           else "conv_packed.cu")
         if name == "conv_up_packed":
             entry = _conv_entry(
-                name, "rrin_tpu_torch/csrc/conv_packed.cu", cases, counts_4k[name],
+                name, source, cases, counts_4k[name],
                 f"sum over the {n} launches of one flow U-Net at 2160x3840 (packed path, "
                 "launches from serve_4k)")
             entry["k9_same_sites_ms"] = sum(
@@ -928,16 +965,45 @@ def kernels_summary(conv, packed, int8, warps, serve_counts, counts_4k, int8_cou
                 if c["kernel"] == "conv_up_f_packed" and c["site"].endswith("_4k"))
         else:
             entry = _conv_entry(
-                name, "rrin_tpu_torch/csrc/conv_packed.cu", cases, serve_counts[name],
+                name, source, cases, serve_counts[name],
                 f"sum over the {n} launches of one flow U-Net at 1088x1920 (packed path)")
+        if name in UP_SM90:
+            entry["prepared_ms"] = sum(c["kernel_prepared_ms"] * c["per_flow_unet"]
+                                       for c in cases if c["per_flow_unet"])
         entry["int8"] = _int8_entry([c for c in int8 if c["kernel"] == name],
                                     int8_counts[f"{name}_int8"])
         check(entry["int8"]["launches"] > 0, f"{name}: no int8 launch on the int8 path")
         entries.append(entry)
+    check(len(entries) == len(TPU_KERNEL_LINES) == 9, "the closing line lists nine TPU kernels")
+    entries.append(_prep_entry(packed, serve_counts))
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was never launched by the path it belongs to")
-    check(len(entries) == len(TPU_KERNEL_LINES) == 9, "the closing line lists nine kernels")
     return {"kernels": entries, "not_ported": []}
+
+
+def _prep_entry(packed, serve_counts):
+    """The K8/K9 weight prep on the card: not a TPU kernel (the reference
+    folds and lays out these weights with XLA ops in ``prep_conv_up_f`` and
+    ``prep_conv_up_m``); its sites as K8 and K9 have them in one flow U-Net at
+    1088x1920, bytes-bound (fp32 weights in, the bf16 layout out)."""
+    cases = [c for c in packed if c["kernel"] in UP_SM90 and c["per_flow_unet"]]
+
+    def total(key):
+        return sum(c[key] * c["per_flow_unet"] for c in cases)
+
+    return {
+        "name": "conv_up_prep", "route": "cuda", "source": "rrin_tpu_torch/csrc/conv_up_sm90.cu",
+        "replaces": "rrin_tpu/ops/conv_packed.py:2106",
+        "replaces_what": "prep_conv_up_f (and prep_conv_up_m, :1642): XLA weight fold and "
+                         "layout, not a Pallas kernel",
+        "launches": serve_counts["conv_up_prep"],
+        "max_abs_err": max(c["prep_max_abs_err"] for c in cases),
+        "ms": total("prep_ms"), "plain_ms": total("prep_plain_ms"),
+        "bound_ms": total("prep_bytes") / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None, "library_null_reason": "no PyTorch call folds these weights",
+        "what": f"sum over the {sum(c['per_flow_unet'] for c in cases)} K8/K9 launches of one "
+                "flow U-Net at 1088x1920, bit-equal to prep_conv_up_m / prep_conv_up_f",
+    }
 
 
 def main() -> int:

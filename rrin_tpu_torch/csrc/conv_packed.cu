@@ -1,5 +1,5 @@
 // The convolutions of the packed serving path on NHWC tensors: one
-// implicit-GEMM core with five load prologues, one C entry point each, in
+// implicit-GEMM core with three load prologues, one C entry point each, in
 // bfloat16 or int8.
 //
 //   conv_packed       stride-1 SAME conv over the channel concat of 1..4
@@ -8,18 +8,15 @@
 //   conv_pool_packed  conv(avg_pool_2x(x)): the block reads the 2x footprint
 //                     of its halo tile from the full-resolution tensor and
 //                     pools while loading;
-//   conv_up_m_packed  conv(upsample_2x_bilinear(x)): the block builds the
-//                     upsampled halo tile (rows and columns) from the
-//                     half-resolution tensor while loading;
-//   conv_up_packed    the same function (mode UPD), interpolating along W
-//                     first and then H, and in int8 dequantising an int8
-//                     input before it interpolates, as the reference's plain
-//                     version of that kernel does (conv_up_m_packed
-//                     interpolates H first, and the int8 codes themselves);
-//   conv_up_f_packed  the same function for k = 3 with the W-upsample folded
-//                     into per-output-parity weights on the host: the block
-//                     builds only the H-interpolated rows, at half width,
-//                     and the GEMM emits two output columns per pixel.
+//   conv_up_packed    conv(upsample_2x_bilinear(x)): the block builds the
+//                     upsampled halo tile from the half-resolution tensor
+//                     while loading, interpolating along W first and then H,
+//                     and in int8 dequantising an int8 input before it
+//                     interpolates, as the reference's plain version of that
+//                     kernel does.
+//
+// conv_up_m_packed and conv_up_f_packed, the same upsampling function with
+// wgmma, live in conv_up_sm90.cu.
 //
 // bfloat16 (Q = false): bf16 operands, mma.sync.m16n8k16 with float32
 // accumulation; the epilogue adds a float32 bias and an optional LeakyReLU
@@ -29,16 +26,15 @@
 //
 // int8 (Q = true): every operand is bf16 or already int8 on its grid. The
 // prologue builds the float32 value as above (dequantising an int8 input in
-// mode UPD, pre-scaling a bf16 input by 127/ax in mode UPF) and stores
-// clip(rint(v * 127/ax), +-127) as int8 (round half to even, the reference's
-// jnp.round); an int8 input is copied as it is in mode DIRECT and its
-// constructed values re-rounded to the grid elsewhere. The weights are int8
-// per output channel, pre-scaled per operand on the host, so one int32 sum
-// serves all operands; mma.sync.m16n8k32 (s8 x s8 -> s32); the epilogue
-// computes sum * scale[co] + bias[co], LeakyReLU, and stores bf16, or int8
-// via rint and a clip when the next layer carries int8 (the 127/ax_out step
-// is folded into scale and bias on the host). ax reaches the kernel as a
-// device pointer per operand: nothing is read back to the host.
+// mode UPD) and stores clip(rint(v * 127/ax), +-127) as int8 (round half to
+// even, the reference's jnp.round); an int8 input is copied as it is in mode
+// DIRECT and its constructed values re-rounded to the grid elsewhere. The
+// weights are int8 per output channel, pre-scaled per operand on the host,
+// so one int32 sum serves all operands; mma.sync.m16n8k32 (s8 x s8 -> s32);
+// the epilogue computes sum * scale[co] + bias[co], LeakyReLU, and stores
+// bf16, or int8 via rint and a clip when the next layer carries int8 (the
+// 127/ax_out step is folded into scale and bias on the host). ax reaches the
+// kernel as a device pointer per operand: nothing is read back to the host.
 //
 // GEMM view: M = pixels, N = channels per pixel of the output, K = taps x
 // input channels (KK = 16 bf16 or 32 int8 per mma):
@@ -59,15 +55,6 @@
 // served by the L2 cache. Ragged edges are masked at the store; nothing
 // assumes W % 32 or H % 8.
 //
-// The folded variant: along W, conv3(upsample(s)) at output column 2j + r is
-// a 3-tap stencil on half-resolution columns j-1, j, j+1 with weights that
-// depend on the parity r, so the GEMM runs on (row, j) pixels with N =
-// (r, cout) and the output tensor (B, 2Hs, Ws, 2*cout) is the NHWC result
-// (B, 2Hs, 2Ws, cout) byte for byte. The stencil assumes s[-1] = s[Ws] = 0
-// where the upsample clamps; the exact difference is a product of the edge
-// pixel's values with two more weight taps (3: left, 4: right), which the
-// warps holding column 0 or Ws-1 add with a row-masked A fragment.
-//
 // Plain C entry points; each returns cudaGetLastError() after the launch,
 // runs on the given stream, allocates nothing and does not synchronise.
 
@@ -77,6 +64,7 @@
 
 #include <type_traits>
 
+#include "conv_prologue.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -87,7 +75,7 @@ constexpr int THREADS = TH * 32;
 constexpr int PAD_BYTES = 16;    // padding per halo pixel
 constexpr int MAX_OPS = 4;       // operands of one conv_packed call
 
-enum Mode { DIRECT = 0, POOL = 1, UP = 2, UPF = 3, UPD = 4 };
+enum Mode { DIRECT = 0, POOL = 1, UPD = 2 };
 
 struct ConvArgs {
   const void* x[MAX_OPS];
@@ -105,7 +93,7 @@ struct ConvArgs {
   int Hs, Ws;        // rows and columns of the stored operands
   int cout;          // channels per GEMM pixel of the output
   int ky, kx;        // taps that slide in y and in x
-  int ntaps;         // weight taps per dy row (kx, + 2 edge taps when folded)
+  int ntaps;         // weight taps per dy row (kx)
   int cchunk, total_chunks, n_cb;
   int has_slope;
   float slope;
@@ -135,92 +123,9 @@ __device__ __forceinline__ void mma_tile(int (&c)[4], const uint32_t (&a)[4],
   mma_m16n8k32_s8(c, a, b);
 }
 
-struct F8 {
-  float v[8];
-};
-
-__device__ __forceinline__ F8 unpack8(const uint4 u) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-  F8 f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f.v[2 * i] = __uint_as_float(w[i] << 16);
-    f.v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-  return f;
-}
-
-__device__ __forceinline__ F8 unpack8_s8(const uint2 u) {
-  const uint32_t w[2] = {u.x, u.y};
-  F8 f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    f.v[i] = static_cast<float>(static_cast<int8_t>((w[i >> 2] >> (8 * (i & 3))) & 0xffu));
-  return f;
-}
-
-__device__ __forceinline__ uint4 pack8(const F8& f) {
-  uint32_t w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 p = __floats2bfloat162_rn(f.v[2 * i], f.v[2 * i + 1]);
-    w[i] = *reinterpret_cast<const uint32_t*>(&p);
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-__device__ __forceinline__ int quant1(float v, float post) {
-  return min(max(__float2int_rn(__fmul_rn(v, post)), -127), 127);
-}
-
-// clip(rint(v * post), +-127) of eight values, packed as eight int8.
-__device__ __forceinline__ uint2 quant8(const F8& f, float post) {
-  uint32_t w[2] = {0u, 0u};
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    w[i >> 2] |= (static_cast<uint32_t>(quant1(f.v[i], post)) & 0xffu) << (8 * (i & 3));
-  return make_uint2(w[0], w[1]);
-}
-
-// 0.25 * far + 0.75 * near with each product and the sum rounded separately,
-// as the plain version computes it (no fused multiply-add).
-__device__ __forceinline__ F8 lerp8(const F8& far, const F8& near) {
-  F8 r;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    r.v[i] = __fadd_rn(__fmul_rn(0.25f, far.v[i]), __fmul_rn(0.75f, near.v[i]));
-  return r;
-}
-
-// The far tap of output position p of a 2x half-pixel bilinear upsample of n
-// samples, clamped at both ends; the near tap is p / 2.
-__device__ __forceinline__ int far_tap(int p, int n) {
-  const int h = p >> 1;
-  return (p & 1) ? min(h + 1, n - 1) : max(h - 1, 0);
-}
-
-__device__ __forceinline__ size_t pix_off(int cs, int Ws, int y, int x, int c) {
-  return (static_cast<size_t>(y) * Ws + x) * cs + c;
-}
-
-// Eight channels of one stored pixel as float32 (times `pre` in int8 mode).
-template <bool Q>
-__device__ __forceinline__ F8 tap8(const void* xb, int i8, int cs, int Ws, int y, int x,
-                                   int c, float pre) {
-  const size_t off = pix_off(cs, Ws, y, x, c);
-  F8 f = (Q && i8) ? unpack8_s8(__ldg(reinterpret_cast<const uint2*>(
-                         static_cast<const int8_t*>(xb) + off)))
-                   : unpack8(__ldg(reinterpret_cast<const uint4*>(
-                         static_cast<const __nv_bfloat16*>(xb) + off)));
-  if (Q) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) f.v[i] = __fmul_rn(f.v[i], pre);
-  }
-  return f;
-}
-
 // Eight channels of the pixel (gy, gx) that the GEMM reads, inside the image,
-// as float32: pooled, upsampled in H, or upsampled in both axes.
+// as float32: as stored, pooled, or upsampled in both axes (W first, then H:
+// the order of the reference's K6).
 template <int MODE, bool Q>
 __device__ __forceinline__ F8 construct8(const void* xb, int i8, int cs, int Hs, int Ws,
                                          int gy, int gx, int c, float pre) {
@@ -238,23 +143,12 @@ __device__ __forceinline__ F8 construct8(const void* xb, int i8, int cs, int Hs,
     return r;
   }
   const int yn = gy >> 1, yf = far_tap(gy, Hs);
-  if (MODE == UPF) {
-    return lerp8(tap8<Q>(xb, i8, cs, Ws, yf, gx, c, pre),
-                 tap8<Q>(xb, i8, cs, Ws, yn, gx, c, pre));
-  }
   const int xn = gx >> 1, xf = far_tap(gx, Ws);
-  if (MODE == UPD) {  // W first, then H: the order of the reference's K6
-    const F8 wf = lerp8(tap8<Q>(xb, i8, cs, Ws, yf, xf, c, pre),
-                        tap8<Q>(xb, i8, cs, Ws, yf, xn, c, pre));
-    const F8 wn = lerp8(tap8<Q>(xb, i8, cs, Ws, yn, xf, c, pre),
-                        tap8<Q>(xb, i8, cs, Ws, yn, xn, c, pre));
-    return lerp8(wf, wn);
-  }
-  const F8 hn = lerp8(tap8<Q>(xb, i8, cs, Ws, yf, xn, c, pre),
+  const F8 wf = lerp8(tap8<Q>(xb, i8, cs, Ws, yf, xf, c, pre),
+                      tap8<Q>(xb, i8, cs, Ws, yf, xn, c, pre));
+  const F8 wn = lerp8(tap8<Q>(xb, i8, cs, Ws, yn, xf, c, pre),
                       tap8<Q>(xb, i8, cs, Ws, yn, xn, c, pre));
-  const F8 hf = lerp8(tap8<Q>(xb, i8, cs, Ws, yf, xf, c, pre),
-                      tap8<Q>(xb, i8, cs, Ws, yn, xf, c, pre));
-  return lerp8(hf, hn);
+  return lerp8(wf, wn);
 }
 
 // At most 128 registers a thread, so that two blocks fit a multiprocessor and
@@ -304,14 +198,13 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
     const void* xb = static_cast<const unsigned char*>(a.x[op]) +
                      b * a.Hs * a.Ws * cs * (i8 ? 1 : 2);
     // int8 mode: bf16 values are taken to the grid by 127/ax after the
-    // prologue (before it when folded, as the reference's plain version
-    // does); mode UPD dequantises an int8 input first.
+    // prologue; mode UPD dequantises an int8 input first.
     float pre = 1.0f, post = 1.0f;
     if (Q) {
       const float axc = fmaxf(__ldg(a.ax[op]), 1e-12f);
       const float inv = __fdiv_rn(127.0f, axc);
       if (!i8) {
-        if (MODE == UPF) pre = inv; else post = inv;
+        post = inv;
       } else if (MODE == UPD) {
         pre = __fdiv_rn(axc, 127.0f);
         post = inv;
@@ -415,32 +308,6 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
               const uint2 bfrag = bp[nt * 32];
               mma_tile(acc[0][nt], af[0], bfrag);
               mma_tile(acc[1][nt], af[1], bfrag);
-            }
-            if (MODE == UPF && dx == 1) {
-              // The centre tap's fragment holds s[row][j] itself: keep only
-              // the edge pixel's row and multiply by the edge taps. The
-              // conditions are uniform over the warp.
-#pragma unroll
-              for (int mt = 0; mt < 2; ++mt) {
-                const int xs = x0 + mt * 16;  // column of fragment row 0
-                if (xs == 0) {
-                  const uint32_t e[4] = {g == 0 ? af[mt][0] : 0u, 0u,
-                                         g == 0 ? af[mt][2] : 0u, 0u};
-                  const uint2* ep = wrow + 3 * tap_elems + kc * NT * 32 + lane;
-#pragma unroll
-                  for (int nt = 0; nt < NT; ++nt) mma_tile(acc[mt][nt], e, ep[nt * 32]);
-                }
-                const int r = a.W - 1 - xs;   // fragment row of the last column
-                if (r >= 0 && r < 16) {
-                  const uint32_t e[4] = {g == r ? af[mt][0] : 0u,
-                                         g + 8 == r ? af[mt][1] : 0u,
-                                         g == r ? af[mt][2] : 0u,
-                                         g + 8 == r ? af[mt][3] : 0u};
-                  const uint2* ep = wrow + 4 * tap_elems + kc * NT * 32 + lane;
-#pragma unroll
-                  for (int nt = 0; nt < NT; ++nt) mma_tile(acc[mt][nt], e, ep[nt * 32]);
-                }
-              }
             }
           }
         }
@@ -557,7 +424,7 @@ int launch_mode(ConvArgs a, int B, int n_tiles, int q, void* stream) {
            : launch_nt<MODE, false>(a, B, n_tiles, smem, s);
 }
 
-// The arguments of the four fused entry points: one operand x of c channels.
+// The arguments of the two fused entry points: one operand x of c channels.
 ConvArgs fused_args(const void* x, int c, int in_i8, const void* ax, const void* wfrag,
                     const void* bias, const void* scale, void* out, int out_i8, int H,
                     int W, int Hs, int Ws, int cout, int ky, int kx, int ntaps, int cchunk,
@@ -644,20 +511,8 @@ int rrin_conv_pool_packed_launch(const void* x, int c, int in_i8, const void* ax
 }
 
 // x: (B,Hs,Ws,c) half resolution; out: (B,2Hs,2Ws,cout) =
-// conv_k(upsample_2x_bilinear(x)).
-int rrin_conv_up_m_packed_launch(const void* x, int c, int in_i8, const void* ax,
-                                 const void* wfrag, const void* bias, const void* scale,
-                                 void* out, int out_i8, int B, int Hs, int Ws, int cout,
-                                 int k, int cchunk, int n_tiles, int has_slope, float slope,
-                                 int q, void* stream) {
-  return launch_mode<UP>(
-      fused_args(x, c, in_i8, ax, wfrag, bias, scale, out, out_i8, 2 * Hs, 2 * Ws, Hs, Ws,
-                 cout, k, k, k, cchunk, has_slope, slope),
-      B, n_tiles, q, stream);
-}
-
-// The function of rrin_conv_up_m_packed_launch, k in {1, 3, 5}; in int8 an
-// int8 input is dequantised before it is interpolated.
+// conv_k(upsample_2x_bilinear(x)), k in {1, 3, 5}; in int8 an int8 input is
+// dequantised before it is interpolated.
 int rrin_conv_up_packed_launch(const void* x, int c, int in_i8, const void* ax,
                                const void* wfrag, const void* bias, const void* scale,
                                void* out, int out_i8, int B, int Hs, int Ws, int cout, int k,
@@ -666,21 +521,6 @@ int rrin_conv_up_packed_launch(const void* x, int c, int in_i8, const void* ax,
   return launch_mode<UPD>(
       fused_args(x, c, in_i8, ax, wfrag, bias, scale, out, out_i8, 2 * Hs, 2 * Ws, Hs, Ws,
                  cout, k, k, k, cchunk, has_slope, slope),
-      B, n_tiles, q, stream);
-}
-
-// x: (B,Hs,Ws,c) half resolution; out: (B,2Hs,2Ws,cout) =
-// conv_3(upsample_2x_bilinear(x)); wfrag holds the folded weights with five
-// taps per dy row and 2*cout output channels, bias (and scale) are 2*cout
-// long (see the file head).
-int rrin_conv_up_f_packed_launch(const void* x, int c, int in_i8, const void* ax,
-                                 const void* wfrag, const void* bias, const void* scale,
-                                 void* out, int out_i8, int B, int Hs, int Ws, int cout,
-                                 int cchunk, int n_tiles, int has_slope, float slope, int q,
-                                 void* stream) {
-  return launch_mode<UPF>(
-      fused_args(x, c, in_i8, ax, wfrag, bias, scale, out, out_i8, 2 * Hs, Ws, Hs, Ws,
-                 2 * cout, 3, 3, 5, cchunk, has_slope, slope),
       B, n_tiles, q, stream);
 }
 

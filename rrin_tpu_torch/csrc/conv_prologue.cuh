@@ -1,0 +1,110 @@
+// The element arithmetic of the fused-resample load prologues, shared by the
+// convolution kernels of this directory (conv_packed.cu, conv_up_sm90.cu):
+// eight channels of one stored pixel at a time, widened to float32, pooled
+// or interpolated with every product and sum rounded separately (as the
+// plain PyTorch versions compute them, no fused multiply-add), then rounded
+// once to bfloat16 or taken to the int8 grid.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+struct F8 {
+  float v[8];
+};
+
+__device__ __forceinline__ F8 unpack8(const uint4 u) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  F8 f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f.v[2 * i] = __uint_as_float(w[i] << 16);
+    f.v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+  return f;
+}
+
+__device__ __forceinline__ F8 unpack8_s8(const uint2 u) {
+  const uint32_t w[2] = {u.x, u.y};
+  F8 f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    f.v[i] = static_cast<float>(static_cast<int8_t>((w[i >> 2] >> (8 * (i & 3))) & 0xffu));
+  return f;
+}
+
+__device__ __forceinline__ uint4 pack8(const F8& f) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(f.v[2 * i], f.v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&p);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ int quant1(float v, float post) {
+  return min(max(__float2int_rn(__fmul_rn(v, post)), -127), 127);
+}
+
+// clip(rint(v * post), +-127) of eight values, packed as eight int8.
+__device__ __forceinline__ uint2 quant8(const F8& f, float post) {
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    w[i >> 2] |= (static_cast<uint32_t>(quant1(f.v[i], post)) & 0xffu) << (8 * (i & 3));
+  return make_uint2(w[0], w[1]);
+}
+
+// 0.25 * far + 0.75 * near with each product and the sum rounded separately,
+// as the plain version computes it (no fused multiply-add).
+__device__ __forceinline__ F8 lerp8(const F8& far, const F8& near) {
+  F8 r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    r.v[i] = __fadd_rn(__fmul_rn(0.25f, far.v[i]), __fmul_rn(0.75f, near.v[i]));
+  return r;
+}
+
+// The far tap of output position p of a 2x half-pixel bilinear upsample of n
+// samples, clamped at both ends; the near tap is p / 2.
+__device__ __forceinline__ int far_tap(int p, int n) {
+  const int h = p >> 1;
+  return (p & 1) ? min(h + 1, n - 1) : max(h - 1, 0);
+}
+
+__device__ __forceinline__ size_t pix_off(int cs, int Ws, int y, int x, int c) {
+  return (static_cast<size_t>(y) * Ws + x) * cs + c;
+}
+
+// The bytes of eight channels of one stored pixel: 16 of bf16, or 8 of int8
+// codes (in .x and .y) when the operand is int8.
+template <bool Q>
+__device__ __forceinline__ uint4 load8(const void* xb, int i8, int cs, int Ws, int y, int x,
+                                       int c) {
+  const size_t off = pix_off(cs, Ws, y, x, c);
+  if (Q && i8) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(static_cast<const int8_t*>(xb) + off));
+    return make_uint4(u.x, u.y, 0u, 0u);
+  }
+  return __ldg(reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(xb) + off));
+}
+
+// What load8 read, as float32 (times `pre` in int8 mode).
+template <bool Q>
+__device__ __forceinline__ F8 widen8(const uint4 u, int i8, float pre) {
+  F8 f = (Q && i8) ? unpack8_s8(make_uint2(u.x, u.y)) : unpack8(u);
+  if (Q) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) f.v[i] = __fmul_rn(f.v[i], pre);
+  }
+  return f;
+}
+
+// Eight channels of one stored pixel as float32 (times `pre` in int8 mode).
+template <bool Q>
+__device__ __forceinline__ F8 tap8(const void* xb, int i8, int cs, int Ws, int y, int x,
+                                   int c, float pre) {
+  return widen8<Q>(load8<Q>(xb, i8, cs, Ws, y, x, c), i8, pre);
+}

@@ -14,23 +14,27 @@ Replaces five Pallas kernels of the JAX package's ``ops/conv_packed.py``:
                         from the half-resolution tensor, k in {1, 3, 5}, rows
                         and columns of the upsampled tile built in shared
                         memory (W first, as the reference);
-  ``conv_up_m_packed``  ``_kernel_body_up_m``: the same function;
+  ``conv_up_m_packed``  ``_kernel_body_up_m``: the same function, k in {3, 5};
   ``conv_up_f_packed``  ``_kernel_body_up_f``: the same function for k = 3
                         with the W-upsample folded into per-output-parity
-                        weights on the host (:func:`_upf_fold`) and the
-                        clamped-edge residual added exactly.
+                        weights (:func:`_upf_fold`) and the clamped-edge
+                        residual added exactly.
 
-The source of all five is ``csrc/conv_packed.cu``: one implicit-GEMM core on
-``mma.sync`` with five load prologues. **K6 and K8 compute one function** in
-NHWC. The two TPU kernels differ only in their lane geometry (K6 doubles the
-lane groups P, K8 the sublane groups M at a level boundary), which is not
-carried over, so in bfloat16 their CUDA kernels are the same prologue. Both
-entry points exist because each mirrors one reference kernel, with its own
-plain version, ``supports_*`` and launch count, and because their rounding
-follows their references: ``conv_up_packed`` interpolates along W first and
-dequantises an int8 input before interpolating, as ``_conv_up_packed_xla``
-does, while ``conv_up_m_packed`` interpolates along H first and on the int8
-codes, as ``_conv_up_m_xla`` does. The JAX package
+K5, K6 and K7 are ``csrc/conv_packed.cu``: one implicit-GEMM core on
+``mma.sync`` with three load prologues. K8 and K9 are ``csrc/conv_up_sm90.cu``,
+a Hopper core on ``wgmma`` with a producer warpgroup that builds the
+interpolated halo tile of the next channel chunk while two consumer
+warpgroups contract the current one, all of a site's output channels (up to
+128) in one block; its planner is :func:`_sm90_plan`, its weight layout
+:func:`_sm90_weights`. **K6 and K8 compute one function** in NHWC. The two
+TPU kernels differ only in their lane geometry (K6 doubles the lane groups P,
+K8 the sublane groups M at a level boundary), which is not carried over.
+Both entry points exist because each mirrors one reference kernel, with its
+own plain version, ``supports_*`` and launch count, and because their
+rounding follows their references: ``conv_up_packed`` interpolates along W
+first and dequantises an int8 input before interpolating, as
+``_conv_up_packed_xla`` does, while ``conv_up_m_packed`` interpolates along H
+first and on the int8 codes, as ``_conv_up_m_xla`` does. The JAX package
 routes the up sites u3c1 and u4c1 to K6 where the folded kernel's scoped
 memory bound rejects them (4K widths); ``models.unet.packed_branch_flags``
 repeats that routing.
@@ -44,7 +48,8 @@ float32 sum, rounded once to bfloat16.
 (:func:`_quantize_act`), weights per output channel with operand *i*
 pre-scaled by ``ax_i/ax_0`` so that one scale ``ax_0 * sw / 127^2``
 dequantises the shared int32 sum (:func:`_quantize_weights`); the kernels
-contract int8 x int8 -> int32 on ``mma.sync.m16n8k32``. An int8-dtyped
+contract int8 x int8 -> int32 (``mma.sync.m16n8k32``, K8 and K9
+``wgmma...m64nNk32.s32.s8.s8``). An int8-dtyped
 operand is taken as already on its grid. With ``out_absmax`` the
 ``127/ax_out`` step is folded into scale and bias and the kernel emits int8,
 otherwise ``out_dtype`` (bfloat16 on the card). The scales reach the kernel
@@ -73,7 +78,10 @@ or raises; it takes the plain version beside it only for a CPU tensor.
 float32 on the card is refused (the kernels are bfloat16 and int8 only so
 far). Forward only. ``prepared=`` takes the result of the matching
 ``prep_*`` (built with the same absmax) and skips the per-call weight
-re-layout and quantisation.
+re-layout and quantisation. Without it, K8 and K9 in bfloat16 lay out (and
+K9 folds) their weights on the card in one launch of the core's prep kernel
+(launch count ``conv_up_prep``); the ``prep_*`` functions are its plain
+version.
 """
 
 from __future__ import annotations
@@ -102,6 +110,17 @@ _K_CONV, _K_POOL, _K_UP, _K_UP_M, _K_UP_F = (3, 5, 7), (3, 5), (1, 3, 5), (3, 5)
 # Channel chunks of the K-loop, largest first: bfloat16 steps 16 channels
 # per mma, int8 32.
 _CHUNKS = {False: (64, 48, 32, 16), True: (128, 64, 32)}
+# csrc/conv_up_sm90.cu (K8, K9): pixels per block row, output channels per
+# block (N of its wgmma) that it is built for, consumer warpgroups, channel
+# chunks (powers of two: its producer threads split a chunk evenly).
+_SM90_TW, _SM90_N, _SM90_CONSUMERS = 64, (8, 16, 32, 64, 128), 2
+_SM90_CHUNKS = {False: (64, 32, 16), True: (128, 64, 32)}
+# Its weights' memory order against the fragment order of _weight_fragments:
+# (cb, chunk, dy, tap, kstep, nt, g, tig, r, p) is stored as
+# (cb, chunk, dy, tap, kstep, nt, r, g, tig, p), so that each (r, g) row of
+# 16 bytes is a row of a wgmma core matrix.
+_SM90_ORDER = (0, 1, 2, 3, 4, 5, 8, 6, 7, 9)
+_SM90_VIEW = (0, 1, 2, 3, 4, 5, 7, 8, 6, 9)
 
 Part = Union[torch.Tensor, Tuple[torch.Tensor, int]]
 Prepared = Dict[str, object]
@@ -154,6 +173,57 @@ def _fits(ky, kx, ntaps, cins, n_out) -> bool:
     return all(_plan(ky, kx, ntaps, cins, n_out, q) is not None for q in (False, True))
 
 
+def _sm90_rows(n: int) -> int:
+    """Rows of GEMM pixels per block of the K8/K9 core for N = ``n``: each
+    consumer warpgroup holds 4 rows of accumulators up to N = 64, else 2."""
+    return _SM90_CONSUMERS * (4 if n <= 64 else 2)
+
+
+def _sm90_smem_bytes(k: int, cchunk: int, n_tiles: int, q: bool = False,
+                     folded: bool = False) -> int:
+    """Shared memory of one K8/K9 block (``make_layout`` in conv_up_sm90.cu):
+    three buffers of a halo tile and a chunk's stencil weights where they
+    fit, else two; a staged output row per consumer warpgroup; bias and
+    scale; K9's edge sums of two tiles; eight mbarriers. Regions are 128-byte
+    aligned."""
+    es, n = (1 if q else 2), n_tiles * 8
+    th = _sm90_rows(n)
+
+    def up128(b):
+        return -(-b // 128) * 128
+
+    buf = (up128((th + k - 1) * (_SM90_TW + k - 1) * (cchunk * es + _PAD_BYTES))
+           + k * k * cchunk * n * es)
+    rest = (_SM90_CONSUMERS * up128(_SM90_TW * (2 * n + _PAD_BYTES)) + 2 * n * 4
+            + (2 * 2 * th * n * 4 if folded else 0) + 8 * 8)
+    three = 3 * buf + rest
+    return three if three <= _SMEM_MAX else 2 * buf + rest
+
+
+def _sm90_plan(
+    k: int, cin: int, n_out: int, q: bool = False, folded: bool = False,
+) -> Optional[Tuple[int, int, int]]:
+    """(cchunk, n_tiles, n_cout_blocks) of the K8/K9 core, or None: N =
+    8*n_tiles is the narrowest width it is built for that covers ``n_out``
+    (2*cout when folded), so one block holds every output channel up to 128;
+    the largest channel chunk that fits shared memory, a narrower N (more
+    channel blocks) only where none does."""
+    if cin < 1 or n_out < 1:
+        return None
+    kk = 32 if q else 16
+    cin_k = -(-cin // kk) * kk
+    first = next((n for n in _SM90_N if n >= n_out), _SM90_N[-1])
+    for n in reversed([m for m in _SM90_N if m <= first]):
+        for cchunk in _SM90_CHUNKS[q]:
+            if cchunk <= cin_k and _sm90_smem_bytes(k, cchunk, n // 8, q, folded) <= _SMEM_MAX:
+                return cchunk, n // 8, -(-n_out // n)
+    return None
+
+
+def _sm90_fits(k: int, cin: int, n_out: int, folded: bool) -> bool:
+    return all(_sm90_plan(k, cin, n_out, q, folded) is not None for q in (False, True))
+
+
 def supports(cins: Sequence[int], k: int, cout: int) -> bool:
     """Whether ``conv_packed`` has a kernel for operands of ``cins`` channels:
     k in {3, 5, 7}, any cin >= 1 and cout >= 1 (cin 6/9/10 and cout 2/3/4
@@ -174,13 +244,13 @@ def supports_up(cin: int, k: int, cout: int) -> bool:
 
 def supports_up_m(cin: int, k: int, cout: int) -> bool:
     """``conv_up_m_packed``: k in {3, 5}, cin a multiple of 8."""
-    return k in _K_UP_M and cin % 8 == 0 and _fits(k, k, k, (cin,), cout)
+    return k in _K_UP_M and cin % 8 == 0 and _sm90_fits(k, cin, cout, False)
 
 
 def supports_up_f(cin: int, k: int, cout: int) -> bool:
     """``conv_up_f_packed``: k = 3 (the fold is solved for it), cin a
     multiple of 8."""
-    return k in _K_UP_F and cin % 8 == 0 and _fits(3, 3, 5, (cin,), 2 * cout)
+    return k in _K_UP_F and cin % 8 == 0 and _sm90_fits(3, cin, 2 * cout, True)
 
 
 # ---------------------------------------------------------------- int8 grid
@@ -266,13 +336,30 @@ def _weight_fragments(
     return wp.permute(7, 2, 0, 1, 3, 8, 9, 5, 4, 6).contiguous()
 
 
-def _prepared(wt, bias, cins, k, cout, plan, scale=None, out_q=False) -> Prepared:
+def _sm90_weights(
+    wt: torch.Tensor, cins: Sequence[int], cchunk: int, n_tiles: int, q: bool = False,
+) -> torch.Tensor:
+    """(ky, ntaps, cin, n_out) weights -> the K8/K9 core's layout: the
+    elements of :func:`_weight_fragments`, stored in the order
+    ``[cout block][chunk][dy][tap][kstep][n-tile][r][g][tig][p]`` that its
+    wgmma B descriptor reads (each ``[r][g]`` row of 16 bytes a core-matrix
+    row: channels-in ``kstep*KK + r*KK/2 ..`` of channel-out ``n-tile*8 +
+    g``). Returned as a view whose dimensions are in fragment order, so that
+    it is indexed as ``_weight_fragments``' result; the kernel reads the
+    storage behind it. Also the plain version of the core's prep kernel."""
+    frag = _weight_fragments(wt, cins, cchunk, n_tiles, q)
+    return frag.permute(*_SM90_ORDER).contiguous().permute(*_SM90_VIEW)
+
+
+def _prepared(wt, bias, cins, k, cout, plan, scale=None, out_q=False,
+              layout=_weight_fragments) -> Prepared:
     """``scale`` is None for bfloat16 weights and the per-channel int8
-    dequantisation for int8 codes ``wt``."""
+    dequantisation for int8 codes ``wt``; ``layout`` lays the weights out
+    for the kernel (``_sm90_weights`` for K8 and K9)."""
     cchunk, n_tiles, _ = plan
     q = scale is not None
     return {
-        "wfrag": _weight_fragments(wt, cins, cchunk, n_tiles, q),
+        "wfrag": layout(wt, cins, cchunk, n_tiles, q),
         "bias": bias.to(torch.float32).contiguous(),
         "scale": None if scale is None else scale.contiguous(),
         "cins": tuple(cins), "k": k, "cout": cout, "plan": plan,
@@ -363,8 +450,18 @@ def prep_conv_up(w: torch.Tensor, bias: torch.Tensor, absmax: Optional[Absmax] =
 def prep_conv_up_m(w: torch.Tensor, bias: torch.Tensor, absmax: Optional[Absmax] = None,
                    out_absmax: Optional[Absmax] = None) -> Prepared:
     """Weight-side constants of one ``conv_up_m_packed`` site, as
-    :func:`prep_conv_up`."""
-    return _prep_single("conv_up_m_packed", supports_up_m, w, bias, absmax, out_absmax)
+    :func:`prep_conv_up`, in the layout of the K8/K9 core
+    (:func:`_sm90_weights`)."""
+    k, cout = _check_w(w, bias, w.shape[2])
+    cin = w.shape[2]
+    _need(supports_up_m(cin, k, cout), "conv_up_m_packed", cin, k, cout)
+    if absmax is None:
+        return _prepared(w.float(), bias, (cin,), k, cout, _sm90_plan(k, cin, cout),
+                         layout=_sm90_weights)
+    (wq,), sw = _quantize_weights([w.float()], (absmax,))
+    scale, b = _q_fold(absmax, sw, bias, out_absmax)
+    return _prepared(wq.float(), b, (cin,), k, cout, _sm90_plan(k, cin, cout, q=True),
+                     scale, out_absmax is not None, _sm90_weights)
 
 
 def _upf_fold(w: torch.Tensor):
@@ -416,20 +513,23 @@ def prep_conv_up_f(w: torch.Tensor, bias: torch.Tensor, absmax: Optional[Absmax]
                    out_absmax: Optional[Absmax] = None) -> Prepared:
     """Weight-side constants of one ``conv_up_f_packed`` site: the weights
     folded in float32, then rounded to bfloat16 (or quantised to int8 with
-    their edge taps on one per-channel grid) in fragment order, and the bias
-    (and scale) repeated for both output parities."""
+    their edge taps on one per-channel grid) in the layout of the K8/K9 core
+    (:func:`_sm90_weights`, five taps per dy row: the stencil, then the two
+    edge taps), and the bias (and scale) repeated for both output parities.
+    In bfloat16 also the plain version of the core's prep kernel."""
     k, cout = _check_w(w, bias, w.shape[2])
     cin = w.shape[2]
     _need(supports_up_f(cin, k, cout), "conv_up_f_packed", cin, k, cout)
     if absmax is None:
         return _prepared(
             _upf_taps(w.float()), torch.cat([bias, bias]), (cin,), k, cout,
-            _plan(3, 3, 5, (cin,), 2 * cout))
+            _sm90_plan(3, cin, 2 * cout, folded=True), layout=_sm90_weights)
     codes, sw = _upf_q_taps(w)
     scale, b = _q_fold(absmax, sw, bias, out_absmax)
     return _prepared(
-        codes, torch.cat([b, b]), (cin,), k, cout, _plan(3, 3, 5, (cin,), 2 * cout, q=True),
-        torch.cat([scale, scale]), out_absmax is not None)
+        codes, torch.cat([b, b]), (cin,), k, cout,
+        _sm90_plan(3, cin, 2 * cout, q=True, folded=True),
+        torch.cat([scale, scale]), out_absmax is not None, _sm90_weights)
 
 
 # ----------------------------------------------------------- plain versions
@@ -585,11 +685,26 @@ def _lib() -> ctypes.CDLL:
         lib.rrin_conv_packed_launch.argtypes = (
             [pv, pi, pi, pi, pv, ci] + [vp] * 4 + [ci] * 9 + [cf, ci, vp])
         fused = [vp, ci, ci] + [vp] * 5 + [ci] * 9 + [cf, ci, vp]
-        for name in ("pool", "up_m", "up"):
-            getattr(lib, f"rrin_conv_{name}_packed_launch").argtypes = fused
+        for name in ("conv_pool_packed", "conv_up_packed"):
+            getattr(lib, f"rrin_{name}_launch").argtypes = fused
+        for name in ("conv_packed", "conv_pool_packed", "conv_up_packed"):
+            getattr(lib, f"rrin_{name}_launch").restype = ci
+        lib._rrin_typed = True
+    return lib
+
+
+def _lib_sm90() -> ctypes.CDLL:
+    lib = _build.library("conv_up_sm90")
+    if not getattr(lib, "_rrin_typed", False):
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.rrin_conv_up_sm90_smem.argtypes = [ci] * 5
+        lib.rrin_conv_up_sm90_smem.restype = ctypes.c_longlong
+        lib.rrin_conv_up_m_packed_launch.argtypes = (
+            [vp, ci, ci] + [vp] * 5 + [ci] * 9 + [cf, ci, vp])
         lib.rrin_conv_up_f_packed_launch.argtypes = (
             [vp, ci, ci] + [vp] * 5 + [ci] * 8 + [cf, ci, vp])
-        for name in _ENTRY:
+        lib.rrin_conv_up_prep_launch.argtypes = [vp] * 4 + [ci] * 6 + [vp]
+        for name in ("conv_up_m_packed", "conv_up_f_packed", "conv_up_prep"):
             getattr(lib, f"rrin_{name}_launch").restype = ci
         lib._rrin_typed = True
     return lib
@@ -658,6 +773,38 @@ def _smem_agrees(lib, ky, kx, ntaps, plan, q) -> None:
     if lib.rrin_conv_packed_smem(ky, kx, ntaps, cchunk, n_tiles, int(q)) != _smem_bytes(
             ky, kx, ntaps, cchunk, n_tiles, q):
         raise RuntimeError("conv_packed.cu and conv_packed.py disagree on the tile")
+
+
+def _sm90_smem_agrees(lib, k, plan, q, folded) -> None:
+    cchunk, n_tiles, _ = plan
+    if lib.rrin_conv_up_sm90_smem(k, cchunk, n_tiles, int(q), int(folded)) != _sm90_smem_bytes(
+            k, cchunk, n_tiles, q, folded):
+        raise RuntimeError("conv_up_sm90.cu and conv_packed.py disagree on the tile")
+
+
+def _prep_on_card(name: str, w: torch.Tensor, bias: torch.Tensor) -> Prepared:
+    """What ``prep_conv_up_m`` / ``prep_conv_up_f`` return in bfloat16, from
+    one launch of the K8/K9 core's prep kernel: the layout of
+    :func:`_sm90_weights` (K9: the fold of :func:`_upf_taps` before the bf16
+    rounding) and, folded, the bias repeated for both output parities."""
+    folded = name == "conv_up_f_packed"
+    k, _, cin, cout = w.shape
+    n_out = 2 * cout if folded else cout
+    plan = _sm90_plan(k, cin, n_out, folded=folded)
+    cchunk, n_tiles, n_cb = plan
+    mem = torch.empty((n_cb, -(-cin // cchunk), k, 5 if folded else k, cchunk // 16, n_tiles,
+                       2, 8, 4, 2), dtype=torch.bfloat16, device=w.device)
+    wf = w.float().contiguous()
+    b = bias.float().contiguous()
+    b_out = torch.empty(n_out, dtype=torch.float32, device=w.device) if folded else b
+    lib = _lib_sm90()
+    with torch.cuda.device(w.device):
+        _build.launch(
+            "conv_up_prep", lib.rrin_conv_up_prep_launch, wf.data_ptr(), b.data_ptr(),
+            mem.data_ptr(), b_out.data_ptr() if folded else None, k, cin, cout, cchunk,
+            n_tiles, int(folded), torch.cuda.current_stream().cuda_stream)
+    return {"wfrag": mem.permute(*_SM90_VIEW), "bias": b_out, "scale": None,
+            "cins": (cin,), "k": k, "cout": cout, "plan": plan, "q": False, "out_q": False}
 
 
 def _slope_args(slope: Optional[float]) -> Tuple[int, float]:
@@ -756,12 +903,20 @@ def _fused(name: str, x, w, bias, slope, prepared, in_absmax, out_absmax,
         raise RuntimeError(f"no {name} kernel for device {x.device}")
     prepared = _check_cuda(name, [x], w, bias, prepared, (cin,), k, cout, q,
                            out_absmax is not None)
-    if prepared is None:
-        prepared = prep(w, bias, in_absmax, out_absmax)
-    cchunk, n_tiles, _ = prepared["plan"]
-    lib = _lib()
+    sm90 = name in ("conv_up_m_packed", "conv_up_f_packed")
     folded = name == "conv_up_f_packed"
-    _smem_agrees(lib, *((3, 3, 5) if folded else (k, k, k)), prepared["plan"], q)
+    if prepared is None:
+        prepared = (_prep_on_card(name, w, bias) if sm90 and not q
+                    else prep(w, bias, in_absmax, out_absmax))
+    cchunk, n_tiles, _ = prepared["plan"]
+    if sm90:
+        if not prepared["wfrag"].permute(*_SM90_ORDER).is_contiguous():
+            raise ValueError(f"{name}: prepared['wfrag'] is not in the layout of _sm90_weights")
+        lib = _lib_sm90()
+        _sm90_smem_agrees(lib, k, prepared["plan"], q, folded)
+    else:
+        lib = _lib()
+        _smem_agrees(lib, k, k, k, prepared["plan"], q)
     oh, ow = (h // 2, width // 2) if pool else (2 * h, 2 * width)
     out = _out_tensor(name, (b, oh, ow, cout), x.device, q, out_absmax, out_dtype)
     axs, scale = _q_launch_args(prepared, [in_absmax], x.device) if q else ([None], None)
@@ -848,4 +1003,3 @@ _FUSED = {
     "conv_up_m_packed": (supports_up_m, prep_conv_up_m, _conv_up_plain, _conv_up_m_q_plain),
     "conv_up_f_packed": (supports_up_f, prep_conv_up_f, _conv_up_plain, _conv_up_f_q_plain),
 }
-_ENTRY = ("conv_packed",) + tuple(_FUSED)

@@ -10,7 +10,14 @@ from jax.experimental.pallas import tpu as pltpu
 
 from rrin_tpu.ops import conv_phase as jcp
 from rrin_tpu_torch.ops import conv_phase as tcp
-from torch_packed_util import one_torch_thread  # noqa: F401
+from torch_packed_util import fresh_rng, one_torch_thread  # noqa: F401
+
+
+@pytest.fixture
+def rng():
+    """This file's own generator (not the one conftest.py shares across the
+    test run), fresh for every test."""
+    return fresh_rng()
 
 # (cin, cout, k): the U-Net's kernel-eligible shape classes.
 SHAPES = [

@@ -20,7 +20,14 @@ from rrin_tpu_torch._device import resolve_device
 from rrin_tpu_torch.ops import pad as tpad
 from rrin_tpu_torch.ops import resize as tresize
 from rrin_tpu_torch.ops import warp as twarp
-from torch_packed_util import one_torch_thread  # noqa: F401
+from torch_packed_util import fresh_rng, one_torch_thread  # noqa: F401
+
+
+@pytest.fixture
+def rng():
+    """This file's own generator (not the one conftest.py shares across the
+    test run), fresh for every test."""
+    return fresh_rng()
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 

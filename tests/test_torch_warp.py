@@ -10,7 +10,14 @@ from jax.experimental.pallas import tpu as pltpu
 
 from rrin_tpu.ops import warp_pallas as jwp
 from rrin_tpu_torch.ops import warp_kernel as twk
-from torch_packed_util import one_torch_thread  # noqa: F401
+from torch_packed_util import fresh_rng, one_torch_thread  # noqa: F401
+
+
+@pytest.fixture
+def rng():
+    """This file's own generator (not the one conftest.py shares across the
+    test run), fresh for every test."""
+    return fresh_rng()
 
 
 def _run_jax_kernel(img, flow, align_corners, pairs, planar_out=False):
