@@ -11,8 +11,10 @@ and numpy; nothing else and no network. It builds the CUDA kernels of
   build        nvcc over every kernel source, in parallel
   kernels      every kernel against its plain PyTorch version on the card at
                the shapes of the 1080p paths (K6, K8 and K9 also at the 4K up
-               sites), in bfloat16 and in int8, with times and bounds; the
-               K8/K9 weight-prep kernel bit-equal to its plain version
+               sites, K7 at the 4K d1c1 site), in bfloat16 and in int8, with
+               times and bounds; the K7-K9 weight-prep kernel bit-equal to
+               its plain version; the warps through warp_one and as one
+               launch per pair
   serve        the main path: the default Interpolator (bfloat16, kernels,
                packed U-Net path, full model width) answering 1080p requests
   serve_4k     the same Interpolator answering 2160x3840 requests, whose up
@@ -249,7 +251,7 @@ PACKED_KERNELS = {
 
 # The kernels of csrc/conv_up_sm90.cu, whose bf16 wrappers lay out (and
 # fold) their weights on the card.
-UP_SM90 = ("conv_up_m_packed", "conv_up_f_packed")
+SM90 = ("conv_pool_packed", "conv_up_m_packed", "conv_up_f_packed")
 
 
 def packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope, int8=None):
@@ -349,7 +351,7 @@ def packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope, int8=None):
           f"{name}: prepared= changes the result")
     out["kernel_prepared_ms"] = time_ms(
         lambda: wrapper(arg, wt, bias, slope, prepared=prep, **qkw))
-    if int8 is None and kernel in UP_SM90:
+    if int8 is None and kernel in SM90:
         # The weight prep that the wrapper runs on the card without
         # prepared=, against prep_* (its plain version): bit-equal.
         on_card = conv_packed._prep_on_card(kernel, wt, bias)
@@ -408,6 +410,11 @@ def packed_cases(rng, dev):
         ("conv_pool_packed", "d1c1", HP // 2, WP // 2, (32,), 64, 5, s, 1),
         ("conv_pool_packed", "d2c1", HP // 4, WP // 4, (64,), 128, 3, s, 1),
         ("conv_pool_packed", "ragged_135x243", 135, 243, (32,), 64, 5, s, 0),
+        # the last output column inside a tile of 60 (k 5) and of 62 (k 3)
+        ("conv_pool_packed", "edge_in_tile_68x150", 68, 150, (32,), 64, 5, s, 0),
+        ("conv_pool_packed", "edge_in_tile_k3_68x100", 68, 100, (64,), 128, 3, s, 0),
+        # K7 where the 4K request takes it (d1c1 reading 2160x3840x32)
+        ("conv_pool_packed", "d1c1_4k", H4K // 2, W4K // 2, (32,), 64, 5, s, 0),
         ("conv_up_m_packed", "u2c1", HP // 4, WP // 4, (256,), 128, 3, s, 1),
         ("conv_up_m_packed", "ragged_270x486", 270, 486, (64,), 64, 3, s, 0),
         # a width that is no multiple of 64, its last column inside a tile
@@ -445,6 +452,9 @@ def int8_cases(rng, dev):
         ("conv_packed", "d4c2", HP // 16, WP // 16, (512,), 512, 3, ((True,), False)),
         ("conv_packed", "u1c2", HP // 8, WP // 8, (256, 256), 256, 3, ((True, False), True)),
         ("conv_pool_packed", "d1c1", HP // 2, WP // 2, (32,), 64, 5, ((True,), True)),
+        ("conv_pool_packed", "d2c1", HP // 4, WP // 4, (64,), 128, 3, ((True,), True)),
+        ("conv_pool_packed", "d1c1_bf16_in_out", HP // 2, WP // 2, (32,), 64, 5,
+         ((False,), False)),
         ("conv_up_m_packed", "u2c1", HP // 4, WP // 4, (256,), 128, 3, ((True,), True)),
         ("conv_up_f_packed", "u3c1", HP // 2, WP // 2, (128,), 64, 3, ((True,), True)),
         ("conv_up_f_packed", "u4c1", HP, WP, (64,), 32, 3, ((True,), True)),
@@ -469,46 +479,95 @@ def grid_for_grid_sample(flow: torch.Tensor) -> torch.Tensor:
 
 
 def warp_case(rng, dev, pairs, h, w, align_corners, scale, bias, atol, timed):
-    img = torch.from_numpy(rng.random((1, h, w, 3), dtype=np.float32)).to(dev)
+    """One warp case, through ``warp_one`` and through the pair launch with
+    both flow layouts: the halves of one 4-channel tensor, as the cascade
+    hands them over, and two separate tensors; NHWC and planar."""
+    imgs = [torch.from_numpy(rng.random((1, h, w, 3), dtype=np.float32)).to(dev)
+            for _ in range(2)]
     fl = (rng.standard_normal((1, h, w, 4)) * scale).astype(np.float32)
-    fl[..., 0] += bias[0]
-    fl[..., 1] += bias[1]
-    # As on the main path: a 2-channel slice of the concatenated flows.
-    flow = torch.from_numpy(fl).to(dev)[..., :2]
+    fl[..., 0::2] += bias[0]
+    fl[..., 1::2] += bias[1]
+    ftc = torch.from_numpy(fl).to(dev)
+    halves = [ftc[..., :2], ftc[..., 2:]]
+    separate = [f.contiguous() for f in halves]
+    check(warp_kernel._flow_halves(*halves) and not warp_kernel._flow_halves(*separate),
+          "the flow halves are not recognised as one 4-channel tensor")
     kernel, _ = warp_kernel._variant(pairs)
-
-    before = _build.launch_counts()[kernel]
-    got = warp_kernel.warp_one(img, flow, align_corners, pairs)
-    torch.cuda.synchronize()
-    check(_build.launch_counts()[kernel] == before + 1, f"{kernel}: no launch")
-    want = warp_kernel._warp_plain(img, flow, align_corners, pairs, False)
-    err = float((got - want).abs().max())
     case = f"{kernel} {h}x{w} ac={align_corners} flow~{scale}+{bias}"
-    check(err <= atol and bool(torch.isfinite(got).all()),
-          f"{case}: kernel disagrees with plain version, max abs err {err} > {atol}")
-    planar = warp_kernel.warp_one(img, flow, align_corners, pairs, True)
-    check(torch.equal(planar.movedim(1, -1), got), f"{case}: planar output differs")
+    want = [warp_kernel._warp_plain(i, f, align_corners, pairs, False)
+            for i, f in zip(imgs, halves)]
+
+    def launched(fn, n_kernel, n_pack=0):
+        before = _build.launch_counts()
+        got = fn()
+        torch.cuda.synchronize()
+        after = _build.launch_counts()
+        check(after[kernel] - before[kernel] == n_kernel
+              and after["warp_pack"] - before["warp_pack"] == n_pack,
+              f"{case}: {after[kernel] - before[kernel]} {kernel} and "
+              f"{after['warp_pack'] - before['warp_pack']} warp_pack launches, want "
+              f"{n_kernel} and {n_pack}")
+        return got
+
+    errs = {}
+    one = launched(lambda: warp_kernel.warp_one(imgs[0], halves[0], align_corners, pairs), 1)
+    routes = {
+        "warp_one": [one],
+        "pair_flow_halves": launched(lambda: warp_kernel.warp_pair_kernel(
+            *imgs, *halves, align_corners, pairs), 1),
+        "pair_separate_flows": launched(lambda: warp_kernel.warp_pair_kernel(
+            *imgs, *separate, align_corners, pairs), 1),
+    }
+    if pairs == "u8":  # the byte grid taken by a packing pass instead
+        routes["pair_pack_pass"] = launched(lambda: warp_kernel._warp_cuda(
+            imgs, halves, align_corners, pairs, False, pack=True), 1, 1)
+    for route, outs in routes.items():
+        err = max(float((g - wt).abs().max()) for g, wt in zip(outs, want))
+        check(err <= atol and all(bool(torch.isfinite(g).all()) for g in outs),
+              f"{case} {route}: kernel disagrees with plain version, max abs err {err} > {atol}")
+        errs[route] = err
+    planar_one = warp_kernel.warp_one(imgs[0], halves[0], align_corners, pairs, True)
+    planar_pair = warp_kernel.warp_pair_kernel(*imgs, *halves, align_corners, pairs, True)
+    check(torch.equal(planar_one.movedim(1, -1), one)
+          and all(torch.equal(p.movedim(1, -1), g)
+                  for p, g in zip(planar_pair, routes["pair_flow_halves"])),
+          f"{case}: planar output differs")
 
     out = {"kernel": kernel, "shape": [1, h, w, 3], "align_corners": align_corners,
-           "flow_sigma": scale, "flow_bias": list(bias), "max_abs_err": err, "atol": atol}
+           "flow_sigma": scale, "flow_bias": list(bias), "max_abs_err": max(errs.values()),
+           "max_abs_err_by_route": errs, "atol": atol}
     if timed:
-        grid = grid_for_grid_sample(flow)
-        src = warp_kernel._rounded_source(img, pairs).permute(0, 3, 1, 2)
-        lib = lambda: F.grid_sample(  # noqa: E731
-            src, grid, mode="bilinear", padding_mode="zeros", align_corners=align_corners)
-        out["library_max_abs_diff"] = float((lib().permute(0, 2, 3, 1) - got).abs().max())
-        nbytes = img.numel() * 4 + flow.numel() * 4 + got.numel() * 4
+        # Per warp: a pair's time over two, its bytes over two (two frames,
+        # the 4-channel flow tensor read once, two outputs).
+        srcs = [warp_kernel._rounded_source(i, pairs).permute(0, 3, 1, 2) for i in imgs]
+        grids = [grid_for_grid_sample(f) for f in halves]
+        lib = lambda: [F.grid_sample(  # noqa: E731
+            sr, g, mode="bilinear", padding_mode="zeros", align_corners=align_corners)
+            for sr, g in zip(srcs, grids)]
+        out["library_max_abs_diff"] = max(
+            float((y.permute(0, 2, 3, 1) - g).abs().max())
+            for y, g in zip(lib(), routes["pair_flow_halves"]))
+        nbytes = (2 * imgs[0].numel() + ftc.numel() + 2 * one.numel()) * 4 / 2
         flops = 40.0 * h * w  # coordinates, 4 weights, 12 multiply-adds, per pixel
         t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        pair = lambda: warp_kernel.warp_pair_kernel(  # noqa: E731
+            *imgs, *halves, align_corners, pairs)
+        # A pair takes tens of microseconds: 50 calls a timing, so that one
+        # slow call moves the mean little.
         out.update({
-            "kernel_ms": time_ms(lambda: warp_kernel.warp_one(img, flow, align_corners, pairs)),
-            "plain_ms": time_ms(
-                lambda: warp_kernel._warp_plain(img, flow, align_corners, pairs, False), iters=3),
-            "library_ms": time_ms(lib),
+            "kernel_ms": time_ms(pair, iters=50) / 2,
+            "warp_one_ms": time_ms(
+                lambda: warp_kernel.warp_one(imgs[0], halves[0], align_corners, pairs), iters=50),
+            "plain_ms": time_ms(lambda: [warp_kernel._warp_plain(
+                i, f, align_corners, pairs, False) for i, f in zip(imgs, halves)], iters=3) / 2,
+            "library_ms": time_ms(lib, iters=50) / 2,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes,
         })
+        if pairs == "u8":  # the pair with a packing pass, per warp, packing included
+            out["pack_pass_variant_ms"] = time_ms(lambda: warp_kernel._warp_cuda(
+                imgs, halves, align_corners, pairs, False, pack=True), iters=50) / 2
     return out
 
 
@@ -519,7 +578,7 @@ def warp_cases(rng, dev):
             # main-path shape, flow as a refined 1080p flow would be
             cases.append(warp_case(rng, dev, pairs, HP, WP, ac, 3.0, (0.0, 0.0),
                                    WARP_ATOL, timed=not ac))
-            # a width that is not a multiple of 128, flow leaving the image
+            # a width that is not a multiple of 32, flow leaving the image
             cases.append(warp_case(rng, dev, pairs, 272, 200, ac, 4.0, (9.0, -7.0),
                                    WARP_ATOL, timed=False))
         # beyond the TPU kernel's window (|dx| > 126, |dy| > 30): same kernel here
@@ -560,20 +619,22 @@ def serve_request(interp, pairs):
     return mids, (time.perf_counter() - t0) * 1e3
 
 
-# Launches of one exp=1 request (4 U-Nets, 2 warps) on each U-Net path: 1080p
-# and 4K differ at u3c1 and u4c1 (K9 below width 3200, K6 from there on); a
-# bf16 K8 or K9 launch comes with one launch of their weight prep; in int8
-# every conv but the four heads is int8 (weights quantised in PyTorch); the
+# Launches of one exp=1 request (4 U-Nets, one warp pair) on each U-Net
+# path: 1080p and 4K differ at u3c1 and u4c1 (K9 below width 3200, K6 from
+# there on); a bf16 K7, K8 or K9 launch comes with one launch of their weight
+# prep; in int8 every conv but the four heads is int8 (weights quantised in
+# PyTorch); both warps of a pair are one launch, with no packing pass; the
 # int8 calibration pass runs the plain path.
+WARP_PAIR = {"warp_u8": 1}
 PACKED_PER_REQUEST = {"conv_packed": 56, "conv_pool_packed": 8, "conv_up_m_packed": 4,
-                      "conv_up_f_packed": 8, "conv_up_prep": 12, "warp_u8": 2}
+                      "conv_up_f_packed": 8, "conv_up_prep": 20, **WARP_PAIR}
 PACKED_4K_PER_REQUEST = {"conv_packed": 56, "conv_pool_packed": 8, "conv_up_m_packed": 4,
-                         "conv_up_packed": 8, "conv_up_prep": 4, "warp_u8": 2}
+                         "conv_up_packed": 8, "conv_up_prep": 12, **WARP_PAIR}
 INT8_PER_REQUEST = {"conv_packed_int8": 52, "conv_packed": 4, "conv_pool_packed_int8": 8,
-                    "conv_up_m_packed_int8": 4, "conv_up_f_packed_int8": 8, "warp_u8": 2}
+                    "conv_up_m_packed_int8": 4, "conv_up_f_packed_int8": 8, **WARP_PAIR}
 INT8_4K_PER_REQUEST = {"conv_packed_int8": 52, "conv_packed": 4, "conv_pool_packed_int8": 8,
-                       "conv_up_m_packed_int8": 4, "conv_up_packed_int8": 8, "warp_u8": 2}
-PLAIN_PER_REQUEST = {"conv_phase": 36, "warp_u8": 2}
+                       "conv_up_m_packed_int8": 4, "conv_up_packed_int8": 8, **WARP_PAIR}
+PLAIN_PER_REQUEST = {"conv_phase": 36, **WARP_PAIR}
 CALIBRATION_LAUNCHES = PLAIN_PER_REQUEST
 
 
@@ -614,9 +675,9 @@ def phase_serve(params, dev):
     counts = _build.launch_counts()
     check(mids2.shape == (1, 3, H1080, W1080, 3) and mids2.dtype == np.uint8,
           f"serve exp=2: output {mids2.dtype} {mids2.shape}")
-    # the flow U-Net runs once, the other three once per time: 10 U-Nets, 6 warps
+    # the flow U-Net runs once, the other three once per time: 10 U-Nets, 3 warp pairs
     check_launches("serve exp=2", exp1_counts, counts,
-                   {k: (v // 4 * 10 if k != "warp_u8" else 6)
+                   {k: (v // 4 * 10 if k not in WARP_PAIR else 3 * v)
                     for k, v in PACKED_PER_REQUEST.items()})
     emit("serve", path="packed", requests=4, shape=[1, 2, H1080, W1080, 3],
          compute_dtype="bfloat16", ms_per_request=times, ms_exp2_request=ms2,
@@ -726,9 +787,9 @@ def phase_serve_plain(params, dev):
     return counts
 
 
-_PACKED_MODES = {"0": "conv_packed (K5)", "1": "conv_pool_packed (K7)",
-                 "2": "conv_up_packed (K6)"}
-_SM90_MODES = {"0": "conv_up_m_packed (K8)", "1": "conv_up_f_packed (K9)"}
+_PACKED_MODES = {"0": "conv_packed (K5)", "1": "conv_up_packed (K6)"}
+_SM90_MODES = {"0": "conv_up_m_packed (K8)", "1": "conv_up_f_packed (K9)",
+               "2": "conv_pool_packed (K7)"}
 
 
 def _profile_group(name: str) -> str:
@@ -742,7 +803,7 @@ def _profile_group(name: str) -> str:
     if sm90:  # conv_up_sm90_kernel<N, MODE, Q, K>
         return _SM90_MODES[sm90.group(1)] + (" int8" if sm90.group(2) == "true" else "")
     if "conv_up_prep_kernel" in low:
-        return "K8/K9 weight prep"
+        return "K7-K9 weight prep"
     if "conv_phase_kernel" in low:
         return "conv_phase (K1)"
     if "warp_kernel" in low or "pack_u8" in low or "pack_bf16" in low:
@@ -808,8 +869,9 @@ def phase_serve_fp32(params, dev):
     torch.cuda.synchronize()
     check(bool(torch.isfinite(g0).all() and torch.isfinite(g1).all()), "serve_fp32: warp_pair")
     counts = _build.launch_counts()
-    check(counts["warp_f32"] == 2, f"serve_fp32: {counts['warp_f32']} warp_f32 launches, want 2")
-    check(counts["warp_bf16"] == 2, f"serve_fp32: {counts['warp_bf16']} warp_bf16 launches, want 2")
+    # one warp pair each: one launch, no packing pass
+    check(counts["warp_f32"] == 1, f"serve_fp32: {counts['warp_f32']} warp_f32 launches, want 1")
+    check(counts["warp_bf16"] == 1, f"serve_fp32: {counts['warp_bf16']} warp_bf16 launches, want 1")
     check(all(n == 0 for k, n in counts.items() if k not in ("warp_f32", "warp_bf16")),
           f"serve_fp32: float32 inputs reached a bf16 kernel: {counts}")
     emit("serve_fp32", shape=[1, 2, h, w, 3], compute_dtype="float32", tf32=False,
@@ -946,14 +1008,17 @@ def kernels_summary(conv, packed, int8, warps, serve_counts, counts_4k, int8_cou
             "max_abs_err": max(c["max_abs_err"] for c in warps if c["kernel"] == name),
             "ms": timed["kernel_ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
-            "library_ms": timed["library_ms"],
-            "what": "one warp at 1088x1920 (source packing pass included)",
+            "library_ms": timed["library_ms"], "warp_one_ms": timed["warp_one_ms"],
+            **({"pack_pass_variant_ms": timed["pack_pass_variant_ms"]}
+               if name == "warp_u8" else {}),
+            "what": "one warp of a pair at 1088x1920: the pair's one launch over two, "
+                    "library two F.grid_sample calls over two",
         })
     for name in ("conv_packed", "conv_pool_packed", "conv_up_packed", "conv_up_m_packed",
                  "conv_up_f_packed"):
         cases = [c for c in packed if c["kernel"] == name]
         n = sum(c["per_flow_unet"] for c in cases)
-        source = "rrin_tpu_torch/csrc/" + ("conv_up_sm90.cu" if name in UP_SM90
+        source = "rrin_tpu_torch/csrc/" + ("conv_up_sm90.cu" if name in SM90
                                            else "conv_packed.cu")
         if name == "conv_up_packed":
             entry = _conv_entry(
@@ -967,7 +1032,7 @@ def kernels_summary(conv, packed, int8, warps, serve_counts, counts_4k, int8_cou
             entry = _conv_entry(
                 name, source, cases, serve_counts[name],
                 f"sum over the {n} launches of one flow U-Net at 1088x1920 (packed path)")
-        if name in UP_SM90:
+        if name in SM90:
             entry["prepared_ms"] = sum(c["kernel_prepared_ms"] * c["per_flow_unet"]
                                        for c in cases if c["per_flow_unet"])
         entry["int8"] = _int8_entry([c for c in int8 if c["kernel"] == name],
@@ -982,11 +1047,12 @@ def kernels_summary(conv, packed, int8, warps, serve_counts, counts_4k, int8_cou
 
 
 def _prep_entry(packed, serve_counts):
-    """The K8/K9 weight prep on the card: not a TPU kernel (the reference
-    folds and lays out these weights with XLA ops in ``prep_conv_up_f`` and
-    ``prep_conv_up_m``); its sites as K8 and K9 have them in one flow U-Net at
-    1088x1920, bytes-bound (fp32 weights in, the bf16 layout out)."""
-    cases = [c for c in packed if c["kernel"] in UP_SM90 and c["per_flow_unet"]]
+    """The K7-K9 weight prep on the card: not a TPU kernel (the reference
+    folds and lays out these weights with XLA ops in ``prep_conv_up_f``,
+    ``prep_conv_up_m`` and ``prep_conv_pool``); its sites as K7, K8 and K9
+    have them in one flow U-Net at 1088x1920, bytes-bound (fp32 weights in,
+    the bf16 layout out)."""
+    cases = [c for c in packed if c["kernel"] in SM90 and c["per_flow_unet"]]
 
     def total(key):
         return sum(c[key] * c["per_flow_unet"] for c in cases)
@@ -994,15 +1060,16 @@ def _prep_entry(packed, serve_counts):
     return {
         "name": "conv_up_prep", "route": "cuda", "source": "rrin_tpu_torch/csrc/conv_up_sm90.cu",
         "replaces": "rrin_tpu/ops/conv_packed.py:2106",
-        "replaces_what": "prep_conv_up_f (and prep_conv_up_m, :1642): XLA weight fold and "
-                         "layout, not a Pallas kernel",
+        "replaces_what": "prep_conv_up_f (and prep_conv_up_m, :1642, prep_conv_pool, :1010): "
+                         "XLA weight fold and layout, not a Pallas kernel",
         "launches": serve_counts["conv_up_prep"],
         "max_abs_err": max(c["prep_max_abs_err"] for c in cases),
         "ms": total("prep_ms"), "plain_ms": total("prep_plain_ms"),
         "bound_ms": total("prep_bytes") / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None, "library_null_reason": "no PyTorch call folds these weights",
-        "what": f"sum over the {sum(c['per_flow_unet'] for c in cases)} K8/K9 launches of one "
-                "flow U-Net at 1088x1920, bit-equal to prep_conv_up_m / prep_conv_up_f",
+        "what": f"sum over the {sum(c['per_flow_unet'] for c in cases)} K7-K9 launches of one "
+                "flow U-Net at 1088x1920, bit-equal to prep_conv_pool / prep_conv_up_m / "
+                "prep_conv_up_f",
     }
 
 

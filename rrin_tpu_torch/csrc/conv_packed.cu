@@ -1,13 +1,10 @@
 // The convolutions of the packed serving path on NHWC tensors: one
-// implicit-GEMM core with three load prologues, one C entry point each, in
+// implicit-GEMM core with two load prologues, one C entry point each, in
 // bfloat16 or int8.
 //
 //   conv_packed       stride-1 SAME conv over the channel concat of 1..4
 //                     operands given separately (the concat never exists in
 //                     device memory: the K-loop walks the operands);
-//   conv_pool_packed  conv(avg_pool_2x(x)): the block reads the 2x footprint
-//                     of its halo tile from the full-resolution tensor and
-//                     pools while loading;
 //   conv_up_packed    conv(upsample_2x_bilinear(x)): the block builds the
 //                     upsampled halo tile from the half-resolution tensor
 //                     while loading, interpolating along W first and then H,
@@ -15,8 +12,9 @@
 //                     interpolates, as the reference's plain version of that
 //                     kernel does.
 //
-// conv_up_m_packed and conv_up_f_packed, the same upsampling function with
-// wgmma, live in conv_up_sm90.cu.
+// conv_pool_packed (conv(avg_pool_2x(x))), conv_up_m_packed and
+// conv_up_f_packed (the upsampling function of conv_up_packed) live on the
+// wgmma core of conv_up_sm90.cu.
 //
 // bfloat16 (Q = false): bf16 operands, mma.sync.m16n8k16 with float32
 // accumulation; the epilogue adds a float32 bias and an optional LeakyReLU
@@ -28,13 +26,13 @@
 // prologue builds the float32 value as above (dequantising an int8 input in
 // mode UPD) and stores clip(rint(v * 127/ax), +-127) as int8 (round half to
 // even, the reference's jnp.round); an int8 input is copied as it is in mode
-// DIRECT and its constructed values re-rounded to the grid elsewhere. The
-// weights are int8 per output channel, pre-scaled per operand on the host,
-// so one int32 sum serves all operands; mma.sync.m16n8k32 (s8 x s8 -> s32);
-// the epilogue computes sum * scale[co] + bias[co], LeakyReLU, and stores
-// bf16, or int8 via rint and a clip when the next layer carries int8 (the
-// 127/ax_out step is folded into scale and bias on the host). ax reaches the
-// kernel as a device pointer per operand: nothing is read back to the host.
+// DIRECT. The weights are int8 per output channel, pre-scaled per operand
+// on the host, so one int32 sum serves all operands; mma.sync.m16n8k32 (s8
+// x s8 -> s32); the epilogue computes sum * scale[co] + bias[co], LeakyReLU,
+// and stores bf16, or int8 via rint and a clip when the next layer carries
+// int8 (the 127/ax_out step is folded into scale and bias on the host). ax
+// reaches the kernel as a device pointer per operand: nothing is read back
+// to the host.
 //
 // GEMM view: M = pixels, N = channels per pixel of the output, K = taps x
 // input channels (KK = 16 bf16 or 32 int8 per mma):
@@ -75,7 +73,7 @@ constexpr int THREADS = TH * 32;
 constexpr int PAD_BYTES = 16;    // padding per halo pixel
 constexpr int MAX_OPS = 4;       // operands of one conv_packed call
 
-enum Mode { DIRECT = 0, POOL = 1, UPD = 2 };
+enum Mode { DIRECT = 0, UPD = 1 };
 
 struct ConvArgs {
   const void* x[MAX_OPS];
@@ -124,24 +122,12 @@ __device__ __forceinline__ void mma_tile(int (&c)[4], const uint32_t (&a)[4],
 }
 
 // Eight channels of the pixel (gy, gx) that the GEMM reads, inside the image,
-// as float32: as stored, pooled, or upsampled in both axes (W first, then H:
-// the order of the reference's K6).
+// as float32: as stored, or upsampled in both axes (W first, then H: the
+// order of the reference's K6).
 template <int MODE, bool Q>
 __device__ __forceinline__ F8 construct8(const void* xb, int i8, int cs, int Hs, int Ws,
                                          int gy, int gx, int c, float pre) {
   if (MODE == DIRECT) return tap8<Q>(xb, i8, cs, Ws, gy, gx, c, pre);
-  if (MODE == POOL) {
-    const F8 p00 = tap8<Q>(xb, i8, cs, Ws, 2 * gy, 2 * gx, c, pre);
-    const F8 p01 = tap8<Q>(xb, i8, cs, Ws, 2 * gy, 2 * gx + 1, c, pre);
-    const F8 p10 = tap8<Q>(xb, i8, cs, Ws, 2 * gy + 1, 2 * gx, c, pre);
-    const F8 p11 = tap8<Q>(xb, i8, cs, Ws, 2 * gy + 1, 2 * gx + 1, c, pre);
-    F8 r;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      r.v[i] = __fmul_rn(
-          __fadd_rn(__fadd_rn(__fadd_rn(p00.v[i], p01.v[i]), p10.v[i]), p11.v[i]), 0.25f);
-    return r;
-  }
   const int yn = gy >> 1, yf = far_tap(gy, Hs);
   const int xn = gx >> 1, xf = far_tap(gx, Ws);
   const F8 wf = lerp8(tap8<Q>(xb, i8, cs, Ws, yf, xf, c, pre),
@@ -410,7 +396,7 @@ int launch_mode(ConvArgs a, int B, int n_tiles, int q, void* stream) {
   a.total_chunks = 0;
   for (int i = 0; i < a.n_ops; ++i) {
     if (a.c[i] < 1 || a.cs[i] < a.c[i] || (q ? !a.ax[i] : a.in_i8[i] != 0)) return invalid;
-    // Every prologue but the direct one loads 8 channels at once.
+    // The upsampling prologue loads 8 channels at once.
     if (MODE != DIRECT && ((a.c[i] & 7) || (a.cs[i] & 7))) return invalid;
     a.total_chunks += (a.c[i] + a.cchunk - 1) / a.cchunk;
   }
@@ -424,7 +410,7 @@ int launch_mode(ConvArgs a, int B, int n_tiles, int q, void* stream) {
            : launch_nt<MODE, false>(a, B, n_tiles, smem, s);
 }
 
-// The arguments of the two fused entry points: one operand x of c channels.
+// The arguments of the fused entry point: one operand x of c channels.
 ConvArgs fused_args(const void* x, int c, int in_i8, const void* ax, const void* wfrag,
                     const void* bias, const void* scale, void* out, int out_i8, int H,
                     int W, int Hs, int Ws, int cout, int ky, int kx, int ntaps, int cchunk,
@@ -496,18 +482,6 @@ int rrin_conv_packed_launch(const void* const* xs, const int* cs, const int* str
   a.has_slope = has_slope;
   a.slope = slope;
   return launch_mode<DIRECT>(a, B, n_tiles, q, stream);
-}
-
-// x: (B,2H,2W,c) full resolution; out: (B,H,W,cout) = conv_k(avg_pool_2x(x)).
-int rrin_conv_pool_packed_launch(const void* x, int c, int in_i8, const void* ax,
-                                 const void* wfrag, const void* bias, const void* scale,
-                                 void* out, int out_i8, int B, int H, int W, int cout, int k,
-                                 int cchunk, int n_tiles, int has_slope, float slope, int q,
-                                 void* stream) {
-  return launch_mode<POOL>(
-      fused_args(x, c, in_i8, ax, wfrag, bias, scale, out, out_i8, H, W, 2 * H, 2 * W,
-                 cout, k, k, k, cchunk, has_slope, slope),
-      B, n_tiles, q, stream);
 }
 
 // x: (B,Hs,Ws,c) half resolution; out: (B,2Hs,2Ws,cout) =

@@ -1,12 +1,19 @@
-// K8 and K9 of the packed serving path on Hopper (sm_90a): the fused
-// upsample+conv of the decoder, conv(upsample_2x_bilinear(x)) + bias + an
-// optional LeakyReLU on NHWC tensors, in bfloat16 or int8.
+// K7, K8 and K9 of the packed serving path on Hopper (sm_90a): the fused
+// resample+conv sites of the U-Net, conv(resample(x)) + bias + an optional
+// LeakyReLU on NHWC tensors, in bfloat16 or int8, on one wgmma core with
+// three producer modes.
 //
-//   conv_up_m_packed  replaces _kernel_body_up_m (rrin_tpu/ops/conv_packed.py,
-//                     pallas_call at :1845). The block builds the upsampled
-//                     halo tile (H interpolated first, then W, on the int8
-//                     codes in int8) from the half-resolution tensor; k in
-//                     {3, 5}.
+//   conv_pool_packed  replaces _kernel_body_pool (rrin_tpu/ops/conv_packed.py,
+//                     pallas_call at :1115): conv(avg_pool_2x(x)). The block
+//                     builds the pooled halo tile from the full-resolution
+//                     tensor (2x2 mean in float32, rounded once; in int8 a
+//                     bf16 input is quantised after the pool, int8 codes are
+//                     pooled and re-rounded); k in {3, 5}.
+//   conv_up_m_packed  replaces _kernel_body_up_m (pallas_call at :1845):
+//                     conv(upsample_2x_bilinear(x)). The block builds the
+//                     upsampled halo tile (H interpolated first, then W, on
+//                     the int8 codes in int8) from the half-resolution tensor;
+//                     k in {3, 5}.
 //   conv_up_f_packed  replaces _kernel_body_up_f (pallas_call at :2373): the
 //                     same function for k = 3 with the W-upsample folded into
 //                     per-output-parity weights. The block builds only the
@@ -18,13 +25,16 @@
 //                     difference is the edge pixel times two more weight taps
 //                     (3: left, 4: right), added in the epilogue (below).
 //
-// What bounds them on an H100: operations (77 GFLOP at each of the 1080p
-// sites, 0.078 ms at 989 TFLOP/s bf16), with bytes close behind at K9's
-// widest site (200 MB, 0.060 ms). The design:
+// What bounds them on an H100: operations (77 GFLOP at each of K8's and
+// K9's 1080p sites, 0.078 ms at 989 TFLOP/s bf16), with bytes close behind
+// at K9's widest site (200 MB, 0.060 ms) and ahead at K7's (d1c1: 200 MB,
+// 0.060 ms, against 53.5 GFLOP, 0.054 ms): the pool reads four stored pixels
+// for every pixel that the GEMM reads, so K7's producers move four times the
+// bytes they write. The design:
 //
 //   * wgmma: a tile is TH rows x 64 columns of GEMM pixels and N output
 //     channels (all of a site's channels up to 128, so each halo tile is
-//     interpolated once). Two consumer warpgroups each own MT = TH/2 rows;
+//     built once). Two consumer warpgroups each own MT = TH/2 rows;
 //     one row of 64 pixels is the M of one wgmma.mma_async m64nNk16 (bf16,
 //     f32 sums) or m64nNk32 (s8, s32 sums). The last k - 1 columns of a row
 //     are not stored (the next tile starts there), so the halo tile is 64
@@ -39,14 +49,15 @@
 //     descriptor, K-major, no swizzle: core matrices of 8 channels-out x 16
 //     bytes, 128 bytes apart along K (LBO) and 256 bytes apart along N (SBO).
 //   * a producer/consumer pipeline inside the block (warp specialisation):
-//     a producer warpgroup builds the next channel chunks' interpolated halo
-//     tiles (arithmetic, which a copy engine cannot do) into a ring of three
-//     buffers (two where three do not fit) while the consumers run wgmma on
-//     the current one, and one producer thread brings each chunk's weights
-//     by cp.async.bulk (one contiguous copy per dy row). A producer thread
-//     builds whole halo columns: it loads every stored row a column
-//     interpolates, all in flight at once, and writes the column's rows from
-//     registers, so each stored value is loaded once per column. Completion
+//     a producer warpgroup builds the next channel chunks' pooled or
+//     interpolated halo tiles (arithmetic, which a copy engine cannot do)
+//     into a ring of three buffers (two where three do not fit) while the
+//     consumers run wgmma on the current one, and one producer thread brings
+//     each chunk's weights by cp.async.bulk (one contiguous copy per dy
+//     row). A producer thread builds whole halo columns: it loads every
+//     stored pixel a column (K7: a batch of its rows) reads, all in flight at
+//     once, and writes the column's rows from registers, so each stored
+//     value is loaded once per column. Completion
 //     is on mbarriers: full[b] (128 producer arrivals plus the copy's bytes),
 //     empty[b] (one arrival per consumer warp). setmaxnreg moves registers
 //     from the producers to the consumers.
@@ -70,13 +81,14 @@
 // the k-step for channel-out n-tile*8 + g; the folded kernel's rows hold five
 // taps (three stencil taps, then the two edge taps), of which only the
 // stencil taps are copied. conv_up_prep_kernel writes it from the model's
-// float32 (3, 3, cin, cout) weights in one launch, the fold included.
+// float32 (k, k, cin, cout) weights in one launch, K9's fold included.
 //
-// Rounding points are those of conv_packed.cu's fused modes: the interpolated
-// value in float32 from separately rounded products and sums, one bf16
-// rounding (or, int8, rint on the grid: a bf16 input is scaled by 127/ax
-// before the H-interpolation in K9 and quantised after the interpolation in
-// K8, int8 codes are interpolated and re-rounded).
+// Rounding points are those of the plain versions: the pooled or
+// interpolated value in float32 from separately rounded products and sums,
+// one bf16 rounding (or, int8, rint on the grid: a bf16 input is scaled by
+// 127/ax before the H-interpolation in K9 and quantised after the pool in K7
+// and the interpolation in K8, int8 codes are pooled or interpolated and
+// re-rounded).
 //
 // Plain C entry points; each returns cudaGetLastError() after the launch,
 // runs on the given stream, allocates nothing and does not synchronise.
@@ -107,54 +119,73 @@ static_assert(NPROD / 128 * PROD_REGS + NCONS * CONS_REGS == THREADS / 128 * LAU
               "setmaxnreg counts must sum to the block's allocation");
 constexpr int SMEM_MAX = 232448;
 
-enum Mode { UP = 0, UPF = 1 };
+enum Mode { UP = 0, UPF = 1, POOL = 2 };
 
 // Rows of GEMM pixels per consumer warpgroup: its accumulators hold MT x N/2
 // registers a thread.
 __host__ __device__ constexpr int mt_of(int n) { return n <= 64 ? 4 : 2; }
 
 // The block's shared memory: nbuf buffers (three where they fit, else two),
-// each a halo tile and the chunk's weights; each consumer warpgroup's staged
-// output row; the bias and scale of the tile's output channels; the folded
-// kernel's edge sums, two tiles' worth; mbarriers full[3], empty[3],
-// edge_empty[2].
+// each a halo tile and, unless the weights are resident, the chunk's
+// weights; the resident weights (every chunk's, loaded once per block);
+// each consumer warpgroup's staged output row; the bias and scale of the
+// tile's output channels; the folded kernel's edge sums, two tiles' worth;
+// mbarriers full[3], empty[3], edge_empty[2], weights_resident.
+//
+// A halo row is TW = 64 columns: the wgmma rows past the tw stored columns
+// read k - 1 columns more, which come from the next halo row (or the region
+// after the last one); no stored pixel depends on them.
 struct Layout {
   int hh, hw, pstride;   // halo rows, columns, bytes per pixel
   int halo_bytes;        // rounded up to 128
   int w_bytes;           // one chunk's stencil weights
   int buf_bytes;
+  int wres;              // weights resident: every chunk's, at wres_off
   int stage_bytes;       // one consumer warpgroup's staged row
   int nbuf;
-  int stage_off, bs_off, edge_off, bar_off, total;
+  int wres_off, stage_off, bs_off, edge_off, bar_off, total;
 };
+
+constexpr int NBARS = 9;
 
 __host__ __device__ inline int up128(int b) { return (b + 127) / 128 * 128; }
 
 __host__ __device__ inline Layout make_layout_n(int k, int cchunk, int n, int q, int folded,
-                                               int nbuf) {
+                                               int nbuf, int res_chunks) {
   Layout L;
   const int es = q ? 1 : 2;
   const int th = NCONS * mt_of(n);
   L.hh = th + k - 1;
-  L.hw = TW + k - 1;
+  L.hw = TW;
   L.pstride = cchunk * es + PAD_BYTES;
   L.halo_bytes = up128(L.hh * L.hw * L.pstride);
   L.w_bytes = k * k * cchunk * n * es;
-  L.buf_bytes = L.halo_bytes + L.w_bytes;
+  L.wres = res_chunks > 0;
+  L.buf_bytes = L.halo_bytes + (L.wres ? 0 : L.w_bytes);
   L.stage_bytes = up128(TW * (2 * n + PAD_BYTES));
   L.nbuf = nbuf;
-  L.stage_off = nbuf * L.buf_bytes;
+  L.wres_off = nbuf * L.buf_bytes;
+  L.stage_off = L.wres_off + (L.wres ? res_chunks * L.w_bytes : 0);
   L.bs_off = L.stage_off + NCONS * L.stage_bytes;
   L.edge_off = L.bs_off + 2 * n * 4;
   L.bar_off = L.edge_off + (folded ? 2 * 2 * th * n * 4 : 0);
-  L.total = L.bar_off + 8 * 8;
+  L.total = L.bar_off + NBARS * 8;
   return L;
 }
 
-// Three buffers where they fit shared memory, else two.
-__host__ __device__ inline Layout make_layout(int k, int cchunk, int n, int q, int folded) {
-  const Layout L3 = make_layout_n(k, cchunk, n, q, folded, 3);
-  return L3.total <= SMEM_MAX ? L3 : make_layout_n(k, cchunk, n, q, folded, 2);
+// Three buffers that hold their chunk's weights where they fit; else, for
+// K7 where the block's tiles share one channel block (res_chunks = its
+// chunks, 0 otherwise), three halo buffers beside resident weights where
+// those fit; else two buffers with their weights.
+__host__ __device__ inline Layout make_layout(int k, int cchunk, int n, int q, int folded,
+                                              int res_chunks) {
+  const Layout L3 = make_layout_n(k, cchunk, n, q, folded, 3, 0);
+  if (L3.total <= SMEM_MAX) return L3;
+  if (res_chunks > 0) {
+    const Layout R3 = make_layout_n(k, cchunk, n, q, folded, 3, res_chunks);
+    if (R3.total <= SMEM_MAX) return R3;
+  }
+  return make_layout_n(k, cchunk, n, q, folded, 2, 0);
 }
 
 struct UpArgs {
@@ -168,7 +199,7 @@ struct UpArgs {
   void* out;
   int out_i8;
   int H, W;                  // rows and columns of the GEMM's pixels
-  int Hs, Ws;                // rows and columns of x
+  int Hs, Ws;                // rows and columns of x (K7: 2H, 2W)
   int n_out;                 // channels per GEMM pixel of the output
   int k;                     // taps in y and in x
   int ntaps;                 // weight taps per dy row (k, or 5 when folded)
@@ -178,6 +209,15 @@ struct UpArgs {
   int has_slope;
   float slope;
 };
+
+// The chunks whose weights may stay resident: K7's, all of them, where the
+// block's tiles share one channel block; none else. (K8 and K9 keep the
+// per-chunk copies: at their sites resident weights do not fit, and the
+// branches cost K9 a fifth of its time at u3c1 on the H100.)
+template <int MODE>
+__host__ __device__ inline int resident_chunks(const UpArgs& a) {
+  return MODE == POOL && a.n_cb == 1 ? a.n_chunks : 0;
+}
 
 // One tile: tw columns x TH rows of GEMM pixels of batch element b, output
 // channels cb*N .. cb*N + N-1. The wgmma rows run over 64 columns, of which
@@ -539,6 +579,111 @@ __device__ __forceinline__ void build_halo(const UpArgs& a, const Layout& L,
   }
 }
 
+// The 2x2 mean of four stored pixels' eight bf16 channels in float32, as
+// avg_pool_2x sums them: ((p00 + p01) + p10) + p11, then times 1/4, each
+// step rounded.
+__device__ __forceinline__ F8 pool8(const uint4 (&s)[4]) {
+  const F8 p00 = unpack8(s[0]), p01 = unpack8(s[1]), p10 = unpack8(s[2]), p11 = unpack8(s[3]);
+  F8 r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    r.v[i] = __fmul_rn(
+        __fadd_rn(__fadd_rn(__fadd_rn(p00.v[i], p01.v[i]), p10.v[i]), p11.v[i]), 0.25f);
+  return r;
+}
+
+// The pooled int8 codes of four stored pixels' eight int8 codes: rint of
+// their sum over four (half to even; |sum| <= 508, so no clip is needed),
+// which is what avg_pool_2x in float32 and a rounding to the grid give, in
+// exact integer arithmetic on 16-bit lanes: each code is biased by 128 (an
+// XOR of its sign bit) and zero-extended to a lane, the four lanes summed to
+// v = sum + 512, and (v + 1 + bit 2 of v) >> 2 = rint(sum / 4) + 128 keeps
+// the code, biased, in the lane's low byte.
+__device__ __forceinline__ uint2 pool_codes8(const uint2 (&s)[4]) {
+  uint32_t w[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint32_t lane[2];  // channels 4h + {0, 1} and 4h + {2, 3}
+#pragma unroll
+    for (int l = 0; l < 2; ++l) {
+      const uint32_t sel = l ? 0x4342u : 0x4140u;  // two bytes, zero-extended
+      uint32_t x[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        x[k] = __byte_perm((h ? s[k].y : s[k].x) ^ 0x80808080u, 0u, sel);
+      const uint32_t v = __vadd2(__vadd2(x[0], x[1]), __vadd2(x[2], x[3]));
+      lane[l] = __vadd2(v, 0x00010001u + ((v >> 2) & 0x00010001u)) >> 2;
+    }
+    w[h] = __byte_perm(lane[0], lane[1], 0x6420u) ^ 0x80808080u;
+  }
+  return make_uint2(w[0], w[1]);
+}
+
+// The pooled halo tile of one channel chunk (K7), a column at a time:
+// producer thread p builds channel group v = p % vpp of halo columns
+// p / vpp, + NPROD / vpp, ... below TW. Halo row r of column hx is pooled
+// pixel (gy, gx) = (y0 - HP + r, x0 - HP + hx), the mean of stored pixels
+// (2gy + i, 2gx + j). The four loads of each of RB rows are in flight at
+// once: two rows of bf16 (32 registers; more spill), three of int8 codes (24
+// registers; two or four rows ran slower at d1c1 or d2c1 on the H100). I8:
+// x holds int8 codes, which are pooled in integer arithmetic (pool_codes8).
+template <int N, bool Q, int K, bool I8>
+__device__ __forceinline__ void build_halo_pool(const UpArgs& a, const Layout& L,
+                                                unsigned char* halo, const void* xb,
+                                                const TileXY& T, int c_base, float post,
+                                                int p) {
+  using Raw = typename std::conditional<I8, uint2, uint4>::type;
+  constexpr int ES = Q ? 1 : 2;
+  constexpr int TH = NCONS * mt_of(N);
+  constexpr int HP = (K - 1) / 2;
+  constexpr int HH = TH + K - 1;  // halo rows
+  constexpr int RB = I8 ? 3 : 2;  // rows per batch
+  const int vpp = a.cchunk >> 3;  // a power of two <= 16
+  const int v = p % vpp;
+  const int cstep = NPROD / vpp;
+  const int c = c_base + v * 8;
+  const Raw* src = static_cast<const Raw*>(xb);
+  for (int hx = p / vpp; hx < TW; hx += cstep) {
+    const int gx = T.x0 - HP + hx;
+    const bool col_in = gx >= 0 && gx < a.W && c < a.cin;
+    unsigned char* dst = halo + hx * L.pstride + v * 8 * ES;
+#pragma unroll
+    for (int r0 = 0; r0 < HH; r0 += RB) {
+      Raw s[RB][4];
+      bool in[RB];
+#pragma unroll
+      for (int j = 0; j < RB; ++j) {
+        const int gy = T.y0 - HP + r0 + j;
+        in[j] = col_in && r0 + j < HH && gy >= 0 && gy < a.H;
+        if (in[j]) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)  // 8 channels: one Raw
+            s[j][i] =
+                __ldg(src + pix_off(a.cin, a.Ws, 2 * gy + (i >> 1), 2 * gx + (i & 1), c) / 8);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < RB; ++j) {
+        if (r0 + j >= HH) continue;
+        unsigned char* d = dst + (r0 + j) * L.hw * L.pstride;
+        if constexpr (I8) {
+          uint2 val = make_uint2(0u, 0u);
+          if (in[j]) val = pool_codes8(s[j]);
+          *reinterpret_cast<uint2*>(d) = val;
+        } else if (Q) {
+          uint2 val = make_uint2(0u, 0u);
+          if (in[j]) val = codes8(pool8(s[j]), post);
+          *reinterpret_cast<uint2*>(d) = val;
+        } else {
+          uint4 val = make_uint4(0u, 0u, 0u, 0u);
+          if (in[j]) val = pack8(pool8(s[j]));
+          *reinterpret_cast<uint4*>(d) = val;
+        }
+      }
+    }
+  }
+}
+
 // 16 bytes of an edge pixel against 16 bytes of an edge tap: eight bf16
 // products in float32, or sixteen int8 products in int32 (exact).
 __device__ __forceinline__ float dot16(const uint4 s, const uint4 w, float acc) {
@@ -556,9 +701,10 @@ __device__ __forceinline__ int dot16(const uint4 s, const uint4 w, int acc) {
 }
 
 // The producer warpgroup walks the block's tiles; per channel chunk it waits
-// for a free buffer, has the chunk's weights copied in, builds the halo
-// tile, and (K9, edge tiles) adds the edge pixel's products with the edge
-// taps to its sums, which it hands over with the tile's last chunk.
+// for a free buffer, has the chunk's weights copied in (or, resident, every
+// chunk's once before the first tile), builds the halo tile, and (K9, edge
+// tiles) adds the edge pixel's products with the edge taps to its sums,
+// which it hands over with the tile's last chunk.
 template <int N, int MODE, bool Q, int K>
 __device__ __forceinline__ void produce(const UpArgs& a, const Layout& L, unsigned char* smem,
                                         uint64_t* bars, int p) {
@@ -569,9 +715,9 @@ __device__ __forceinline__ void produce(const UpArgs& a, const Layout& L, unsign
   const int hp = (a.k - 1) / 2;
   const int i8 = Q ? a.in_i8 : 0;
   // int8: a bf16 input goes to the grid by 127/ax, before the
-  // H-interpolation in K9 and after the interpolation in K8, as the
-  // reference's plain versions do; int8 codes are interpolated as they are
-  // and rounded again.
+  // H-interpolation in K9 and after the pool (K7) or the interpolation (K8),
+  // as the reference's plain versions do; int8 codes are pooled or
+  // interpolated as they are and rounded again.
   float pre = 1.0f, post = 1.0f;
   if (Q && !i8) {
     const float inv = __fdiv_rn(127.0f, fmaxf(__ldg(a.ax), 1e-12f));
@@ -581,6 +727,13 @@ __device__ __forceinline__ void produce(const UpArgs& a, const Layout& L, unsign
   const uint32_t row_bytes = a.k * tap_bytes;  // the stencil taps of one dy row
   uint32_t cnt = 0;   // chunks produced, over the block's tiles
   uint32_t ecnt = 0;  // edge tiles produced
+  const bool wres = MODE == POOL && L.wres;
+  if (wres && p == 0) {  // one channel block: cb 0's weights, in chunk order
+    mbar_arrive_expect_tx(&bars[8], a.n_chunks * a.k * row_bytes);
+    for (int i = 0; i < a.n_chunks * a.k; ++i)
+      bulk_g2s(smem + L.wres_off + i * row_bytes,
+               a.wb + static_cast<size_t>(i) * a.ntaps * tap_bytes, row_bytes, &bars[8]);
+  }
   for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
     const TileXY T = tile_of(a, t, TH);
     const void* xb =
@@ -601,14 +754,22 @@ __device__ __forceinline__ void produce(const UpArgs& a, const Layout& L, unsign
       const unsigned char* wchunk =
           wblock + static_cast<size_t>(gch) * a.k * a.ntaps * tap_bytes;
       mbar_wait(&bars[3 + buf], ((cnt / L.nbuf) & 1) ^ 1);
-      if (p == 0) {
+      if (p == 0 && wres) {
+        mbar_arrive(&bars[buf]);
+      } else if (p == 0) {
         mbar_arrive_expect_tx(&bars[buf], a.k * row_bytes);
         for (int dy = 0; dy < a.k; ++dy)
           bulk_g2s(halo + L.halo_bytes + dy * row_bytes,
                    wchunk + static_cast<size_t>(dy) * a.ntaps * tap_bytes, row_bytes,
                    &bars[buf]);
       }
-      build_halo<N, MODE, Q, K>(a, L, halo, xb, T, gch * a.cchunk, i8, pre, post, p);
+      if constexpr (MODE == POOL) {
+        if (Q && i8)
+          build_halo_pool<N, Q, K, Q>(a, L, halo, xb, T, gch * a.cchunk, post, p);
+        else
+          build_halo_pool<N, Q, K, false>(a, L, halo, xb, T, gch * a.cchunk, post, p);
+      } else
+        build_halo<N, MODE, Q, K>(a, L, halo, xb, T, gch * a.cchunk, i8, pre, post, p);
       if (MODE == UPF && (side[0] || side[1])) {
         named_sync(1, NPROD);  // the whole halo tile is written
         // Thread p's sums are channel n = p % N of tile rows o / N for
@@ -806,6 +967,8 @@ __device__ __forceinline__ void consume(const UpArgs& a, const Layout& L, unsign
   int bs_cb = -1;  // the channel block whose bias and scale bs holds
   Acc acc[MT][NR];
   uint32_t A[2][4];
+  const bool wres = MODE == POOL && L.wres;
+  if (wres) mbar_wait(&bars[8], 0);  // the resident weights have arrived
 
   for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
     const TileXY T = tile_of(a, t, TH);
@@ -827,7 +990,8 @@ __device__ __forceinline__ void consume(const UpArgs& a, const Layout& L, unsign
       const int buf = cnt % L.nbuf;
       mbar_wait(&bars[buf], (cnt / L.nbuf) & 1);
       const uint32_t a_s = base + buf * L.buf_bytes + lane_off;
-      const uint32_t w_s = base + buf * L.buf_bytes + L.halo_bytes;
+      const uint32_t w_s = wres ? base + L.wres_off + gch * L.w_bytes
+                                : base + buf * L.buf_bytes + L.halo_bytes;
       // B of (dy, dx, k-step) at w_s + ((dy * K + dx) * ks_n + ks) * N * 32
 #pragma unroll 1
       for (int dx = 0; dx < K; ++dx)
@@ -868,12 +1032,13 @@ __device__ __forceinline__ void consume(const UpArgs& a, const Layout& L, unsign
 template <int N, int MODE, bool Q, int K>
 __global__ void __launch_bounds__(THREADS, 1) conv_up_sm90_kernel(const UpArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = make_layout(a.k, a.cchunk, N, Q, MODE == UPF);
-  // full[3], empty[3], edge_empty[2]
+  const Layout L = make_layout(a.k, a.cchunk, N, Q, MODE == UPF, resident_chunks<MODE>(a));
+  // full[3], empty[3], edge_empty[2], weights_resident
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bar_off);
   if (threadIdx.x == 0) {
     for (int i = 0; i < 3; ++i) mbar_init(&bars[i], NPROD + 1);  // + the weights' arrival
     for (int i = 3; i < 8; ++i) mbar_init(&bars[i], NCONS * 4);
+    mbar_init(&bars[8], 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -954,7 +1119,7 @@ constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
 
 template <int N, int MODE, bool Q, int K>
 int launch_one(UpArgs a, int B, cudaStream_t s) {
-  const Layout L = make_layout(a.k, a.cchunk, N, Q, MODE == UPF);
+  const Layout L = make_layout(a.k, a.cchunk, N, Q, MODE == UPF, resident_chunks<MODE>(a));
   if (L.total > SMEM_MAX) return kInvalid;
   cudaError_t err = cudaFuncSetAttribute(
       conv_up_sm90_kernel<N, MODE, Q, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
@@ -987,11 +1152,11 @@ int launch_n(const UpArgs& a, int B, int n_tiles, cudaStream_t s) {
   }
 }
 
-// K8 is built for k in {3, 5}, K9 for k = 3.
+// K7 and K8 are built for k in {3, 5}, K9 for k = 3.
 template <int MODE, bool Q>
 int launch_k(const UpArgs& a, int B, int n_tiles, cudaStream_t s) {
   if (a.k == 3) return launch_n<MODE, Q, 3>(a, B, n_tiles, s);
-  if constexpr (MODE == UP) return launch_n<MODE, Q, 5>(a, B, n_tiles, s);
+  if constexpr (MODE != UPF) return launch_n<MODE, Q, 5>(a, B, n_tiles, s);
   return kInvalid;
 }
 
@@ -1044,9 +1209,24 @@ UpArgs up_args(const void* x, int c, int in_i8, const void* ax, const void* wb,
 extern "C" {
 
 // Shared memory one block needs, in bytes (also computed by the Python
-// planner, which checks that the two agree).
-long long rrin_conv_up_sm90_smem(int k, int cchunk, int n_tiles, int q, int folded) {
-  return make_layout(k, cchunk, n_tiles * 8, q, folded).total;
+// planner, which checks that the two agree); K7 and K8 share a layout but
+// for K7's resident weights. res_chunks: K7's channel chunks where all
+// output channels are one block, else 0.
+long long rrin_conv_up_sm90_smem(int k, int cchunk, int n_tiles, int q, int folded,
+                                 int res_chunks) {
+  return make_layout(k, cchunk, n_tiles * 8, q, folded, res_chunks).total;
+}
+
+// x: (B,2H,2W,c) full resolution; out: (B,H,W,cout) = conv_k(avg_pool_2x(x)),
+// k in {3, 5}; wfrag in K8's layout (the conv's own weights).
+int rrin_conv_pool_packed_launch(const void* x, int c, int in_i8, const void* ax,
+                                 const void* wfrag, const void* bias, const void* scale,
+                                 void* out, int out_i8, int B, int H, int W, int cout, int k,
+                                 int cchunk, int n_tiles, int has_slope, float slope, int q,
+                                 void* stream) {
+  return launch_mode<POOL>(up_args(x, c, in_i8, ax, wfrag, bias, scale, out, out_i8, H, W,
+                                   2 * H, 2 * W, cout, k, cchunk, has_slope, slope),
+                           B, n_tiles, q, stream);
 }
 
 // x: (B,Hs,Ws,c) half resolution; out: (B,2Hs,2Ws,cout) =

@@ -1,19 +1,39 @@
 // Backward bilinear warp kernels (zeros outside, both align_corners variants).
 //
-// One templated kernel, three instantiations by source format:
-//   SRC_F32  : float32 NHWC source, 3 channels                  ("warp_f32")
-//   SRC_BF16 : source rounded to bfloat16, 4 x bf16 per pixel     ("warp_bf16")
-//   SRC_U8   : round(clip(img)*255) as one word c0|c1<<8|c2<<16   ("warp_u8")
-// plus the two small passes that produce the bf16 and byte-packed sources.
+// Replace the three Pallas warp kernels of rrin_tpu/ops/warp_pallas.py and
+// their pair entry point warp_pair_pallas (:659). One templated kernel,
+// instantiated by how the source is rounded:
+//   SRC_F32      : the float32 NHWC source, 3 channels            ("warp_f32")
+//   SRC_BF16     : each tap rounded to bfloat16 as it is read      ("warp_bf16")
+//   SRC_U8       : each tap taken to round(clip(v,0,1)*255) as it
+//                  is read                                         ("warp_u8")
+//   SRC_U8_WORDS : the same bytes, from one word per pixel that
+//                  pack_u8_kernel wrote beforehand                 ("warp_u8")
+// and by the number of frames one launch warps (1, or 2: both warps of the
+// cascade).
 //
-// One thread per output pixel: it reads its flow vector, computes the sample
-// position, gathers the four taps straight from global memory (no window, so
-// no bound on the flow) and writes three float32 channels, NHWC or planar.
+// What bounds them on an H100: bytes. Per pixel and frame a warp reads 3
+// source channels and a 2-channel flow and writes 3 channels, some 40 float
+// operations for them, far below the card's operations-per-byte line, and
+// the four taps of a pixel are a data-dependent gather. The design moves
+// the fewest bytes it can:
+//   * one launch warps both frames of a pair; where the two flows are the
+//     halves of one NHWC-contiguous 4-channel tensor (the cascade's Ft0|Ft1),
+//     a thread reads its pixel's four floats with one 16-byte load, so that
+//     tensor is read once, not twice at half use of its cache lines;
+//   * blocks are 32x8 pixel tiles: a warp's flow loads and stores are one
+//     coalesced row, and a block's taps (smooth flow) fall in few lines;
+//   * the source is read as it is (float32) and rounded per tap (bf16, or
+//     the byte grid) in registers, so no packing pass writes and rereads a
+//     copy of it; the word-packed source of SRC_U8_WORDS is the alternative
+//     measured beside it;
+//   * the four taps are gathered straight from global memory (no window, so
+//     no bound on the flow), and each output is stored once, NHWC or planar.
 // Sample position, weights and accumulation use the explicitly rounded
 // intrinsics (__fmul_rn, __fadd_rn, __fsub_rn) so the compiler cannot contract
 // them into FMAs: the float32 and bf16 variants then round exactly where the
-// plain PyTorch version (ops/warp.py: warp_bilinear) rounds. The byte-packed
-// variant folds the 1/255 dequantization into the horizontal weights, which
+// plain PyTorch version (ops/warp.py: warp_bilinear) rounds. The byte
+// variants fold the 1/255 dequantization into the horizontal weights, which
 // equals the plain version only to float32 rounding.
 //
 // Plain C entry points; each returns cudaGetLastError() after its launch,
@@ -25,56 +45,70 @@
 
 namespace {
 
-enum { SRC_F32 = 0, SRC_BF16 = 1, SRC_U8 = 2 };
+enum { SRC_F32 = 0, SRC_BF16 = 1, SRC_U8 = 2, SRC_U8_WORDS = 3 };
+
+constexpr int BX = 32, BY = 8;  // pixels per block: one warp per row
 
 struct Tap3 {
   float c0, c1, c2;
 };
 
+// round(clip(v, 0, 1) * 255), the byte the u8 variant samples.
+__device__ __forceinline__ float byte_of(float v) {
+  return rintf(__fmul_rn(fminf(fmaxf(v, 0.0f), 1.0f), 255.0f));
+}
+
+__device__ __forceinline__ float bf16_of(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 template <int SRC>
 __device__ __forceinline__ Tap3 load_tap(const void* src, size_t pix) {
   Tap3 t;
-  if (SRC == SRC_F32) {
-    const float* p = reinterpret_cast<const float*>(src) + pix * 3;
-    t.c0 = __ldg(p);
-    t.c1 = __ldg(p + 1);
-    t.c2 = __ldg(p + 2);
-  } else if (SRC == SRC_BF16) {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(src) + pix);
-    // bf16 -> f32 is a 16-bit shift: c0 low half of x, c1 high half, c2 low of y.
-    t.c0 = __uint_as_float(v.x << 16);
-    t.c1 = __uint_as_float(v.x & 0xFFFF0000u);
-    t.c2 = __uint_as_float(v.y << 16);
-  } else {
+  if (SRC == SRC_U8_WORDS) {
     const uint32_t v = __ldg(reinterpret_cast<const uint32_t*>(src) + pix);
     t.c0 = static_cast<float>(v & 255u);
     t.c1 = static_cast<float>((v >> 8) & 255u);
     t.c2 = static_cast<float>((v >> 16) & 255u);
+    return t;
+  }
+  const float* p = reinterpret_cast<const float*>(src) + pix * 3;
+  t.c0 = __ldg(p);
+  t.c1 = __ldg(p + 1);
+  t.c2 = __ldg(p + 2);
+  if (SRC == SRC_BF16) {
+    t.c0 = bf16_of(t.c0);
+    t.c1 = bf16_of(t.c1);
+    t.c2 = bf16_of(t.c2);
+  } else if (SRC == SRC_U8) {
+    t.c0 = byte_of(t.c0);
+    t.c1 = byte_of(t.c1);
+    t.c2 = byte_of(t.c2);
   }
   return t;
 }
 
-template <int SRC>
-__global__ void __launch_bounds__(256)
-warp_kernel(const void* __restrict__ src, const float* __restrict__ flow,
-            float* __restrict__ out, int B, int H, int W, int flow_stride,
-            float scale_x, float scale_y, int align_corners, int planar_out) {
-  const size_t n = static_cast<size_t>(B) * H * W;
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int x = static_cast<int>(idx % W);
-  const size_t row = idx / W;
-  const int y = static_cast<int>(row % H);
-  const size_t b = row / H;
+struct WarpArgs {
+  const void* src[2];    // per frame: float32 (B,H,W,3), or one word per pixel
+  const float* flow[2];  // per frame: (B,H,W,2) with fstride floats per pixel
+  float* out[2];         // per frame: (B,H,W,3), or (B,3,H,W) when planar_out
+  int fstride[2];
+  int flow4;             // flow[1] == flow[0] + 2, stride 4: one 16-byte load
+  int H, W;
+  float scale_x, scale_y;
+  int align_corners, planar_out;
+};
 
-  // flow_stride floats per pixel (2 for a dense field, 4 for a channel slice
-  // of two concatenated fields); the wrapper guarantees 8-byte alignment.
-  const float2 f = __ldg(reinterpret_cast<const float2*>(flow + idx * flow_stride));
+// One output pixel (b, y, x) of one frame.
+template <int SRC>
+__device__ __forceinline__ void warp_pixel(const WarpArgs& a, const void* src, float2 f,
+                                           float* out, size_t b, int y, int x) {
+  const int H = a.H, W = a.W;
   float sx = __fadd_rn(static_cast<float>(x), f.x);
   float sy = __fadd_rn(static_cast<float>(y), f.y);
-  if (!align_corners) {
-    sx = __fsub_rn(__fmul_rn(sx, scale_x), 0.5f);
-    sy = __fsub_rn(__fmul_rn(sy, scale_y), 0.5f);
+  if (!a.align_corners) {
+    sx = __fsub_rn(__fmul_rn(sx, a.scale_x), 0.5f);
+    sy = __fsub_rn(__fmul_rn(sy, a.scale_y), 0.5f);
   }
   const float x0f = floorf(sx);
   const float y0f = floorf(sy);
@@ -103,7 +137,7 @@ warp_kernel(const void* __restrict__ src, const float* __restrict__ flow,
   const float ax = __fsub_rn(1.0f, wx);
   const float ay = __fsub_rn(1.0f, wy);
   float o0, o1, o2;
-  if (SRC == SRC_U8) {
+  if (SRC == SRC_U8 || SRC == SRC_U8_WORDS) {
     // 1/255 folded into the horizontal weights; rows share them.
     const float inv255 = 1.0f / 255.0f;
     const float cw0 = ax * inv255 * vx0;
@@ -129,99 +163,119 @@ warp_kernel(const void* __restrict__ src, const float* __restrict__ flow,
 #undef RRIN_ACC
   }
 
-  if (planar_out) {
+  if (a.planar_out) {
     const size_t plane = static_cast<size_t>(H) * W;
     const size_t o = b * 3 * plane + static_cast<size_t>(y) * W + x;
     out[o] = o0;
     out[o + plane] = o1;
     out[o + 2 * plane] = o2;
   } else {
-    float* p = out + idx * 3;
+    float* p = out + (base + static_cast<size_t>(y) * W + x) * 3;
     p[0] = o0;
     p[1] = o1;
     p[2] = o2;
   }
 }
 
-// (B,H,W,3) float32 -> one word per pixel: round(clip(c,0,1)*255) bytes.
+// NF frames (1, or both of a pair) per thread, one output pixel of each:
+// the flow vectors first (one 16-byte load where they are the halves of one
+// 4-channel tensor), then each frame's gather.
+template <int SRC, int NF>
+__global__ void __launch_bounds__(BX * BY) warp_kernel(const WarpArgs a) {
+  const int x = blockIdx.x * BX + threadIdx.x;
+  const int y = blockIdx.y * BY + threadIdx.y;
+  if (x >= a.W || y >= a.H) return;
+  const size_t b = blockIdx.z;
+  const size_t pix = (b * a.H + y) * a.W + x;
+  float2 f[NF];
+  if (NF == 2 && a.flow4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(a.flow[0]) + pix);
+    f[0] = make_float2(v.x, v.y);
+    f[NF - 1] = make_float2(v.z, v.w);
+  } else {
+#pragma unroll
+    for (int i = 0; i < NF; ++i)
+      f[i] = __ldg(reinterpret_cast<const float2*>(a.flow[i] + pix * a.fstride[i]));
+  }
+#pragma unroll
+  for (int i = 0; i < NF; ++i) warp_pixel<SRC>(a, a.src[i], f[i], a.out[i], b, y, x);
+}
+
+// (B,H,W,3) float32 frames -> one word per pixel: round(clip(c,0,1)*255)
+// bytes; blockIdx.y picks the frame.
 __global__ void __launch_bounds__(256)
-pack_u8_kernel(const float* __restrict__ img, uint32_t* __restrict__ out, size_t n) {
+pack_u8_kernel(const float* __restrict__ img0, const float* __restrict__ img1,
+               uint32_t* __restrict__ out0, uint32_t* __restrict__ out1, size_t n) {
   const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= n) return;
-  const float* p = img + idx * 3;
+  const float* p = (blockIdx.y ? img1 : img0) + idx * 3;
   uint32_t v = 0;
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float q = rintf(__fmul_rn(fminf(fmaxf(p[c], 0.0f), 1.0f), 255.0f));
-    v |= static_cast<uint32_t>(q) << (8 * c);
-  }
-  out[idx] = v;
+  for (int c = 0; c < 3; ++c) v |= static_cast<uint32_t>(byte_of(p[c])) << (8 * c);
+  (blockIdx.y ? out1 : out0)[idx] = v;
 }
 
-// (B,H,W,3) float32 -> (c0,c1,c2,0) bfloat16 per pixel (round to nearest even).
-__global__ void __launch_bounds__(256)
-pack_bf16_kernel(const float* __restrict__ img, uint2* __restrict__ out, size_t n) {
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const float* p = img + idx * 3;
-  const uint32_t c0 = __bfloat16_as_ushort(__float2bfloat16_rn(p[0]));
-  const uint32_t c1 = __bfloat16_as_ushort(__float2bfloat16_rn(p[1]));
-  const uint32_t c2 = __bfloat16_as_ushort(__float2bfloat16_rn(p[2]));
-  out[idx] = make_uint2(c0 | (c1 << 16), c2);
-}
-
-inline unsigned blocks_for(size_t n) {
-  return static_cast<unsigned>((n + 255) / 256);
+template <int SRC>
+void launch_src(const WarpArgs& a, int nf, dim3 grid, cudaStream_t s) {
+  if (nf == 2)
+    warp_kernel<SRC, 2><<<grid, dim3(BX, BY), 0, s>>>(a);
+  else
+    warp_kernel<SRC, 1><<<grid, dim3(BX, BY), 0, s>>>(a);
 }
 
 }  // namespace
 
 extern "C" {
 
-// src_kind: 0 float32 NHWC, 1 packed bf16 (uint2 per pixel), 2 packed bytes.
-int rrin_warp_launch(const void* src, const void* flow, void* out, int B, int H,
-                     int W, int flow_stride, float scale_x, float scale_y,
-                     int align_corners, int planar_out, int src_kind, void* stream) {
-  const size_t n = static_cast<size_t>(B) * H * W;
-  if (n == 0) return 0;
-  if (n > (static_cast<size_t>(1) << 31) * 255 || flow_stride < 2 || (flow_stride & 1))
+// nf frames (1 or 2) of one shape: src_i (src_kind 0-2: float32 (B,H,W,3);
+// 3: the words of rrin_pack_u8_launch), flow_i with fstride_i floats per
+// pixel (flow4: flow1 is flow0 + 2 floats and both have stride 4), out_i.
+int rrin_warp_launch(const void* src0, const void* src1, const void* flow0, const void* flow1,
+                     void* out0, void* out1, int nf, int B, int H, int W, int fstride0,
+                     int fstride1, int flow4, float scale_x, float scale_y, int align_corners,
+                     int planar_out, int src_kind, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0) return 0;
+  if ((nf != 1 && nf != 2) || B > 65535 || (H + BY - 1) / BY > 65535 || fstride0 < 2 ||
+      (fstride0 & 1) || fstride1 < 2 || (fstride1 & 1) || (flow4 && (nf != 2 || fstride0 != 4)))
     return cudaErrorInvalidValue;
+  WarpArgs a = {};
+  a.src[0] = src0;
+  a.src[1] = src1;
+  a.flow[0] = static_cast<const float*>(flow0);
+  a.flow[1] = static_cast<const float*>(flow1);
+  a.out[0] = static_cast<float*>(out0);
+  a.out[1] = static_cast<float*>(out1);
+  a.fstride[0] = fstride0;
+  a.fstride[1] = fstride1;
+  a.flow4 = flow4;
+  a.H = H;
+  a.W = W;
+  a.scale_x = scale_x;
+  a.scale_y = scale_y;
+  a.align_corners = align_corners;
+  a.planar_out = planar_out;
+  const dim3 grid((W + BX - 1) / BX, (H + BY - 1) / BY, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* fl = static_cast<const float*>(flow);
-  float* o = static_cast<float*>(out);
-  const unsigned g = blocks_for(n);
   switch (src_kind) {
-    case SRC_F32:
-      warp_kernel<SRC_F32><<<g, 256, 0, s>>>(src, fl, o, B, H, W, flow_stride, scale_x,
-                                             scale_y, align_corners, planar_out);
-      break;
-    case SRC_BF16:
-      warp_kernel<SRC_BF16><<<g, 256, 0, s>>>(src, fl, o, B, H, W, flow_stride, scale_x,
-                                              scale_y, align_corners, planar_out);
-      break;
-    case SRC_U8:
-      warp_kernel<SRC_U8><<<g, 256, 0, s>>>(src, fl, o, B, H, W, flow_stride, scale_x,
-                                            scale_y, align_corners, planar_out);
-      break;
-    default:
-      return cudaErrorInvalidValue;
+    case SRC_F32: launch_src<SRC_F32>(a, nf, grid, s); break;
+    case SRC_BF16: launch_src<SRC_BF16>(a, nf, grid, s); break;
+    case SRC_U8: launch_src<SRC_U8>(a, nf, grid, s); break;
+    case SRC_U8_WORDS: launch_src<SRC_U8_WORDS>(a, nf, grid, s); break;
+    default: return cudaErrorInvalidValue;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-int rrin_pack_u8_launch(const void* img, void* out, long long n_pixels, void* stream) {
+// nf (B,H,W,3) float32 frames of n_pixels pixels each -> one word per pixel.
+int rrin_pack_u8_launch(const void* img0, const void* img1, void* out0, void* out1, int nf,
+                        long long n_pixels, void* stream) {
   if (n_pixels <= 0) return 0;
+  if (nf != 1 && nf != 2) return cudaErrorInvalidValue;
   const size_t n = static_cast<size_t>(n_pixels);
-  pack_u8_kernel<<<blocks_for(n), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(img), static_cast<uint32_t*>(out), n);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int rrin_pack_bf16_launch(const void* img, void* out, long long n_pixels, void* stream) {
-  if (n_pixels <= 0) return 0;
-  const size_t n = static_cast<size_t>(n_pixels);
-  pack_bf16_kernel<<<blocks_for(n), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(img), static_cast<uint2*>(out), n);
+  const dim3 grid(static_cast<unsigned>((n + 255) / 256), nf);
+  pack_u8_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(img0), static_cast<const float*>(img1),
+      static_cast<uint32_t*>(out0), static_cast<uint32_t*>(out1), n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,15 +20,17 @@ Replaces five Pallas kernels of the JAX package's ``ops/conv_packed.py``:
                         weights (:func:`_upf_fold`) and the clamped-edge
                         residual added exactly.
 
-K5, K6 and K7 are ``csrc/conv_packed.cu``: one implicit-GEMM core on
-``mma.sync`` with three load prologues. K8 and K9 are ``csrc/conv_up_sm90.cu``,
-a Hopper core on ``wgmma`` with a producer warpgroup that builds the
-interpolated halo tile of the next channel chunk while two consumer
-warpgroups contract the current one, all of a site's output channels (up to
-128) in one block; its planner is :func:`_sm90_plan`, its weight layout
-:func:`_sm90_weights`. **K6 and K8 compute one function** in NHWC. The two
-TPU kernels differ only in their lane geometry (K6 doubles the lane groups P,
-K8 the sublane groups M at a level boundary), which is not carried over.
+K5 and K6 are ``csrc/conv_packed.cu``: one implicit-GEMM core on
+``mma.sync`` with two load prologues. K7, K8 and K9 are
+``csrc/conv_up_sm90.cu``, a Hopper core on ``wgmma`` with a producer
+warpgroup that builds the pooled or interpolated halo tile of the next
+channel chunk while two consumer warpgroups contract the current one, all of
+a site's output channels (up to 128) in one block; its planner is
+:func:`_sm90_plan`, its weight layout :func:`_sm90_weights` (K7 and K8 take
+the conv's own weights in it, K9 the folded ones). **K6 and K8 compute one
+function** in NHWC. The two TPU kernels differ only in their lane geometry
+(K6 doubles the lane groups P, K8 the sublane groups M at a level boundary),
+which is not carried over.
 Both entry points exist because each mirrors one reference kernel, with its
 own plain version, ``supports_*`` and launch count, and because their
 rounding follows their references: ``conv_up_packed`` interpolates along W
@@ -48,7 +50,7 @@ float32 sum, rounded once to bfloat16.
 (:func:`_quantize_act`), weights per output channel with operand *i*
 pre-scaled by ``ax_i/ax_0`` so that one scale ``ax_0 * sw / 127^2``
 dequantises the shared int32 sum (:func:`_quantize_weights`); the kernels
-contract int8 x int8 -> int32 (``mma.sync.m16n8k32``, K8 and K9
+contract int8 x int8 -> int32 (``mma.sync.m16n8k32``, K7-K9
 ``wgmma...m64nNk32.s32.s8.s8``). An int8-dtyped
 operand is taken as already on its grid. With ``out_absmax`` the
 ``127/ax_out`` step is folded into scale and bias and the kernel emits int8,
@@ -78,10 +80,10 @@ or raises; it takes the plain version beside it only for a CPU tensor.
 float32 on the card is refused (the kernels are bfloat16 and int8 only so
 far). Forward only. ``prepared=`` takes the result of the matching
 ``prep_*`` (built with the same absmax) and skips the per-call weight
-re-layout and quantisation. Without it, K8 and K9 in bfloat16 lay out (and
-K9 folds) their weights on the card in one launch of the core's prep kernel
-(launch count ``conv_up_prep``); the ``prep_*`` functions are its plain
-version.
+re-layout and quantisation. Without it, K7, K8 and K9 in bfloat16 lay out
+(and K9 folds) their weights on the card in one launch of the core's prep
+kernel (launch count ``conv_up_prep``); the ``prep_*`` functions are its
+plain version.
 """
 
 from __future__ import annotations
@@ -110,11 +112,12 @@ _K_CONV, _K_POOL, _K_UP, _K_UP_M, _K_UP_F = (3, 5, 7), (3, 5), (1, 3, 5), (3, 5)
 # Channel chunks of the K-loop, largest first: bfloat16 steps 16 channels
 # per mma, int8 32.
 _CHUNKS = {False: (64, 48, 32, 16), True: (128, 64, 32)}
-# csrc/conv_up_sm90.cu (K8, K9): pixels per block row, output channels per
+# csrc/conv_up_sm90.cu (K7, K8, K9): pixels per block row, output channels per
 # block (N of its wgmma) that it is built for, consumer warpgroups, channel
 # chunks (powers of two: its producer threads split a chunk evenly).
 _SM90_TW, _SM90_N, _SM90_CONSUMERS = 64, (8, 16, 32, 64, 128), 2
 _SM90_CHUNKS = {False: (64, 32, 16), True: (128, 64, 32)}
+_SM90_KERNELS = ("conv_pool_packed", "conv_up_m_packed", "conv_up_f_packed")
 # Its weights' memory order against the fragment order of _weight_fragments:
 # (cb, chunk, dy, tap, kstep, nt, g, tig, r, p) is stored as
 # (cb, chunk, dy, tap, kstep, nt, r, g, tig, p), so that each (r, g) row of
@@ -174,40 +177,59 @@ def _fits(ky, kx, ntaps, cins, n_out) -> bool:
 
 
 def _sm90_rows(n: int) -> int:
-    """Rows of GEMM pixels per block of the K8/K9 core for N = ``n``: each
+    """Rows of GEMM pixels per block of the K7-K9 core for N = ``n``: each
     consumer warpgroup holds 4 rows of accumulators up to N = 64, else 2."""
     return _SM90_CONSUMERS * (4 if n <= 64 else 2)
 
 
 def _sm90_smem_bytes(k: int, cchunk: int, n_tiles: int, q: bool = False,
-                     folded: bool = False) -> int:
-    """Shared memory of one K8/K9 block (``make_layout`` in conv_up_sm90.cu):
-    three buffers of a halo tile and a chunk's stencil weights where they
-    fit, else two; a staged output row per consumer warpgroup; bias and
-    scale; K9's edge sums of two tiles; eight mbarriers. Regions are 128-byte
-    aligned."""
+                     folded: bool = False, res_chunks: int = 0) -> int:
+    """Shared memory of one K7-K9 block (``make_layout`` in conv_up_sm90.cu;
+    K7 has K8's layout, ``folded`` is K9's): three buffers of a halo tile
+    (64 columns) and a chunk's stencil weights where they fit; else, for K7
+    where the block's tiles share one channel block (``res_chunks``, the
+    input's chunks, is then not 0), three halo buffers beside the weights of
+    every chunk, resident; else two buffers with their weights. Besides: a
+    staged output row per consumer warpgroup; bias and scale; K9's edge sums
+    of two tiles; nine mbarriers. Regions are 128-byte aligned."""
     es, n = (1 if q else 2), n_tiles * 8
     th = _sm90_rows(n)
 
     def up128(b):
         return -(-b // 128) * 128
 
-    buf = (up128((th + k - 1) * (_SM90_TW + k - 1) * (cchunk * es + _PAD_BYTES))
-           + k * k * cchunk * n * es)
+    halo = up128((th + k - 1) * _SM90_TW * (cchunk * es + _PAD_BYTES))
+    w = k * k * cchunk * n * es
     rest = (_SM90_CONSUMERS * up128(_SM90_TW * (2 * n + _PAD_BYTES)) + 2 * n * 4
-            + (2 * 2 * th * n * 4 if folded else 0) + 8 * 8)
-    three = 3 * buf + rest
-    return three if three <= _SMEM_MAX else 2 * buf + rest
+            + (2 * 2 * th * n * 4 if folded else 0) + 9 * 8)
+    three = 3 * (halo + w) + rest
+    if three <= _SMEM_MAX:
+        return three
+    resident = 3 * halo + res_chunks * w + rest
+    if res_chunks and resident <= _SMEM_MAX:
+        return resident
+    return 2 * (halo + w) + rest
 
 
+def _sm90_res_chunks(cin: int, plan: Tuple[int, int, int], resident: bool) -> int:
+    """What the core's layout takes as ``res_chunks`` for ``plan``: where
+    weights may be ``resident`` (K7) and all output channels are one block,
+    the input's chunks, else 0."""
+    cchunk, _, n_cb = plan
+    return -(-cin // cchunk) if resident and n_cb == 1 else 0
+
+
+@functools.lru_cache(maxsize=None)
 def _sm90_plan(
     k: int, cin: int, n_out: int, q: bool = False, folded: bool = False,
+    resident: bool = False,
 ) -> Optional[Tuple[int, int, int]]:
-    """(cchunk, n_tiles, n_cout_blocks) of the K8/K9 core, or None: N =
+    """(cchunk, n_tiles, n_cout_blocks) of the K7-K9 core, or None: N =
     8*n_tiles is the narrowest width it is built for that covers ``n_out``
     (2*cout when folded), so one block holds every output channel up to 128;
-    the largest channel chunk that fits shared memory, a narrower N (more
-    channel blocks) only where none does."""
+    the largest channel chunk that fits shared memory (with its weights
+    ``resident``, K7, where that is what fits), a narrower N (more channel
+    blocks) only where none does."""
     if cin < 1 or n_out < 1:
         return None
     kk = 32 if q else 16
@@ -215,13 +237,17 @@ def _sm90_plan(
     first = next((n for n in _SM90_N if n >= n_out), _SM90_N[-1])
     for n in reversed([m for m in _SM90_N if m <= first]):
         for cchunk in _SM90_CHUNKS[q]:
-            if cchunk <= cin_k and _sm90_smem_bytes(k, cchunk, n // 8, q, folded) <= _SMEM_MAX:
-                return cchunk, n // 8, -(-n_out // n)
+            plan = (cchunk, n // 8, -(-n_out // n))
+            res = _sm90_res_chunks(cin, plan, resident)
+            if cchunk <= cin_k and _sm90_smem_bytes(k, cchunk, n // 8, q, folded,
+                                                     res) <= _SMEM_MAX:
+                return plan
     return None
 
 
-def _sm90_fits(k: int, cin: int, n_out: int, folded: bool) -> bool:
-    return all(_sm90_plan(k, cin, n_out, q, folded) is not None for q in (False, True))
+def _sm90_fits(k: int, cin: int, n_out: int, folded: bool, resident: bool = False) -> bool:
+    return all(_sm90_plan(k, cin, n_out, q, folded, resident) is not None
+               for q in (False, True))
 
 
 def supports(cins: Sequence[int], k: int, cout: int) -> bool:
@@ -233,7 +259,7 @@ def supports(cins: Sequence[int], k: int, cout: int) -> bool:
 
 def supports_pool(cin: int, k: int, cout: int) -> bool:
     """``conv_pool_packed``: k in {3, 5}, cin a multiple of 8 (8-channel loads)."""
-    return k in _K_POOL and cin % 8 == 0 and _fits(k, k, k, (cin,), cout)
+    return k in _K_POOL and cin % 8 == 0 and _sm90_fits(k, cin, cout, False, resident=True)
 
 
 def supports_up(cin: int, k: int, cout: int) -> bool:
@@ -261,10 +287,25 @@ def _clamp_ax(ax: Absmax, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(ax, dtype=torch.float32, device=device).clamp_min(1e-12)
 
 
+def _over127(t: torch.Tensor) -> torch.Tensor:
+    """``t / 127`` by a true float32 division on every device, as the
+    reference and the kernels (``__fdiv_rn``) divide: PyTorch's CUDA division
+    by a Python scalar multiplies by the scalar's rounded reciprocal, which
+    is a last bit off for some ``t``, enough to tip the exact ties that a
+    dequantised int8 value meets when it is interpolated (ROADMAP Queue C)."""
+    return t / torch.full_like(t, 127.0)
+
+
+def _127_over(t: torch.Tensor) -> torch.Tensor:
+    """``127 / t`` by a true float32 division (``127.0 / t`` in PyTorch is
+    ``t.reciprocal() * 127``, two roundings)."""
+    return torch.full_like(t, 127.0) / t
+
+
 def _quantize_act(x: torch.Tensor, ax: Absmax) -> torch.Tensor:
     """Symmetric per-tensor int8: ``clip(round(x * 127/max(ax, 1e-12)),
     +-127)``, rounding half to even (``torch.round``, as ``jnp.round``)."""
-    inv = 127.0 / _clamp_ax(ax, x.device)
+    inv = _127_over(_clamp_ax(ax, x.device))
     return torch.round(x.float() * inv).clamp(-127.0, 127.0).to(torch.int8)
 
 
@@ -339,7 +380,7 @@ def _weight_fragments(
 def _sm90_weights(
     wt: torch.Tensor, cins: Sequence[int], cchunk: int, n_tiles: int, q: bool = False,
 ) -> torch.Tensor:
-    """(ky, ntaps, cin, n_out) weights -> the K8/K9 core's layout: the
+    """(ky, ntaps, cin, n_out) weights -> the K7-K9 core's layout: the
     elements of :func:`_weight_fragments`, stored in the order
     ``[cout block][chunk][dy][tap][kstep][n-tile][r][g][tig][p]`` that its
     wgmma B descriptor reads (each ``[r][g]`` row of 16 bytes a core-matrix
@@ -355,7 +396,7 @@ def _prepared(wt, bias, cins, k, cout, plan, scale=None, out_q=False,
               layout=_weight_fragments) -> Prepared:
     """``scale`` is None for bfloat16 weights and the per-channel int8
     dequantisation for int8 codes ``wt``; ``layout`` lays the weights out
-    for the kernel (``_sm90_weights`` for K8 and K9)."""
+    for the kernel (``_sm90_weights`` for K7-K9)."""
     cchunk, n_tiles, _ = plan
     q = scale is not None
     return {
@@ -432,11 +473,29 @@ def _prep_single(name, ok, w, bias, absmax, out_absmax) -> Prepared:
                      scale, out_absmax is not None)
 
 
+def _prep_sm90(name, ok, w, bias, absmax, out_absmax) -> Prepared:
+    """The conv's own weights in the layout of the K7-K9 core
+    (:func:`_sm90_weights`); int8 as in :func:`prep_conv`."""
+    k, cout = _check_w(w, bias, w.shape[2])
+    cin = w.shape[2]
+    _need(ok(cin, k, cout), name, cin, k, cout)
+    res = name == "conv_pool_packed"
+    if absmax is None:
+        return _prepared(w.float(), bias, (cin,), k, cout,
+                         _sm90_plan(k, cin, cout, resident=res), layout=_sm90_weights)
+    (wq,), sw = _quantize_weights([w.float()], (absmax,))
+    scale, b = _q_fold(absmax, sw, bias, out_absmax)
+    return _prepared(wq.float(), b, (cin,), k, cout,
+                     _sm90_plan(k, cin, cout, q=True, resident=res),
+                     scale, out_absmax is not None, _sm90_weights)
+
+
 def prep_conv_pool(w: torch.Tensor, bias: torch.Tensor, absmax: Optional[Absmax] = None,
                    out_absmax: Optional[Absmax] = None) -> Prepared:
     """Weight-side constants of one ``conv_pool_packed`` site (the conv's own
-    weights: the pool lives in the kernel's load); int8 as in :func:`prep_conv`."""
-    return _prep_single("conv_pool_packed", supports_pool, w, bias, absmax, out_absmax)
+    weights: the pool lives in the kernel's load) in the layout of the K7-K9
+    core (:func:`_sm90_weights`); int8 as in :func:`prep_conv`."""
+    return _prep_sm90("conv_pool_packed", supports_pool, w, bias, absmax, out_absmax)
 
 
 def prep_conv_up(w: torch.Tensor, bias: torch.Tensor, absmax: Optional[Absmax] = None,
@@ -450,18 +509,9 @@ def prep_conv_up(w: torch.Tensor, bias: torch.Tensor, absmax: Optional[Absmax] =
 def prep_conv_up_m(w: torch.Tensor, bias: torch.Tensor, absmax: Optional[Absmax] = None,
                    out_absmax: Optional[Absmax] = None) -> Prepared:
     """Weight-side constants of one ``conv_up_m_packed`` site, as
-    :func:`prep_conv_up`, in the layout of the K8/K9 core
+    :func:`prep_conv_up`, in the layout of the K7-K9 core
     (:func:`_sm90_weights`)."""
-    k, cout = _check_w(w, bias, w.shape[2])
-    cin = w.shape[2]
-    _need(supports_up_m(cin, k, cout), "conv_up_m_packed", cin, k, cout)
-    if absmax is None:
-        return _prepared(w.float(), bias, (cin,), k, cout, _sm90_plan(k, cin, cout),
-                         layout=_sm90_weights)
-    (wq,), sw = _quantize_weights([w.float()], (absmax,))
-    scale, b = _q_fold(absmax, sw, bias, out_absmax)
-    return _prepared(wq.float(), b, (cin,), k, cout, _sm90_plan(k, cin, cout, q=True),
-                     scale, out_absmax is not None, _sm90_weights)
+    return _prep_sm90("conv_up_m_packed", supports_up_m, w, bias, absmax, out_absmax)
 
 
 def _upf_fold(w: torch.Tensor):
@@ -513,7 +563,7 @@ def prep_conv_up_f(w: torch.Tensor, bias: torch.Tensor, absmax: Optional[Absmax]
                    out_absmax: Optional[Absmax] = None) -> Prepared:
     """Weight-side constants of one ``conv_up_f_packed`` site: the weights
     folded in float32, then rounded to bfloat16 (or quantised to int8 with
-    their edge taps on one per-channel grid) in the layout of the K8/K9 core
+    their edge taps on one per-channel grid) in the layout of the K7-K9 core
     (:func:`_sm90_weights`, five taps per dy row: the stencil, then the two
     edge taps), and the bias (and scale) repeated for both output parities.
     In bfloat16 also the plain version of the core's prep kernel."""
@@ -607,8 +657,8 @@ def _conv_q_plain(codes, axs, w, bias, slope, out_absmax, out_dtype) -> torch.Te
     xs, ws = [], []
     for qx, ax, wq in zip(codes, axs, wqs):
         axc = _clamp_ax(ax, dev)
-        xs.append(qx * (axc / 127.0))
-        ws.append(wq.float() * (sw / 127.0) * (a0 / axc))
+        xs.append(qx * _over127(axc))
+        ws.append(wq.float() * _over127(sw) * (a0 / axc))
     y = _conv_plain(torch.cat(xs, dim=-1), torch.cat(ws, dim=2), bias.float(), slope)
     return _q_out(y, out_absmax, out_dtype)
 
@@ -652,7 +702,7 @@ def _conv_up_q_plain(x, w, bias, slope, ax, out_absmax, out_dtype):
     first) and quantised again."""
     xf = x.float()
     if x.dtype == torch.int8:
-        xf = xf * (_clamp_ax(ax, x.device) / 127.0)
+        xf = xf * _over127(_clamp_ax(ax, x.device))
     codes = _quantize_act(_upsample_wh(xf), ax).float()
     return _conv_q_plain([codes], [ax], w, bias, slope, out_absmax,
                          out_dtype or _float_dtype([x]))
@@ -665,11 +715,11 @@ def _conv_up_f_q_plain(x, w, bias, slope, ax, out_absmax, out_dtype):
     axc = _clamp_ax(ax, x.device)
     xn = x.float()
     if x.dtype != torch.int8:
-        xn = xn * (127.0 / axc)
+        xn = xn * _127_over(axc)
     rows = torch.round(_upsample_2x_axis(xn, 1)).clamp(-127.0, 127.0)
     codes, sw = _upf_q_taps(w)
-    y = _fold_apply(rows, codes * (torch.cat([sw, sw]) / 127.0))
-    y = _leaky(y * (axc / 127.0) + bias.float(), slope)
+    y = _fold_apply(rows, codes * _over127(torch.cat([sw, sw])))
+    y = _leaky(y * _over127(axc) + bias.float(), slope)
     return _q_out(y, out_absmax, out_dtype or _float_dtype([x]))
 
 
@@ -684,10 +734,9 @@ def _lib() -> ctypes.CDLL:
         pv, pi = ctypes.POINTER(vp), ctypes.POINTER(ci)
         lib.rrin_conv_packed_launch.argtypes = (
             [pv, pi, pi, pi, pv, ci] + [vp] * 4 + [ci] * 9 + [cf, ci, vp])
-        fused = [vp, ci, ci] + [vp] * 5 + [ci] * 9 + [cf, ci, vp]
-        for name in ("conv_pool_packed", "conv_up_packed"):
-            getattr(lib, f"rrin_{name}_launch").argtypes = fused
-        for name in ("conv_packed", "conv_pool_packed", "conv_up_packed"):
+        lib.rrin_conv_up_packed_launch.argtypes = (
+            [vp, ci, ci] + [vp] * 5 + [ci] * 9 + [cf, ci, vp])
+        for name in ("conv_packed", "conv_up_packed"):
             getattr(lib, f"rrin_{name}_launch").restype = ci
         lib._rrin_typed = True
     return lib
@@ -697,14 +746,15 @@ def _lib_sm90() -> ctypes.CDLL:
     lib = _build.library("conv_up_sm90")
     if not getattr(lib, "_rrin_typed", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.rrin_conv_up_sm90_smem.argtypes = [ci] * 5
+        lib.rrin_conv_up_sm90_smem.argtypes = [ci] * 6
         lib.rrin_conv_up_sm90_smem.restype = ctypes.c_longlong
-        lib.rrin_conv_up_m_packed_launch.argtypes = (
-            [vp, ci, ci] + [vp] * 5 + [ci] * 9 + [cf, ci, vp])
+        for name in ("conv_pool_packed", "conv_up_m_packed"):
+            getattr(lib, f"rrin_{name}_launch").argtypes = (
+                [vp, ci, ci] + [vp] * 5 + [ci] * 9 + [cf, ci, vp])
         lib.rrin_conv_up_f_packed_launch.argtypes = (
             [vp, ci, ci] + [vp] * 5 + [ci] * 8 + [cf, ci, vp])
         lib.rrin_conv_up_prep_launch.argtypes = [vp] * 4 + [ci] * 6 + [vp]
-        for name in ("conv_up_m_packed", "conv_up_f_packed", "conv_up_prep"):
+        for name in (*_SM90_KERNELS, "conv_up_prep"):
             getattr(lib, f"rrin_{name}_launch").restype = ci
         lib._rrin_typed = True
     return lib
@@ -775,22 +825,27 @@ def _smem_agrees(lib, ky, kx, ntaps, plan, q) -> None:
         raise RuntimeError("conv_packed.cu and conv_packed.py disagree on the tile")
 
 
-def _sm90_smem_agrees(lib, k, plan, q, folded) -> None:
+@functools.lru_cache(maxsize=None)
+def _sm90_smem_agrees(lib, k, cin, plan, q, folded, resident) -> None:
+    """Raise unless the C layout and :func:`_sm90_smem_bytes` agree (checked
+    once per site: every argument is hashable)."""
     cchunk, n_tiles, _ = plan
-    if lib.rrin_conv_up_sm90_smem(k, cchunk, n_tiles, int(q), int(folded)) != _sm90_smem_bytes(
-            k, cchunk, n_tiles, q, folded):
+    res = _sm90_res_chunks(cin, plan, resident)
+    if lib.rrin_conv_up_sm90_smem(k, cchunk, n_tiles, int(q), int(folded),
+                                  res) != _sm90_smem_bytes(k, cchunk, n_tiles, q, folded, res):
         raise RuntimeError("conv_up_sm90.cu and conv_packed.py disagree on the tile")
 
 
 def _prep_on_card(name: str, w: torch.Tensor, bias: torch.Tensor) -> Prepared:
-    """What ``prep_conv_up_m`` / ``prep_conv_up_f`` return in bfloat16, from
-    one launch of the K8/K9 core's prep kernel: the layout of
-    :func:`_sm90_weights` (K9: the fold of :func:`_upf_taps` before the bf16
-    rounding) and, folded, the bias repeated for both output parities."""
+    """What ``prep_conv_pool`` / ``prep_conv_up_m`` / ``prep_conv_up_f``
+    return in bfloat16, from one launch of the K7-K9 core's prep kernel: the
+    layout of :func:`_sm90_weights` (K9: the fold of :func:`_upf_taps` before
+    the bf16 rounding) and, folded, the bias repeated for both output
+    parities."""
     folded = name == "conv_up_f_packed"
     k, _, cin, cout = w.shape
     n_out = 2 * cout if folded else cout
-    plan = _sm90_plan(k, cin, n_out, folded=folded)
+    plan = _sm90_plan(k, cin, n_out, folded=folded, resident=name == "conv_pool_packed")
     cchunk, n_tiles, n_cb = plan
     mem = torch.empty((n_cb, -(-cin // cchunk), k, 5 if folded else k, cchunk // 16, n_tiles,
                        2, 8, 4, 2), dtype=torch.bfloat16, device=w.device)
@@ -903,7 +958,7 @@ def _fused(name: str, x, w, bias, slope, prepared, in_absmax, out_absmax,
         raise RuntimeError(f"no {name} kernel for device {x.device}")
     prepared = _check_cuda(name, [x], w, bias, prepared, (cin,), k, cout, q,
                            out_absmax is not None)
-    sm90 = name in ("conv_up_m_packed", "conv_up_f_packed")
+    sm90 = name in _SM90_KERNELS
     folded = name == "conv_up_f_packed"
     if prepared is None:
         prepared = (_prep_on_card(name, w, bias) if sm90 and not q
@@ -913,7 +968,7 @@ def _fused(name: str, x, w, bias, slope, prepared, in_absmax, out_absmax,
         if not prepared["wfrag"].permute(*_SM90_ORDER).is_contiguous():
             raise ValueError(f"{name}: prepared['wfrag'] is not in the layout of _sm90_weights")
         lib = _lib_sm90()
-        _sm90_smem_agrees(lib, k, prepared["plan"], q, folded)
+        _sm90_smem_agrees(lib, k, cin, prepared["plan"], q, folded, name == "conv_pool_packed")
     else:
         lib = _lib()
         _smem_agrees(lib, k, k, k, prepared["plan"], q)

@@ -1,25 +1,32 @@
-"""Hand-written CUDA backward warp (csrc/warp.cu) and its wrapper.
+"""Hand-written CUDA backward warp (csrc/warp.cu) and its wrappers.
 
 Replaces the three Pallas warp kernels of the JAX package's
 ``ops/warp_pallas.py``: ``_warp_kernel`` (float32 planes, ``pairs=False``),
 ``_warp_kernel_pairs`` (bf16 channel pairs, ``pairs=True``) and
-``_warp_kernel_u8`` (byte-packed single plane, ``pairs="u8"``).
+``_warp_kernel_u8`` (byte-packed single plane, ``pairs="u8"``), and its pair
+entry point ``warp_pair_pallas``.
 
 What bounds it on an H100: bytes. A warp reads 3 source channels and a
 2-channel flow and writes 3 channels per pixel and does some 40 float
 operations for them, far below the card's operations-per-byte line, and the
 four taps of a pixel are a data-dependent gather. The design therefore does
-what moves the fewest bytes: one thread per output pixel gathers straight
-from global memory (neighbouring pixels hit neighbouring cache lines for
-smooth flow; L2 holds a whole 1080p source), the bf16 and byte-packed
-sources make a tap one 8- or 4-byte load for all three channels instead of
-three 4-byte loads, and the result is stored once, NHWC or planar. There is
-no row window, hence no bound on the flow and no second path for large
-displacements. The source rounding/packing is a small preceding pass in the
-same CUDA file.
+what moves the fewest bytes: :func:`warp_pair_kernel` warps both frames of
+the cascade in one launch, and where the two flows are the halves of one
+4-channel tensor (the cascade's ``Ft0|Ft1``, :func:`_flow_halves`) a thread
+reads its pixel's four flow floats with one 16-byte load; each thread
+gathers its pixel's taps straight from global memory (32x8 pixel blocks, so
+a block's taps fall in few cache lines for smooth flow; L2 holds both 1080p
+sources) and rounds them to bfloat16 or to the byte grid as it reads them,
+so no pass writes a rounded copy of the source first; the result is stored
+once, NHWC or planar. There is no row window, hence no bound on the flow and
+no second path for large displacements. Taking the byte grid in one packing
+pass over both frames instead (one more launch, counted as ``warp_pack``,
+whose 4-byte words the gather then reads) measured slower on the H100;
+``chip_smoke.py`` times it beside the kernel through ``_warp_cuda(...,
+pack=True)``.
 
 The plain version of all three is :func:`rrin_tpu_torch.ops.warp.warp_bilinear`
-on the equally rounded source (:func:`_rounded_source`); the wrapper takes it
+on the equally rounded source (:func:`_rounded_source`); the wrappers take it
 only for CPU tensors. Forward only: inputs that require grad are refused on
 the card.
 """
@@ -27,7 +34,7 @@ the card.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -36,6 +43,8 @@ from rrin_tpu_torch.ops.warp import warp_bilinear
 
 # pairs argument -> (launch-count name, src_kind of rrin_warp_launch)
 _VARIANTS = {False: ("warp_f32", 0), True: ("warp_bf16", 1), "u8": ("warp_u8", 2)}
+# src_kind of the byte grid read from the words of a packing pass
+_SRC_U8_WORDS = 3
 
 
 def _variant(pairs) -> Tuple[str, int]:
@@ -50,11 +59,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("warp")
     if not getattr(lib, "_rrin_typed", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.rrin_warp_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, cf, cf, ci, ci, ci, vp]
+        lib.rrin_warp_launch.argtypes = [vp] * 6 + [ci] * 7 + [cf, cf, ci, ci, ci, vp]
         lib.rrin_warp_launch.restype = ci
-        for fn in (lib.rrin_pack_u8_launch, lib.rrin_pack_bf16_launch):
-            fn.argtypes = [vp, vp, ctypes.c_longlong, vp]
-            fn.restype = ci
+        lib.rrin_pack_u8_launch.argtypes = [vp] * 4 + [ci, ctypes.c_longlong, vp]
+        lib.rrin_pack_u8_launch.restype = ci
         lib._rrin_typed = True
     return lib
 
@@ -104,6 +112,68 @@ def _check_cuda_inputs(img: torch.Tensor, flow: torch.Tensor) -> int:
     return s
 
 
+def _flow_halves(flow_t0: torch.Tensor, flow_t1: torch.Tensor) -> bool:
+    """Whether ``flow_t0`` and ``flow_t1`` are channels 0-1 and 2-3 of one
+    NHWC-contiguous (B, H, W, 4) float32 tensor with 16-byte aligned pixels,
+    as the cascade slices them out of ``Ft0|Ft1``: the pair kernel then reads
+    both with one 16-byte load a pixel."""
+    if (flow_t0.dtype != torch.float32 or flow_t1.dtype != torch.float32
+            or flow_t0.device != flow_t1.device or flow_t0.shape != flow_t1.shape
+            or flow_t0.ndim != 4 or flow_t0.shape[-1] != 2):
+        return False
+    b, h, w, _ = flow_t0.shape
+    packed = (h * w * 4, w * 4, 4, 1)
+    return (flow_t0.untyped_storage().data_ptr() == flow_t1.untyped_storage().data_ptr()
+            and flow_t1.data_ptr() == flow_t0.data_ptr() + 8 and flow_t0.data_ptr() % 16 == 0
+            and all(n == 1 or st0 == st1 == ps for n, st0, st1, ps in
+                    zip(flow_t0.shape, flow_t0.stride(), flow_t1.stride(), packed)))
+
+
+def _check_shapes(img: torch.Tensor, flow: torch.Tensor) -> None:
+    if img.ndim != 4 or img.shape[-1] != 3:
+        raise ValueError(f"img must be (B, H, W, 3), got {tuple(img.shape)}")
+    if flow.shape != (*img.shape[:3], 2):
+        raise ValueError(
+            f"flow must be {(*img.shape[:3], 2)}, got {tuple(flow.shape)}")
+
+
+def _warp_cuda(
+    imgs: Sequence[torch.Tensor], flows: Sequence[torch.Tensor], align_corners: bool,
+    pairs, planar_out: bool, pack: bool = False,
+) -> List[torch.Tensor]:
+    """One launch that warps one frame or both frames of a pair (of one
+    shape, on one card). ``pack`` (``pairs="u8"``) takes the byte grid in a
+    packing pass over the frames first, the design measured beside this one
+    (``chip_smoke.py``); the wrappers do not take it."""
+    kernel, src_kind = _variant(pairs)
+    if pack and src_kind != 2:
+        raise ValueError("pack=True packs the byte grid: it needs pairs='u8'")
+    strides = [_check_cuda_inputs(img, flow) for img, flow in zip(imgs, flows)]
+    flow4 = len(imgs) == 2 and _flow_halves(*flows)
+    b, h, w, _ = imgs[0].shape
+    dev = imgs[0].device
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        srcs = list(imgs)
+        if pack:
+            srcs = [torch.empty((b, h, w), dtype=torch.int32, device=dev) for _ in imgs]
+            _build.launch(
+                "warp_pack", lib.rrin_pack_u8_launch, imgs[0].data_ptr(), imgs[-1].data_ptr(),
+                srcs[0].data_ptr(), srcs[-1].data_ptr(), len(imgs), b * h * w, stream)
+            src_kind = _SRC_U8_WORDS
+        shape = (b, 3, h, w) if planar_out else (b, h, w, 3)
+        outs = [torch.empty(shape, dtype=torch.float32, device=dev) for _ in imgs]
+        _build.launch(
+            kernel, lib.rrin_warp_launch, srcs[0].data_ptr(), srcs[-1].data_ptr(),
+            flows[0].data_ptr(), flows[-1].data_ptr(), outs[0].data_ptr(), outs[-1].data_ptr(),
+            len(imgs), b, h, w, strides[0], strides[-1], int(flow4),
+            w / max(w - 1, 1), h / max(h - 1, 1), int(bool(align_corners)),
+            int(bool(planar_out)), src_kind, stream,
+        )
+    return outs
+
+
 def warp_one(
     img: torch.Tensor, flow: torch.Tensor, align_corners: bool = False,
     pairs=False, planar_out: bool = False,
@@ -119,41 +189,13 @@ def warp_one(
     A tensor on the card launches the kernel or raises; a CPU tensor runs the
     plain version (``warp_bilinear`` on the same rounded source).
     """
-    kernel, src_kind = _variant(pairs)
-    if img.ndim != 4 or img.shape[-1] != 3:
-        raise ValueError(f"img must be (B, H, W, 3), got {tuple(img.shape)}")
-    if flow.shape != (*img.shape[:3], 2):
-        raise ValueError(
-            f"flow must be {(*img.shape[:3], 2)}, got {tuple(flow.shape)}")
+    _variant(pairs)
+    _check_shapes(img, flow)
     if img.device.type == "cpu":
         return _warp_plain(img, flow, align_corners, pairs, planar_out)
     if img.device.type != "cuda":
         raise RuntimeError(f"no warp kernel for device {img.device}")
-    flow_stride = _check_cuda_inputs(img, flow)
-
-    b, h, w, _ = img.shape
-    lib = _lib()
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        src = img
-        if src_kind == 2:
-            src = torch.empty((b, h, w), dtype=torch.int32, device=img.device)
-            err = lib.rrin_pack_u8_launch(img.data_ptr(), src.data_ptr(), b * h * w, stream)
-        elif src_kind == 1:
-            src = torch.empty((b, h, w, 4), dtype=torch.bfloat16, device=img.device)
-            err = lib.rrin_pack_bf16_launch(img.data_ptr(), src.data_ptr(), b * h * w, stream)
-        else:
-            err = 0
-        if err != 0:
-            raise RuntimeError(f"warp source packing pass failed: cudaError {err}")
-        shape = (b, 3, h, w) if planar_out else (b, h, w, 3)
-        out = torch.empty(shape, dtype=torch.float32, device=img.device)
-        _build.launch(
-            kernel, lib.rrin_warp_launch, src.data_ptr(), flow.data_ptr(),
-            out.data_ptr(), b, h, w, flow_stride, w / max(w - 1, 1), h / max(h - 1, 1),
-            int(bool(align_corners)), int(bool(planar_out)), src_kind, stream,
-        )
-    return out
+    return _warp_cuda([img], [flow], align_corners, pairs, planar_out)[0]
 
 
 def warp_pair_kernel(
@@ -165,7 +207,21 @@ def warp_pair_kernel(
     pairs=False,
     planar_out: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Both warps of the cascade through :func:`warp_one` (one launch each)."""
-    g0 = warp_one(i0, flow_t0, align_corners, pairs, planar_out)
-    g1 = warp_one(i1, flow_t1, align_corners, pairs, planar_out)
+    """Both warps of the cascade, ``warp_one(i0, flow_t0)`` and
+    ``warp_one(i1, flow_t1)``, in one launch of the CUDA kernel (arguments
+    as :func:`warp_one`; the frames share one shape and device). A CPU
+    tensor runs the plain version of each."""
+    _variant(pairs)
+    _check_shapes(i0, flow_t0)
+    _check_shapes(i1, flow_t1)
+    if i1.shape != i0.shape or i1.device != i0.device:
+        raise ValueError(
+            f"the frames of a pair must agree in shape and device, got {tuple(i0.shape)} on "
+            f"{i0.device} and {tuple(i1.shape)} on {i1.device}")
+    if i0.device.type == "cpu":
+        return (_warp_plain(i0, flow_t0, align_corners, pairs, planar_out),
+                _warp_plain(i1, flow_t1, align_corners, pairs, planar_out))
+    if i0.device.type != "cuda":
+        raise RuntimeError(f"no warp kernel for device {i0.device}")
+    g0, g1 = _warp_cuda([i0, i1], [flow_t0, flow_t1], align_corners, pairs, planar_out)
     return g0, g1

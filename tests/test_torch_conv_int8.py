@@ -54,6 +54,16 @@ def test_quantize_act_bit_equal(rng):
         assert got.dtype == np.int8 and np.array_equal(got, want)
     assert np.array_equal(tcp._quantize_act(t(ties), 127.0).numpy(),
                           [0, 2, 2, 0, -2, 126, -126, 127, -127, 0])
+    # Dequantised codes interpolated as K6 does land on exact ties of the
+    # grid: 127/ax and ax/127 must be true divisions (not a reciprocal times
+    # 127, which PyTorch's ``127.0 / t`` computes) to round as the reference.
+    codes = rng.integers(-127, 128, (2, 4096)).astype(np.float32)
+    for ax in rng.uniform(0.5, 4.0, 24).astype(np.float32):
+        deq = codes * (ax / np.float32(127.0))
+        assert np.array_equal(tcp._over127(torch.tensor(ax)).numpy(), ax / np.float32(127.0))
+        x = np.float32(0.25) * deq[0] + np.float32(0.75) * deq[1]
+        want = np.asarray(jcp._quantize_act(jnp.asarray(x), jnp.float32(ax)))
+        assert np.array_equal(tcp._quantize_act(t(x), torch.tensor(ax)).numpy(), want)
 
 
 def test_quantize_weights_bit_equal(rng):

@@ -11,28 +11,12 @@ import torch
 
 from rrin_tpu_torch import _build
 from rrin_tpu_torch.ops import conv_packed as tcp
-from torch_packed_util import fresh_rng, one_torch_thread, t  # noqa: F401
+from torch_packed_util import check_sm90_layout, fresh_rng, one_torch_thread, t  # noqa: F401
 
 
 @pytest.fixture
 def rng():
     return fresh_rng()
-
-
-def _core_offset(ci, n, dy, tap, cchunk, n_tiles, k, ntaps, n_chunks, q):
-    """Byte offset in the weight buffer at which the core reads channel-in ci
-    of channel-out n at (dy, tap): the descriptor's view of
-    [cb][chunk][dy][tap][k-step][n-tile][r][g][16 bytes]."""
-    es, kk = (1, 32) if q else (2, 16)
-    big_n = n_tiles * 8
-    tap_bytes = cchunk * big_n * es
-    cb, nn = divmod(n, big_n)
-    ch, cc = divmod(ci, cchunk)
-    ks, kin = divmod(cc, kk)
-    r, e = divmod(kin, kk // 2)
-    stage = ((cb * n_chunks + ch) * k + dy) * ntaps + tap
-    return (stage * tap_bytes + ks * big_n * 32 + (nn // 8) * 256 + r * 128 + (nn % 8) * 16
-            + e * es)
 
 
 @pytest.mark.parametrize("q", [False, True], ids=["bf16", "int8"])
@@ -52,27 +36,8 @@ def test_weight_layout_read_by_the_core(rng, folded, q):
     else:
         pr = tcp.prep_conv_up_m(w, b, ax)
         ref = tcp._quantize_weights([w], (ax,))[0][0].float() if q else w
-    ref = ref.numpy() if q else ref.to(torch.bfloat16).float().numpy()
-    cchunk, n_tiles, n_cb = pr["plan"]
-    n_out, ntaps = ref.shape[3], ref.shape[1]
-    assert ntaps == (5 if folded else k) and n_cb * n_tiles * 8 >= n_out
-    mem = pr["wfrag"].permute(*tcp._SM90_ORDER)
-    assert mem.is_contiguous() and mem.dtype == (torch.int8 if q else torch.bfloat16)
-    flat = mem.reshape(-1).float().numpy()
-    n_chunks = -(-cin // cchunk)
-    es = 1 if q else 2
-    assert flat.size * es == n_cb * n_chunks * k * ntaps * cchunk * n_tiles * 8 * es
-    seen = np.zeros(flat.size, bool)
-    for dy in range(k):
-        for tap in range(ntaps):
-            for ci in range(n_chunks * cchunk):
-                for n in range(n_cb * n_tiles * 8):
-                    off = _core_offset(ci, n, dy, tap, cchunk, n_tiles, k, ntaps, n_chunks, q)
-                    assert off % es == 0
-                    want = ref[dy, tap, ci, n] if ci < cin and n < n_out else 0.0
-                    assert flat[off // es] == want, (dy, tap, ci, n)
-                    seen[off // es] = True
-    assert seen.all()  # the formula covers the buffer once
+    assert pr["wfrag"].shape[3] == (5 if folded else k)
+    check_sm90_layout(pr, ref, k, q)
 
 
 # (name, k, cin, n_out = cout or 2*cout when folded, folded): every K8 and

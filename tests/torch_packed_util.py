@@ -14,6 +14,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from rrin_tpu.ops import conv_packed as jcp
+from rrin_tpu_torch.ops import conv_packed as tcp
 
 # float32 on both sides, the same function in another summation order: the
 # JAX package's own tests of these kernels use 1e-5 to 3e-4 at these sizes.
@@ -92,3 +93,47 @@ def gather(frag, wt, cins, cchunk, n_tiles, kk=16):
         co = (cb * n_tiles + nt) * 8 + g
         want = wt[dy, tap, ci, co] if ci < rows[ch] and co < n_out else 0.0
         assert f[idx] == want, idx
+
+
+def sm90_offset(ci, n, dy, tap, cchunk, n_tiles, k, ntaps, n_chunks, q):
+    """Byte offset in a weight buffer of the K7-K9 core (``csrc/conv_up_sm90.cu``)
+    at which it reads channel-in ci of channel-out n at (dy, tap): the wgmma
+    B descriptor's view of [cb][chunk][dy][tap][k-step][n-tile][r][g][16 bytes]."""
+    es, kk = (1, 32) if q else (2, 16)
+    big_n = n_tiles * 8
+    tap_bytes = cchunk * big_n * es
+    cb, nn = divmod(n, big_n)
+    ch, cc = divmod(ci, cchunk)
+    ks, kin = divmod(cc, kk)
+    r, e = divmod(kin, kk // 2)
+    stage = ((cb * n_chunks + ch) * k + dy) * ntaps + tap
+    return (stage * tap_bytes + ks * big_n * 32 + (nn // 8) * 256 + r * 128 + (nn % 8) * 16
+            + e * es)
+
+
+def check_sm90_layout(pr, ref, k, q):
+    """Every byte of ``pr["wfrag"]`` (a ``prep_*`` result in the K7-K9 core's
+    layout) that the core reads holds ``ref[dy, tap, ci, n]`` (bf16-rounded,
+    or the int8 code), zero where cin or the output channels are padding,
+    and the address formula covers the buffer once."""
+    ref = ref.numpy() if q else ref.to(torch.bfloat16).float().numpy()
+    cin, n_out, ntaps = ref.shape[2], ref.shape[3], ref.shape[1]
+    cchunk, n_tiles, n_cb = pr["plan"]
+    assert n_cb * n_tiles * 8 >= n_out
+    mem = pr["wfrag"].permute(*tcp._SM90_ORDER)
+    assert mem.is_contiguous() and mem.dtype == (torch.int8 if q else torch.bfloat16)
+    flat = mem.reshape(-1).float().numpy()
+    n_chunks = -(-cin // cchunk)
+    es = 1 if q else 2
+    assert flat.size * es == n_cb * n_chunks * k * ntaps * cchunk * n_tiles * 8 * es
+    seen = np.zeros(flat.size, bool)
+    for dy in range(k):
+        for tap in range(ntaps):
+            for ci in range(n_chunks * cchunk):
+                for n in range(n_cb * n_tiles * 8):
+                    off = sm90_offset(ci, n, dy, tap, cchunk, n_tiles, k, ntaps, n_chunks, q)
+                    assert off % es == 0
+                    want = ref[dy, tap, ci, n] if ci < cin and n < n_out else 0.0
+                    assert flat[off // es] == want, (dy, tap, ci, n)
+                    seen[off // es] = True
+    assert seen.all()
