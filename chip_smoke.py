@@ -497,16 +497,13 @@ def warp_case(rng, dev, pairs, h, w, align_corners, scale, bias, atol, timed):
     want = [warp_kernel._warp_plain(i, f, align_corners, pairs, False)
             for i, f in zip(imgs, halves)]
 
-    def launched(fn, n_kernel, n_pack=0):
+    def launched(fn, n_kernel):
         before = _build.launch_counts()
         got = fn()
         torch.cuda.synchronize()
         after = _build.launch_counts()
-        check(after[kernel] - before[kernel] == n_kernel
-              and after["warp_pack"] - before["warp_pack"] == n_pack,
-              f"{case}: {after[kernel] - before[kernel]} {kernel} and "
-              f"{after['warp_pack'] - before['warp_pack']} warp_pack launches, want "
-              f"{n_kernel} and {n_pack}")
+        check(after[kernel] - before[kernel] == n_kernel,
+              f"{case}: {after[kernel] - before[kernel]} {kernel} launches, want {n_kernel}")
         return got
 
     errs = {}
@@ -518,9 +515,6 @@ def warp_case(rng, dev, pairs, h, w, align_corners, scale, bias, atol, timed):
         "pair_separate_flows": launched(lambda: warp_kernel.warp_pair_kernel(
             *imgs, *separate, align_corners, pairs), 1),
     }
-    if pairs == "u8":  # the byte grid taken by a packing pass instead
-        routes["pair_pack_pass"] = launched(lambda: warp_kernel._warp_cuda(
-            imgs, halves, align_corners, pairs, False, pack=True), 1, 1)
     for route, outs in routes.items():
         err = max(float((g - wt).abs().max()) for g, wt in zip(outs, want))
         check(err <= atol and all(bool(torch.isfinite(g).all()) for g in outs),
@@ -565,9 +559,6 @@ def warp_case(rng, dev, pairs, h, w, align_corners, scale, bias, atol, timed):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes,
         })
-        if pairs == "u8":  # the pair with a packing pass, per warp, packing included
-            out["pack_pass_variant_ms"] = time_ms(lambda: warp_kernel._warp_cuda(
-                imgs, halves, align_corners, pairs, False, pack=True), iters=50) / 2
     return out
 
 
@@ -806,8 +797,8 @@ def _profile_group(name: str) -> str:
         return "K7-K9 weight prep"
     if "conv_phase_kernel" in low:
         return "conv_phase (K1)"
-    if "warp_kernel" in low or "pack_u8" in low or "pack_bf16" in low:
-        return "warp (K2-K4) + packing"
+    if "warp_kernel" in low:
+        return "warp (K2-K4)"
     if "memcpy" in low or "memset" in low:
         return "copies host<->device"
     if any(t in low for t in ("xmma", "cudnn", "gemm", "cutlass", "nchwtonhwc", "nhwctonchw")):
@@ -1009,8 +1000,6 @@ def kernels_summary(conv, packed, int8, warps, serve_counts, counts_4k, int8_cou
             "ms": timed["kernel_ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
             "library_ms": timed["library_ms"], "warp_one_ms": timed["warp_one_ms"],
-            **({"pack_pass_variant_ms": timed["pack_pass_variant_ms"]}
-               if name == "warp_u8" else {}),
             "what": "one warp of a pair at 1088x1920: the pair's one launch over two, "
                     "library two F.grid_sample calls over two",
         })

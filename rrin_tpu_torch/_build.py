@@ -34,11 +34,11 @@ NVCC_FLAGS = [
 # Kernel name -> launches since the last reset_launch_counts(). The packed
 # convs count their int8 launches under "<name>_int8"; "conv_up_prep" is the
 # bf16 weight prep of conv_pool_packed, conv_up_m_packed and conv_up_f_packed
-# on the card; "warp_pack" the byte-grid packing pass of the warps.
+# on the card.
 _PACKED = ("conv_packed", "conv_pool_packed", "conv_up_packed", "conv_up_m_packed",
            "conv_up_f_packed")
 LAUNCHES: Dict[str, int] = {
-    "conv_phase": 0, "warp_u8": 0, "warp_f32": 0, "warp_bf16": 0, "warp_pack": 0,
+    "conv_phase": 0, "warp_u8": 0, "warp_f32": 0, "warp_bf16": 0,
     "conv_up_prep": 0,
     **{name: 0 for name in _PACKED}, **{f"{name}_int8": 0 for name in _PACKED},
 }

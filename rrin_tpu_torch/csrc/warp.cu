@@ -7,8 +7,6 @@
 //   SRC_BF16     : each tap rounded to bfloat16 as it is read      ("warp_bf16")
 //   SRC_U8       : each tap taken to round(clip(v,0,1)*255) as it
 //                  is read                                         ("warp_u8")
-//   SRC_U8_WORDS : the same bytes, from one word per pixel that
-//                  pack_u8_kernel wrote beforehand                 ("warp_u8")
 // and by the number of frames one launch warps (1, or 2: both warps of the
 // cascade).
 //
@@ -25,8 +23,7 @@
 //     coalesced row, and a block's taps (smooth flow) fall in few lines;
 //   * the source is read as it is (float32) and rounded per tap (bf16, or
 //     the byte grid) in registers, so no packing pass writes and rereads a
-//     copy of it; the word-packed source of SRC_U8_WORDS is the alternative
-//     measured beside it;
+//     copy of it;
 //   * the four taps are gathered straight from global memory (no window, so
 //     no bound on the flow), and each output is stored once, NHWC or planar.
 // Sample position, weights and accumulation use the explicitly rounded
@@ -41,11 +38,10 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace {
 
-enum { SRC_F32 = 0, SRC_BF16 = 1, SRC_U8 = 2, SRC_U8_WORDS = 3 };
+enum { SRC_F32 = 0, SRC_BF16 = 1, SRC_U8 = 2 };
 
 constexpr int BX = 32, BY = 8;  // pixels per block: one warp per row
 
@@ -63,16 +59,9 @@ __device__ __forceinline__ float bf16_of(float v) {
 }
 
 template <int SRC>
-__device__ __forceinline__ Tap3 load_tap(const void* src, size_t pix) {
+__device__ __forceinline__ Tap3 load_tap(const float* src, size_t pix) {
   Tap3 t;
-  if (SRC == SRC_U8_WORDS) {
-    const uint32_t v = __ldg(reinterpret_cast<const uint32_t*>(src) + pix);
-    t.c0 = static_cast<float>(v & 255u);
-    t.c1 = static_cast<float>((v >> 8) & 255u);
-    t.c2 = static_cast<float>((v >> 16) & 255u);
-    return t;
-  }
-  const float* p = reinterpret_cast<const float*>(src) + pix * 3;
+  const float* p = src + pix * 3;
   t.c0 = __ldg(p);
   t.c1 = __ldg(p + 1);
   t.c2 = __ldg(p + 2);
@@ -89,7 +78,7 @@ __device__ __forceinline__ Tap3 load_tap(const void* src, size_t pix) {
 }
 
 struct WarpArgs {
-  const void* src[2];    // per frame: float32 (B,H,W,3), or one word per pixel
+  const float* src[2];   // per frame: float32 (B,H,W,3)
   const float* flow[2];  // per frame: (B,H,W,2) with fstride floats per pixel
   float* out[2];         // per frame: (B,H,W,3), or (B,3,H,W) when planar_out
   int fstride[2];
@@ -101,7 +90,7 @@ struct WarpArgs {
 
 // One output pixel (b, y, x) of one frame.
 template <int SRC>
-__device__ __forceinline__ void warp_pixel(const WarpArgs& a, const void* src, float2 f,
+__device__ __forceinline__ void warp_pixel(const WarpArgs& a, const float* src, float2 f,
                                            float* out, size_t b, int y, int x) {
   const int H = a.H, W = a.W;
   float sx = __fadd_rn(static_cast<float>(x), f.x);
@@ -137,7 +126,7 @@ __device__ __forceinline__ void warp_pixel(const WarpArgs& a, const void* src, f
   const float ax = __fsub_rn(1.0f, wx);
   const float ay = __fsub_rn(1.0f, wy);
   float o0, o1, o2;
-  if (SRC == SRC_U8 || SRC == SRC_U8_WORDS) {
+  if (SRC == SRC_U8) {
     // 1/255 folded into the horizontal weights; rows share them.
     const float inv255 = 1.0f / 255.0f;
     const float cw0 = ax * inv255 * vx0;
@@ -201,20 +190,6 @@ __global__ void __launch_bounds__(BX * BY) warp_kernel(const WarpArgs a) {
   for (int i = 0; i < NF; ++i) warp_pixel<SRC>(a, a.src[i], f[i], a.out[i], b, y, x);
 }
 
-// (B,H,W,3) float32 frames -> one word per pixel: round(clip(c,0,1)*255)
-// bytes; blockIdx.y picks the frame.
-__global__ void __launch_bounds__(256)
-pack_u8_kernel(const float* __restrict__ img0, const float* __restrict__ img1,
-               uint32_t* __restrict__ out0, uint32_t* __restrict__ out1, size_t n) {
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const float* p = (blockIdx.y ? img1 : img0) + idx * 3;
-  uint32_t v = 0;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) v |= static_cast<uint32_t>(byte_of(p[c])) << (8 * c);
-  (blockIdx.y ? out1 : out0)[idx] = v;
-}
-
 template <int SRC>
 void launch_src(const WarpArgs& a, int nf, dim3 grid, cudaStream_t s) {
   if (nf == 2)
@@ -227,9 +202,9 @@ void launch_src(const WarpArgs& a, int nf, dim3 grid, cudaStream_t s) {
 
 extern "C" {
 
-// nf frames (1 or 2) of one shape: src_i (src_kind 0-2: float32 (B,H,W,3);
-// 3: the words of rrin_pack_u8_launch), flow_i with fstride_i floats per
-// pixel (flow4: flow1 is flow0 + 2 floats and both have stride 4), out_i.
+// nf frames (1 or 2) of one shape: src_i float32 (B,H,W,3), flow_i with
+// fstride_i floats per pixel (flow4: flow1 is flow0 + 2 floats and both have
+// stride 4), out_i.
 int rrin_warp_launch(const void* src0, const void* src1, const void* flow0, const void* flow1,
                      void* out0, void* out1, int nf, int B, int H, int W, int fstride0,
                      int fstride1, int flow4, float scale_x, float scale_y, int align_corners,
@@ -239,8 +214,8 @@ int rrin_warp_launch(const void* src0, const void* src1, const void* flow0, cons
       (fstride0 & 1) || fstride1 < 2 || (fstride1 & 1) || (flow4 && (nf != 2 || fstride0 != 4)))
     return cudaErrorInvalidValue;
   WarpArgs a = {};
-  a.src[0] = src0;
-  a.src[1] = src1;
+  a.src[0] = static_cast<const float*>(src0);
+  a.src[1] = static_cast<const float*>(src1);
   a.flow[0] = static_cast<const float*>(flow0);
   a.flow[1] = static_cast<const float*>(flow1);
   a.out[0] = static_cast<float*>(out0);
@@ -260,22 +235,8 @@ int rrin_warp_launch(const void* src0, const void* src1, const void* flow0, cons
     case SRC_F32: launch_src<SRC_F32>(a, nf, grid, s); break;
     case SRC_BF16: launch_src<SRC_BF16>(a, nf, grid, s); break;
     case SRC_U8: launch_src<SRC_U8>(a, nf, grid, s); break;
-    case SRC_U8_WORDS: launch_src<SRC_U8_WORDS>(a, nf, grid, s); break;
     default: return cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// nf (B,H,W,3) float32 frames of n_pixels pixels each -> one word per pixel.
-int rrin_pack_u8_launch(const void* img0, const void* img1, void* out0, void* out1, int nf,
-                        long long n_pixels, void* stream) {
-  if (n_pixels <= 0) return 0;
-  if (nf != 1 && nf != 2) return cudaErrorInvalidValue;
-  const size_t n = static_cast<size_t>(n_pixels);
-  const dim3 grid(static_cast<unsigned>((n + 255) / 256), nf);
-  pack_u8_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(img0), static_cast<const float*>(img1),
-      static_cast<uint32_t*>(out0), static_cast<uint32_t*>(out1), n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -117,7 +117,11 @@ _CHUNKS = {False: (64, 48, 32, 16), True: (128, 64, 32)}
 # chunks (powers of two: its producer threads split a chunk evenly).
 _SM90_TW, _SM90_N, _SM90_CONSUMERS = 64, (8, 16, 32, 64, 128), 2
 _SM90_CHUNKS = {False: (64, 32, 16), True: (128, 64, 32)}
-_SM90_KERNELS = ("conv_pool_packed", "conv_up_m_packed", "conv_up_f_packed")
+# Its kernels -> (folded, resident): K9's weights are folded with its
+# W-upsample; K7 keeps every chunk's weights in shared memory where that is
+# what fits (the C side's resident_chunks<MODE>).
+_SM90_KERNELS = {"conv_pool_packed": (False, True), "conv_up_m_packed": (False, False),
+                 "conv_up_f_packed": (True, False)}
 # Its weights' memory order against the fragment order of _weight_fragments:
 # (cb, chunk, dy, tap, kstep, nt, g, tig, r, p) is stored as
 # (cb, chunk, dy, tap, kstep, nt, r, g, tig, p), so that each (r, g) row of
@@ -259,7 +263,8 @@ def supports(cins: Sequence[int], k: int, cout: int) -> bool:
 
 def supports_pool(cin: int, k: int, cout: int) -> bool:
     """``conv_pool_packed``: k in {3, 5}, cin a multiple of 8 (8-channel loads)."""
-    return k in _K_POOL and cin % 8 == 0 and _sm90_fits(k, cin, cout, False, resident=True)
+    return k in _K_POOL and cin % 8 == 0 and _sm90_fits(
+        k, cin, cout, *_SM90_KERNELS["conv_pool_packed"])
 
 
 def supports_up(cin: int, k: int, cout: int) -> bool:
@@ -270,13 +275,15 @@ def supports_up(cin: int, k: int, cout: int) -> bool:
 
 def supports_up_m(cin: int, k: int, cout: int) -> bool:
     """``conv_up_m_packed``: k in {3, 5}, cin a multiple of 8."""
-    return k in _K_UP_M and cin % 8 == 0 and _sm90_fits(k, cin, cout, False)
+    return k in _K_UP_M and cin % 8 == 0 and _sm90_fits(
+        k, cin, cout, *_SM90_KERNELS["conv_up_m_packed"])
 
 
 def supports_up_f(cin: int, k: int, cout: int) -> bool:
     """``conv_up_f_packed``: k = 3 (the fold is solved for it), cin a
     multiple of 8."""
-    return k in _K_UP_F and cin % 8 == 0 and _sm90_fits(3, cin, 2 * cout, True)
+    return k in _K_UP_F and cin % 8 == 0 and _sm90_fits(
+        3, cin, 2 * cout, *_SM90_KERNELS["conv_up_f_packed"])
 
 
 # ---------------------------------------------------------------- int8 grid
@@ -479,7 +486,7 @@ def _prep_sm90(name, ok, w, bias, absmax, out_absmax) -> Prepared:
     k, cout = _check_w(w, bias, w.shape[2])
     cin = w.shape[2]
     _need(ok(cin, k, cout), name, cin, k, cout)
-    res = name == "conv_pool_packed"
+    _, res = _SM90_KERNELS[name]
     if absmax is None:
         return _prepared(w.float(), bias, (cin,), k, cout,
                          _sm90_plan(k, cin, cout, resident=res), layout=_sm90_weights)
@@ -842,10 +849,10 @@ def _prep_on_card(name: str, w: torch.Tensor, bias: torch.Tensor) -> Prepared:
     layout of :func:`_sm90_weights` (K9: the fold of :func:`_upf_taps` before
     the bf16 rounding) and, folded, the bias repeated for both output
     parities."""
-    folded = name == "conv_up_f_packed"
+    folded, res = _SM90_KERNELS[name]
     k, _, cin, cout = w.shape
     n_out = 2 * cout if folded else cout
-    plan = _sm90_plan(k, cin, n_out, folded=folded, resident=name == "conv_pool_packed")
+    plan = _sm90_plan(k, cin, n_out, folded=folded, resident=res)
     cchunk, n_tiles, n_cb = plan
     mem = torch.empty((n_cb, -(-cin // cchunk), k, 5 if folded else k, cchunk // 16, n_tiles,
                        2, 8, 4, 2), dtype=torch.bfloat16, device=w.device)
@@ -959,7 +966,7 @@ def _fused(name: str, x, w, bias, slope, prepared, in_absmax, out_absmax,
     prepared = _check_cuda(name, [x], w, bias, prepared, (cin,), k, cout, q,
                            out_absmax is not None)
     sm90 = name in _SM90_KERNELS
-    folded = name == "conv_up_f_packed"
+    folded, res = _SM90_KERNELS.get(name, (False, False))
     if prepared is None:
         prepared = (_prep_on_card(name, w, bias) if sm90 and not q
                     else prep(w, bias, in_absmax, out_absmax))
@@ -968,7 +975,7 @@ def _fused(name: str, x, w, bias, slope, prepared, in_absmax, out_absmax,
         if not prepared["wfrag"].permute(*_SM90_ORDER).is_contiguous():
             raise ValueError(f"{name}: prepared['wfrag'] is not in the layout of _sm90_weights")
         lib = _lib_sm90()
-        _sm90_smem_agrees(lib, k, cin, prepared["plan"], q, folded, name == "conv_pool_packed")
+        _sm90_smem_agrees(lib, k, cin, prepared["plan"], q, folded, res)
     else:
         lib = _lib()
         _smem_agrees(lib, k, k, k, prepared["plan"], q)

@@ -19,11 +19,7 @@ a block's taps fall in few cache lines for smooth flow; L2 holds both 1080p
 sources) and rounds them to bfloat16 or to the byte grid as it reads them,
 so no pass writes a rounded copy of the source first; the result is stored
 once, NHWC or planar. There is no row window, hence no bound on the flow and
-no second path for large displacements. Taking the byte grid in one packing
-pass over both frames instead (one more launch, counted as ``warp_pack``,
-whose 4-byte words the gather then reads) measured slower on the H100;
-``chip_smoke.py`` times it beside the kernel through ``_warp_cuda(...,
-pack=True)``.
+no second path for large displacements.
 
 The plain version of all three is :func:`rrin_tpu_torch.ops.warp.warp_bilinear`
 on the equally rounded source (:func:`_rounded_source`); the wrappers take it
@@ -43,8 +39,6 @@ from rrin_tpu_torch.ops.warp import warp_bilinear
 
 # pairs argument -> (launch-count name, src_kind of rrin_warp_launch)
 _VARIANTS = {False: ("warp_f32", 0), True: ("warp_bf16", 1), "u8": ("warp_u8", 2)}
-# src_kind of the byte grid read from the words of a packing pass
-_SRC_U8_WORDS = 3
 
 
 def _variant(pairs) -> Tuple[str, int]:
@@ -61,8 +55,6 @@ def _lib() -> ctypes.CDLL:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.rrin_warp_launch.argtypes = [vp] * 6 + [ci] * 7 + [cf, cf, ci, ci, ci, vp]
         lib.rrin_warp_launch.restype = ci
-        lib.rrin_pack_u8_launch.argtypes = [vp] * 4 + [ci, ctypes.c_longlong, vp]
-        lib.rrin_pack_u8_launch.restype = ci
         lib._rrin_typed = True
     return lib
 
@@ -139,15 +131,11 @@ def _check_shapes(img: torch.Tensor, flow: torch.Tensor) -> None:
 
 def _warp_cuda(
     imgs: Sequence[torch.Tensor], flows: Sequence[torch.Tensor], align_corners: bool,
-    pairs, planar_out: bool, pack: bool = False,
+    pairs, planar_out: bool,
 ) -> List[torch.Tensor]:
     """One launch that warps one frame or both frames of a pair (of one
-    shape, on one card). ``pack`` (``pairs="u8"``) takes the byte grid in a
-    packing pass over the frames first, the design measured beside this one
-    (``chip_smoke.py``); the wrappers do not take it."""
+    shape, on one card)."""
     kernel, src_kind = _variant(pairs)
-    if pack and src_kind != 2:
-        raise ValueError("pack=True packs the byte grid: it needs pairs='u8'")
     strides = [_check_cuda_inputs(img, flow) for img, flow in zip(imgs, flows)]
     flow4 = len(imgs) == 2 and _flow_halves(*flows)
     b, h, w, _ = imgs[0].shape
@@ -155,17 +143,10 @@ def _warp_cuda(
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        srcs = list(imgs)
-        if pack:
-            srcs = [torch.empty((b, h, w), dtype=torch.int32, device=dev) for _ in imgs]
-            _build.launch(
-                "warp_pack", lib.rrin_pack_u8_launch, imgs[0].data_ptr(), imgs[-1].data_ptr(),
-                srcs[0].data_ptr(), srcs[-1].data_ptr(), len(imgs), b * h * w, stream)
-            src_kind = _SRC_U8_WORDS
         shape = (b, 3, h, w) if planar_out else (b, h, w, 3)
         outs = [torch.empty(shape, dtype=torch.float32, device=dev) for _ in imgs]
         _build.launch(
-            kernel, lib.rrin_warp_launch, srcs[0].data_ptr(), srcs[-1].data_ptr(),
+            kernel, lib.rrin_warp_launch, imgs[0].data_ptr(), imgs[-1].data_ptr(),
             flows[0].data_ptr(), flows[-1].data_ptr(), outs[0].data_ptr(), outs[-1].data_ptr(),
             len(imgs), b, h, w, strides[0], strides[-1], int(flow4),
             w / max(w - 1, 1), h / max(h - 1, 1), int(bool(align_corners)),

@@ -90,7 +90,5 @@ def test_pair_argument_checks(rng):
     before = _build.launch_counts()
     with pytest.raises(RuntimeError, match="no warp kernel for device meta"):
         twk.warp_pair_kernel(*(x.to("meta") for x in (img, img, flow, flow)))
-    with pytest.raises(ValueError, match="pack"):
-        twk._warp_cuda([img], [flow], False, True, False, pack=True)
     assert _build.launch_counts() == before
-    assert before.keys() >= {"warp_u8", "warp_f32", "warp_bf16", "warp_pack"}
+    assert before.keys() >= {"warp_u8", "warp_f32", "warp_bf16"}
