@@ -11,10 +11,10 @@ and numpy; nothing else and no network. It builds the CUDA kernels of
   build        nvcc over every kernel source, in parallel
   kernels      every kernel against its plain PyTorch version on the card at
                the shapes of the 1080p paths (K6, K8 and K9 also at the 4K up
-               sites, K7 at the 4K d1c1 site), in bfloat16 and in int8, with
-               times and bounds; the K7-K9 weight-prep kernel bit-equal to
-               its plain version; the warps through warp_one and as one
-               launch per pair
+               sites, K7 at the 4K d1c1 site), in bfloat16, in int8 and in
+               float32, with times and bounds; the K7-K9 weight-prep kernel
+               bit-equal to its plain version; the warps through warp_one and
+               as one launch per pair
   serve        the main path: the default Interpolator (bfloat16, kernels,
                packed U-Net path, full model width) answering 1080p requests
   serve_4k     the same Interpolator answering 2160x3840 requests, whose up
@@ -22,10 +22,15 @@ and numpy; nothing else and no network. It builds the CUDA kernels of
   serve_int8   ``Interpolator(int8=True)``: calibration, then int8 requests
                at 1080p (beside bfloat16 ones) and one at 2160x3840
   serve_plain  one 1080p request on the plain U-Net path (``packed=False``)
-  serve_fp32   the float32 path (float32 warp kernel) and the bf16-source warp
+  serve_fp32   the float32 plain path (float32 warp kernel) at 256x448 and the
+               bf16-source warp
+  serve_fp32_packed  the default float32 Interpolator (packed: the float32
+               modes of K5, K7, K8 and K9) against the float32 plain path at
+               1080p, in turns, and one float32 request at 2160x3840 (K6)
   agreement    card (kernels) against CPU (plain versions), packed against
-               plain path on the card, int8 card against int8 CPU, and the K6
-               route at a 4K width, on one request each
+               plain path on the card, int8 card against int8 CPU, float32
+               packed card against CPU, and the K6 route at a 4K width, on
+               one request each
 
 Any failed check raises, so the exit code is non-zero and the closing lines
 are not printed. The closing lines are: the card's name and power limit, one
@@ -35,8 +40,9 @@ served paths, times measured in this run), and ``{"ok": true, "device":
 
 ``python3 chip_smoke.py --profile`` adds one phase after ``serve_plain``:
 ``torch.profiler`` traces of two 1080p requests on each U-Net path, of one
-int8 1080p request and of one bfloat16 4K request, printed as device time by
-group of kernels (where the time of a request goes).
+int8 1080p request, of one bfloat16 4K request and of one float32 1080p
+request on each U-Net path, printed as device time by group of kernels
+(where the time of a request goes).
 """
 
 from __future__ import annotations
@@ -51,7 +57,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from rrin_tpu_torch import ModelConfig, _build, init_params
+from rrin_tpu_torch import ModelConfig, _build, forward, init_params
 from rrin_tpu_torch.models.rrin import scale_quant_stats
 from rrin_tpu_torch.ops import conv_packed, conv_phase, warp_kernel
 from rrin_tpu_torch.ops.resize import avg_pool_2x, upsample_2x_bilinear
@@ -68,6 +74,9 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
 FP32_FLOPS = 67e12
+# float32-accurate products on the tensor cores: three TF32 products each
+# (the float32 modes of K5-K9), a third of the 495 TFLOP/s TF32 peak.
+F32_TENSOR_FLOPS = 495e12 / 3
 NO_INT8_LIBRARY = "no PyTorch call computes an int8 conv on CUDA"
 
 # Tolerances, fixed before any run.
@@ -101,6 +110,14 @@ INT8_STEPS = 1
 # with the same stats: the bf16 card-vs-CPU bar.
 INT8_VS_BF16_PSNR_DB = 35.0
 INT8_CARD_CPU_PSNR_DB = 40.0
+# float32 kernels against their plain versions (float32 convs without TF32 on
+# the same inputs): the reference's bar between its packed and plain float32
+# U-Nets (tests/test_unet_packed.py).
+F32_ATOL = F32_RTOL = 1e-5
+# float32 cascades against each other (packed against plain on the card,
+# card against CPU): the reference's float32 port-vs-JAX bar on the cascade
+# (tests/test_parity.py), max abs over the frame.
+F32_CASCADE_ATOL = 2e-4
 
 H1080, W1080 = 1080, 1920
 HP, WP = 1088, 1920            # 1080p padded to the /16 grid
@@ -217,12 +234,12 @@ def conv_cases(rng, dev):
 # ------------------------------------------------- kernels: K5, K7, K8, K9
 
 def _upsampled(xs):
-    return upsample_2x_bilinear(xs[0].float()).to(torch.bfloat16)
+    return upsample_2x_bilinear(xs[0].float()).to(xs[0].dtype)
 
 
 # kernel name -> (wrapper, plain version, int8 plain version, how the input of
-# the conv is materialised for the plain version and the library yardstick,
-# the host-side weight layout that prepared= takes).
+# the conv is materialised for the library yardstick, the host-side weight
+# layout that prepared= takes).
 PACKED_KERNELS = {
     "conv_packed": (
         conv_packed.conv_packed, conv_packed._conv_packed_plain,
@@ -232,20 +249,20 @@ PACKED_KERNELS = {
     "conv_pool_packed": (
         conv_packed.conv_pool_packed, conv_packed._conv_pool_plain,
         conv_packed._conv_pool_q_plain,
-        lambda xs: avg_pool_2x(xs[0].float()).to(torch.bfloat16),
-        lambda w, b, cins, *q: conv_packed.prep_conv_pool(w, b, *q)),
+        lambda xs: avg_pool_2x(xs[0].float()).to(xs[0].dtype),
+        lambda w, b, cins, *q, **kw: conv_packed.prep_conv_pool(w, b, *q, **kw)),
     "conv_up_packed": (
         conv_packed.conv_up_packed, conv_packed._conv_up_wh_plain,
         conv_packed._conv_up_q_plain, _upsampled,
-        lambda w, b, cins, *q: conv_packed.prep_conv_up(w, b, *q)),
+        lambda w, b, cins, *q, **kw: conv_packed.prep_conv_up(w, b, *q, **kw)),
     "conv_up_m_packed": (
         conv_packed.conv_up_m_packed, conv_packed._conv_up_plain,
         conv_packed._conv_up_m_q_plain, _upsampled,
-        lambda w, b, cins, *q: conv_packed.prep_conv_up_m(w, b, *q)),
+        lambda w, b, cins, *q, **kw: conv_packed.prep_conv_up_m(w, b, *q, **kw)),
     "conv_up_f_packed": (
         conv_packed.conv_up_f_packed, conv_packed._conv_up_plain,
         conv_packed._conv_up_f_q_plain, _upsampled,
-        lambda w, b, cins, *q: conv_packed.prep_conv_up_f(w, b, *q)),
+        lambda w, b, cins, *q, **kw: conv_packed.prep_conv_up_f(w, b, *q, **kw)),
 }
 
 
@@ -254,16 +271,18 @@ PACKED_KERNELS = {
 SM90 = ("conv_pool_packed", "conv_up_m_packed", "conv_up_f_packed")
 
 
-def packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope, int8=None):
+def packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope, int8=None, f32=False):
     """One site of a packed-path kernel; (h, w) is the resolution the conv
     runs at, i.e. of its output. The stored input is (2h, 2w) for the pool
     kernel and (h/2, w/2) for the upsampling kernels. ``int8``: None for
-    bfloat16, else (which operands arrive as int8 already, int8 output)."""
+    bfloat16 (``f32``: float32), else (which operands arrive as int8 already,
+    int8 output)."""
     wrapper, plain, plain_q, materialise, prepare = PACKED_KERNELS[kernel]
     hs, ws = {"conv_packed": (h, w), "conv_pool_packed": (2 * h, 2 * w)}.get(
         kernel, (h // 2, w // 2))
+    xdt = torch.float32 if f32 else torch.bfloat16
     xs = [torch.from_numpy(rng.standard_normal((1, hs, ws, c)).astype(np.float32))
-          .to(dev).to(torch.bfloat16) for c in cins]
+          .to(dev).to(xdt) for c in cins]
     cin = sum(cins)
     bound = 1.0 / np.sqrt(k * k * cin)  # the init bound of the model's convs
     wt = torch.from_numpy(
@@ -283,14 +302,16 @@ def packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope, int8=None):
         prep_q = (qarg, oax)
     else:
         qkw, prep_q = {}, ()
+    pkw = {"dtype": torch.float32} if f32 else {}
     arg = xs[0] if single else xs
-    count = kernel + ("_int8" if int8 is not None else "")
+    mode = "int8" if int8 is not None else ("f32" if f32 else "")
+    count = kernel + (f"_{mode}" if mode else "")
 
     before = _build.launch_counts()[count]
     got = wrapper(arg, wt, bias, slope, **qkw)
     torch.cuda.synchronize()
     check(_build.launch_counts()[count] == before + 1,
-          f"{name}: {kernel} did not launch its {'int8 ' if int8 else ''}kernel")
+          f"{name}: {kernel} did not launch its {mode or 'bf16'} kernel")
     if int8 is None:
         run_plain = lambda: plain(arg, wt, bias, slope)  # noqa: E731
     else:
@@ -303,8 +324,22 @@ def packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope, int8=None):
     err = float(diff.max())
     out = {"site": name, "kernel": kernel, "out_shape": [1, h, w, cout], "cins": list(cins),
            "k": k, "slope": slope, "max_abs_err": err,
-           "dtype": "bfloat16" if int8 is None else "int8"}
-    if int8 is not None:
+           "dtype": "int8" if int8 is not None else ("float32" if f32 else "bfloat16")}
+    if f32:
+        # every float32 kernel, K9's fold included, against its plain version
+        bar = F32_ATOL + F32_RTOL * want.abs()
+        check(bool((diff <= bar).all()),
+              f"{name}: float32 kernel disagrees with plain version, max abs err {err}")
+        out.update({"atol": F32_ATOL, "rtol": F32_RTOL,
+                    "max_err_over_bar": float((diff / bar).max())})
+        if kernel == "conv_up_f_packed":
+            folded = conv_packed._conv_up_f_folded(xs[0], wt, bias, slope)
+            fdiff = (got - folded).abs()
+            check(bool((fdiff <= F32_ATOL + F32_RTOL * folded.abs()).all()),
+                  f"{name}: kernel disagrees with the fold in PyTorch, max abs err "
+                  f"{float(fdiff.max())}")
+            out["max_abs_err_vs_fold"] = float(fdiff.max())
+    elif int8 is not None:
         out.update({"int8_inputs": list(int8[0]), "int8_output": int8[1]})
         if got.dtype == torch.int8:
             check(err <= INT8_STEPS, f"{name}: {err} int8 steps from the plain version")
@@ -336,22 +371,23 @@ def packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope, int8=None):
     if int8 is None:
         # The library yardstick: one F.conv2d call on the materialised input
         # (concatenated, pooled or upsampled beforehand, outside the timing),
-        # bf16 channels-last with bias, no activation; used nowhere in the port.
+        # channels-last with bias, no activation, bf16 or float32 without
+        # TF32; used nowhere in the port.
         xn = materialise(xs).permute(0, 3, 1, 2)
-        wn = wt.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-        bn = bias.to(torch.bfloat16)
+        wn = wt.to(xdt).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        bn = bias.to(xdt)
         pad = (k - 1) // 2
-        out["library_ms"] = time_ms(lambda: F.conv2d(xn, wn, bn, padding=pad))
+        with conv_phase.no_tf32():
+            out["library_ms"] = time_ms(lambda: F.conv2d(xn, wn, bn, padding=pad))
     else:
         out.update({"library_ms": None, "library_null_reason": NO_INT8_LIBRARY})
     # The kernel without the per-call weight re-layout (prepared= given).
-    prep = prepare(wt, bias, cins, *prep_q)
+    prep = prepare(wt, bias, cins, *prep_q, **pkw)
     check(torch.equal(wrapper(arg, wt, bias, slope, prepared=prep, **qkw), got),
           f"{name}: prepared= changes the result")
     out["kernel_prepared_ms"] = time_ms(
         lambda: wrapper(arg, wt, bias, slope, prepared=prep, **qkw))
-    if int8 is None and kernel in SM90:
+    if int8 is None and not f32 and kernel in SM90:
         # The weight prep that the wrapper runs on the card without
         # prepared=, against prep_* (its plain version): bit-equal.
         on_card = conv_packed._prep_on_card(kernel, wt, bias)
@@ -370,11 +406,12 @@ def packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope, int8=None):
 
     # The bytes the fused kernel must move: each stored operand once (no
     # pooled, upsampled or concatenated tensor; an int8 one at one byte an
-    # element), weights, bias, the output; int8 operations at the int8 peak.
+    # element), weights, bias, the output; int8 operations at the int8 peak,
+    # float32 ones at the float32-accurate tensor rate.
     flops = 2.0 * h * w * k * k * cin * cout
     nbytes = (sum(x.numel() * x.element_size() for x in xs) + wt.numel() * 4
               + bias.numel() * 4 + got.numel() * got.element_size())
-    peak_ops = BF16_FLOPS if int8 is None else INT8_OPS
+    peak_ops = INT8_OPS if int8 is not None else (F32_TENSOR_FLOPS if f32 else BF16_FLOPS)
     t_ops, t_bytes = flops / peak_ops * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     out.update({"bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -382,7 +419,9 @@ def packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope, int8=None):
     return out
 
 
-def packed_cases(rng, dev):
+def packed_cases(rng, dev, f32=False):
+    """Every site of the packed kernels in bfloat16, or (``f32``) the same
+    sites in float32."""
     s = ModelConfig().leaky_slope
     specs = [
         # (kernel, name, h, w, cins, cout, k, slope, launches of this site in
@@ -436,7 +475,7 @@ def packed_cases(rng, dev):
     ]
     cases = []
     for kernel, name, h, w, cins, cout, k, slope, mult in specs:
-        c = packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope)
+        c = packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope, f32=f32)
         c["per_flow_unet"] = mult
         cases.append(c)
     return cases
@@ -445,7 +484,7 @@ def packed_cases(rng, dev):
 def int8_cases(rng, dev):
     """One int8 site or more of each packed kernel, at the shapes of the int8
     requests: (which operands arrive as int8, int8 output) as the carry plan
-    of ``models.unet.carry_plan`` has them there."""
+    of ``models.unet.int8_carry`` has them there."""
     s = ModelConfig().leaky_slope
     specs = [
         ("conv_packed", "c1_flow_cin6", HP, WP, (6,), 32, 7, ((False,), True)),
@@ -455,7 +494,13 @@ def int8_cases(rng, dev):
         ("conv_pool_packed", "d2c1", HP // 4, WP // 4, (64,), 128, 3, ((True,), True)),
         ("conv_pool_packed", "d1c1_bf16_in_out", HP // 2, WP // 2, (32,), 64, 5,
          ((False,), False)),
+        # where h // 4 is no multiple of 8 (2160x3840), d1c2 and u1c2 are not
+        # carried: K7 and K8 quantise a bf16 input in their load
+        ("conv_pool_packed", "d2c1_4k_bf16_in", H4K // 4, W4K // 4, (64,), 128, 3,
+         ((False,), True)),
         ("conv_up_m_packed", "u2c1", HP // 4, WP // 4, (256,), 128, 3, ((True,), True)),
+        ("conv_up_m_packed", "u2c1_4k_bf16_in", H4K // 4, W4K // 4, (256,), 128, 3,
+         ((False,), True)),
         ("conv_up_f_packed", "u3c1", HP // 2, WP // 2, (128,), 64, 3, ((True,), True)),
         ("conv_up_f_packed", "u4c1", HP, WP, (64,), 32, 3, ((True,), True)),
         ("conv_up_packed", "u3c1_4k", H4K // 2, W4K // 2, (128,), 64, 3, ((True,), True)),
@@ -627,6 +672,32 @@ INT8_4K_PER_REQUEST = {"conv_packed_int8": 52, "conv_packed": 4, "conv_pool_pack
                        "conv_up_m_packed_int8": 4, "conv_up_packed_int8": 8, **WARP_PAIR}
 PLAIN_PER_REQUEST = {"conv_phase": 36, **WARP_PAIR}
 CALIBRATION_LAUNCHES = PLAIN_PER_REQUEST
+# float32: the float32 modes of the same kernels (weights laid out and split
+# in PyTorch, no prep launch), the float32 warp pair; on the plain path every
+# conv is F.conv2d (K1 is bfloat16 only, as in the reference).
+F32_WARP_PAIR = {"warp_f32": 1}
+FP32_PACKED_PER_REQUEST = {"conv_packed_f32": 56, "conv_pool_packed_f32": 8,
+                           "conv_up_m_packed_f32": 4, "conv_up_f_packed_f32": 8,
+                           **F32_WARP_PAIR}
+FP32_PACKED_4K_PER_REQUEST = {"conv_packed_f32": 56, "conv_pool_packed_f32": 8,
+                              "conv_up_m_packed_f32": 4, "conv_up_packed_f32": 8,
+                              **F32_WARP_PAIR}
+FP32_PLAIN_PER_REQUEST = F32_WARP_PAIR
+
+
+NO_LAUNCHES = dict.fromkeys(_build.LAUNCHES, 0)
+
+
+def counted(fn):
+    """``fn()`` with every launch count set to 0 just before it: its result
+    and the launches it made."""
+    _build.reset_launch_counts()
+    out = fn()
+    return out, _build.launch_counts()
+
+
+def summed(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in a}
 
 
 def check_launches(what, before, after, want, times=1):
@@ -715,8 +786,8 @@ def phase_serve_int8(params, dev):
                              use_pallas=True, pad_hw=(HP - H1080, 0), device=dev)
     torch.cuda.synchronize()
     calib_ms = (time.perf_counter() - t0) * 1e3
-    check_launches("int8 calibration", {k: 0 for k in _build.LAUNCHES},
-                   _build.launch_counts(), CALIBRATION_LAUNCHES)
+    check_launches("int8 calibration", NO_LAUNCHES, _build.launch_counts(),
+                   CALIBRATION_LAUNCHES)
     check(all(bool(torch.isfinite(v) and v > 0) for st in stats.values() for v in st.values()),
           "int8 calibration: a range is not finite and positive")
 
@@ -725,26 +796,30 @@ def phase_serve_int8(params, dev):
     bf = Interpolator(params, compute_dtype="bfloat16", use_pallas=True, device=dev)
     _, first_ms = serve_request(q8, pairs[0])  # calibrates, then serves
     serve_request(bf, pairs[0])  # warm-up
-    _build.reset_launch_counts()
-    ms8, ms16, agree = [], [], []
+    # Launches of the int8 requests alone, each counted from 0.
+    counts = dict(NO_LAUNCHES)
+    ms8, ms16, agree, peaks = [], [], [], []
     for p in pairs:
-        before = _build.launch_counts()
-        m8, t8 = serve_request(q8, p)
-        check_launches("serve_int8", before, _build.launch_counts(), INT8_PER_REQUEST)
+        torch.cuda.reset_peak_memory_stats()
+        (m8, t8), got = counted(lambda: serve_request(q8, p))
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        check_launches("serve_int8", NO_LAUNCHES, got, INT8_PER_REQUEST)
+        counts = summed(counts, got)
         m16, t16 = serve_request(bf, p)
         ms8.append(t8)
         ms16.append(t16)
         check(m8.shape == (1, 1, H1080, W1080, 3) and m8.std() > 1.0, "serve_int8: output")
         agree.append(_u8_agreement(m8, m16))
-    counts = _build.launch_counts()
     for a in agree:
         check(a["psnr_db"] >= INT8_VS_BF16_PSNR_DB, f"serve_int8: int8 vs bf16 {a}")
 
     # One int8 request at 4K: its own calibration, then K6 in int8.
     q8.step(moving_squares(0, H4K, W4K)).cpu()
-    before = _build.launch_counts()
-    m4k, ms4k = serve_request(q8, moving_squares(1, H4K, W4K))
-    check_launches("serve_int8 4K", before, _build.launch_counts(), INT8_4K_PER_REQUEST)
+    torch.cuda.reset_peak_memory_stats()
+    (m4k, ms4k), got = counted(lambda: serve_request(q8, moving_squares(1, H4K, W4K)))
+    peak4k = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_launches("serve_int8 4K", NO_LAUNCHES, got, INT8_4K_PER_REQUEST)
+    counts = summed(counts, got)
     check(m4k.shape == (1, 1, H4K, W4K, 3) and m4k.std() > 1.0, "serve_int8 4K: output")
     emit("serve_int8", shape=[1, 2, H1080, W1080, 3], calibration_ms=calib_ms,
          first_request_ms_with_calibration=first_ms, int8_ms_per_request=ms8,
@@ -752,8 +827,8 @@ def phase_serve_int8(params, dev):
          int8_vs_bf16_psnr_bar_db=INT8_VS_BF16_PSNR_DB,
          launches_per_request=INT8_PER_REQUEST, launches=counts,
          ms_4k_int8_request=ms4k, launches_per_4k_request=INT8_4K_PER_REQUEST,
-         peak_device_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    return _build.launch_counts()
+         peak_device_gib_per_int8_request=peaks, peak_device_gib_4k_int8_request=peak4k)
+    return counts
 
 
 def phase_serve_plain(params, dev):
@@ -778,7 +853,10 @@ def phase_serve_plain(params, dev):
     return counts
 
 
-_PACKED_MODES = {"0": "conv_packed (K5)", "1": "conv_up_packed (K6)"}
+_PACKED_MODES = {"0": "conv_packed (K5)", "1": "conv_up_packed (K6)",
+                 "2": "conv_pool_packed (K7)", "3": "conv_up_m_packed (K8)",
+                 "4": "conv_up_f_packed (K9)"}
+_PACKED_TYPES = {"__nv_bfloat16": "", "signed char": " int8", "float": " float32"}
 _SM90_MODES = {"0": "conv_up_m_packed (K8)", "1": "conv_up_f_packed (K9)",
                "2": "conv_pool_packed (K7)"}
 
@@ -786,9 +864,9 @@ _SM90_MODES = {"0": "conv_up_m_packed (K8)", "1": "conv_up_f_packed (K9)",
 def _profile_group(name: str) -> str:
     low = name.lower()
     packed = re.search(
-        r"conv_packed_kernel<\s*\d+,\s*(?:\(.*?\))?(\d+),\s*(true|false)\s*>", low)
-    if packed:  # conv_packed_kernel<NT, MODE, Q>: the mode is the entry point
-        return _PACKED_MODES[packed.group(1)] + (" int8" if packed.group(2) == "true" else "")
+        r"conv_packed_kernel<\s*\d+,\s*(?:\(.*?\))?(\d+),\s*([a-z_0-9 ]+?)\s*>", low)
+    if packed:  # conv_packed_kernel<NT, MODE, E>: the mode is the entry point
+        return _PACKED_MODES[packed.group(1)] + _PACKED_TYPES.get(packed.group(2), " ?")
     sm90 = re.search(
         r"conv_up_sm90_kernel<\s*\d+,\s*(?:\(.*?\))?(\d+),\s*(true|false)", low)
     if sm90:  # conv_up_sm90_kernel<N, MODE, Q, K>
@@ -808,12 +886,13 @@ def _profile_group(name: str) -> str:
     return "elementwise PyTorch"
 
 
-def phase_profile(params, dev, path, top: int = 12, hw=(H1080, W1080), n=2, **kw):
+def phase_profile(params, dev, path, top: int = 12, hw=(H1080, W1080), n=2,
+                  compute_dtype="bfloat16", **kw):
     """Device time of ``n`` served requests by group of kernels, on the path
     the Interpolator's keywords ``kw`` select (named ``path``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    interp = Interpolator(params, compute_dtype="bfloat16", use_pallas=True, exp=1,
+    interp = Interpolator(params, compute_dtype=compute_dtype, use_pallas=True, exp=1,
                           device=dev, **kw)
     pairs = moving_squares(0, *hw)
     serve_request(interp, pairs)
@@ -830,9 +909,13 @@ def phase_profile(params, dev, path, top: int = 12, hw=(H1080, W1080), n=2, **kw
     groups: dict = {}
     for key, ms, _ in rows:
         groups[_profile_group(key)] = groups.get(_profile_group(key), 0.0) + ms
+    torch.cuda.reset_peak_memory_stats()
+    serve_request(interp, pairs)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     # The profiler slows the host, so the idle share is taken against the
     # requests timed just before it was switched on.
-    emit("profile", path=path, shape=[1, 2, *hw, 3], requests=n,
+    emit("profile", path=path, shape=[1, 2, *hw, 3], requests=n, compute_dtype=compute_dtype,
+         peak_device_gib_one_request=peak,
          ms_per_request_unprofiled=plain_ms, device_busy_ms_per_request=busy,
          device_idle_share=max(0.0, 1.0 - busy / plain_ms),
          kernels_per_request=sum(r[2] for r in rows), by_group=groups,
@@ -868,6 +951,66 @@ def phase_serve_fp32(params, dev):
     emit("serve_fp32", shape=[1, 2, h, w, 3], compute_dtype="float32", tf32=False,
          ms_per_request=ms, launches=counts)
     return counts
+
+
+def phase_serve_fp32_packed(params, dev):
+    """The float32 serving path as the reference has it: the default float32
+    Interpolator (``packed=None`` following ``use_pallas``) runs every U-Net
+    on the float32 modes of K5, K7, K8 and K9; the float32 plain path beside
+    it, in turns, on the same pairs; then one float32 request at 2160x3840
+    (K6 at u3c1 and u4c1). Runs after ``serve_fp32``, with TF32 off."""
+    packed = Interpolator(params, compute_dtype="float32", use_pallas=True, device=dev)
+    plain = Interpolator(params, compute_dtype="float32", use_pallas=True, packed=False,
+                         device=dev)
+    check(packed.packed is None, "serve_fp32_packed: the packed default is not None")
+    pairs = [moving_squares(20 + i, H1080, W1080) for i in range(3)]
+    serve_request(packed, pairs[0])  # warm-up
+    serve_request(plain, pairs[0])
+    # Each request's launches counted from 0, summed by path.
+    counts = {"packed": dict(NO_LAUNCHES), "plain": dict(NO_LAUNCHES)}
+    ms = {"packed": [], "plain": []}
+    peaks = {"packed": [], "plain": []}
+    agree = []
+    for p in pairs:
+        outs = {}
+        for path, interp, want in (("packed", packed, FP32_PACKED_PER_REQUEST),
+                                   ("plain", plain, FP32_PLAIN_PER_REQUEST)):
+            torch.cuda.reset_peak_memory_stats()
+            (outs[path], t), got = counted(lambda: serve_request(interp, p))
+            peaks[path].append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            ms[path].append(t)
+            check_launches(f"serve_fp32_packed {path}", NO_LAUNCHES, got, want)
+            counts[path] = summed(counts[path], got)
+            check(outs[path].shape == (1, 1, H1080, W1080, 3) and outs[path].std() > 1.0,
+                  f"serve_fp32_packed {path}: output")
+        agree.append(_u8_agreement(outs["packed"], outs["plain"]))
+    for a in agree:
+        check(a["max_u8_steps"] <= 1 and a["share_differing"] < 1e-3,
+              f"serve_fp32_packed: packed against plain u8 frames {a}")
+    # The frames before rounding: forward on both U-Net paths, one pair.
+    x = torch.from_numpy(pairs[0]).to(dev).float() * (1.0 / 255.0)
+    x = F.pad(x[0].permute(0, 3, 1, 2), (0, 0, 0, HP - H1080), mode="replicate").permute(
+        0, 2, 3, 1)
+    fwd = {pk: forward(params, x[:1], x[1:], 0.5, compute_dtype=torch.float32,
+                       use_pallas=True, packed=pk, device=dev) for pk in (True, False)}
+    err = float((fwd[True] - fwd[False]).abs().max())
+    check(bool(torch.isfinite(fwd[True]).all()) and err <= F32_CASCADE_ATOL,
+          f"serve_fp32_packed: forward packed against plain max abs {err} > {F32_CASCADE_ATOL}")
+    # One float32 request at 4K: K6 in place of K9.
+    wide = moving_squares(0, H4K, W4K)
+    serve_request(packed, wide)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    (m4k, ms4k), counts_4k = counted(lambda: serve_request(packed, wide))
+    peak4k = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_launches("serve_fp32_packed 4K", NO_LAUNCHES, counts_4k, FP32_PACKED_4K_PER_REQUEST)
+    check(m4k.shape == (1, 1, H4K, W4K, 3) and m4k.std() > 1.0, "serve_fp32_packed 4K: output")
+    emit("serve_fp32_packed", shape=[1, 2, H1080, W1080, 3], compute_dtype="float32",
+         tf32=False, requests=len(pairs), ms_per_request=ms, peak_device_gib_per_request=peaks,
+         packed_vs_plain_u8=agree, forward_packed_vs_plain_max_abs=err,
+         forward_atol=F32_CASCADE_ATOL, launches_per_request=FP32_PACKED_PER_REQUEST,
+         launches=counts, ms_4k_request=ms4k, peak_device_gib_4k_request=peak4k,
+         launches_4k_request=FP32_PACKED_4K_PER_REQUEST)
+    return counts["packed"], counts_4k
 
 
 def _u8_agreement(a: np.ndarray, b: np.ndarray) -> dict:
@@ -912,6 +1055,17 @@ def phase_agreement(params, dev):
         quant_stats={u: {k: v.cpu() for k, v in st.items()} for u, st in stats.items()},
     ).step(pairs).cpu().numpy()
     out["int8"] = _u8_agreement(card_int8, cpu_int8)
+    # float32 packed (the float32 kernels) against the CPU port's plain
+    # versions: u8 frames, and the frames before rounding
+    out["float32_packed"] = _u8_agreement(run("float32", None, dev, params),
+                                          run("float32", None, "cpu", cpu_params))
+    x = torch.from_numpy(pairs).float() * (1.0 / 255.0)
+    before = _build.launch_counts()["conv_packed_f32"]
+    fwd = [forward(prm, x[:, 0], x[:, 1], 0.5, compute_dtype=torch.float32, use_pallas=True,
+                   packed=True, device=d).cpu() for prm, d in ((params, dev), (cpu_params, "cpu"))]
+    check(_build.launch_counts()["conv_packed_f32"] - before == 56,
+          "agreement: the float32 packed forward on the card did not run the float32 K5")
+    out["float32_packed"]["forward_max_abs"] = float((fwd[0] - fwd[1]).abs().max())
     # the K6 route (a width the reference sends to conv_up_packed), bfloat16
     hk, wk = K6_ROUTE_HW
     wide = moving_squares(10, hk, wk)
@@ -923,15 +1077,19 @@ def phase_agreement(params, dev):
     out["bfloat16_k6_route"] = _u8_agreement(card_k6, Interpolator(
         cpu_params, compute_dtype="bfloat16", use_pallas=True,
         device="cpu").step(wide).cpu().numpy())
-    f32 = out["float32"]
-    # the JAX package's bar between two programs computing the same frames
-    check(f32["max_u8_steps"] <= 1 and f32["share_differing"] < 1e-3,
-          f"agreement float32: {f32}")
+    # the JAX package's bars between two programs computing the same frames
+    for key in ("float32", "float32_packed"):
+        f32 = out[key]
+        check(f32["max_u8_steps"] <= 1 and f32["share_differing"] < 1e-3,
+              f"agreement {key}: {f32}")
+    check(out["float32_packed"]["forward_max_abs"] <= F32_CASCADE_ATOL,
+          f"agreement float32_packed: {out['float32_packed']}")
     for key in ("bfloat16", "bfloat16_packed", "packed_vs_plain_on_card", "bfloat16_k6_route"):
         check(out[key]["psnr_db"] >= BF16_PSNR_DB, f"agreement {key}: {out[key]}")
     check(out["int8"]["psnr_db"] >= INT8_CARD_CPU_PSNR_DB, f"agreement int8: {out['int8']}")
     emit("agreement", shape=[1, 2, h, w, 3], bf16_psnr_bar_db=BF16_PSNR_DB,
-         int8_psnr_bar_db=INT8_CARD_CPU_PSNR_DB, k6_route_shape=[1, 2, hk, wk, 3], **out)
+         int8_psnr_bar_db=INT8_CARD_CPU_PSNR_DB, float32_forward_atol=F32_CASCADE_ATOL,
+         k6_route_shape=[1, 2, hk, wk, 3], **out)
 
 
 # ------------------------------------------------------------------- summary
@@ -949,18 +1107,19 @@ TPU_KERNEL_LINES = {
 }
 
 
-def _conv_entry(name, source, cases, launches, what):
-    """One closing entry for a conv kernel: sums over its sites in one flow
-    U-Net at 1088x1920, weighted by how often each site occurs there."""
+def _conv_entry(name, source, cases, launches, what, peak_ops=BF16_FLOPS, mode=""):
+    """One closing entry for a conv kernel (``mode``: "" or "_f32"): sums
+    over its sites in one flow U-Net at 1088x1920, weighted by how often
+    each site occurs there."""
     per_unet = [c for c in cases if c["per_flow_unet"]]
 
     def total(key):
         return sum(c[key] * c["per_flow_unet"] for c in per_unet)
 
-    t_ops = total("flops") / BF16_FLOPS * 1e3
+    t_ops = total("flops") / peak_ops * 1e3
     t_bytes = total("bytes") / HBM_BYTES_PER_S * 1e3
     return {
-        "name": name, "route": "cuda", "source": source,
+        "name": name + mode, "route": "cuda", "source": source,
         "replaces": TPU_KERNEL_LINES[name], "launches": launches,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
@@ -980,18 +1139,18 @@ def _int8_entry(cases, launches):
             "sites": [{k: c[k] for k in keep} for c in cases]}
 
 
-def kernels_summary(conv, packed, int8, warps, serve_counts, counts_4k, int8_counts,
-                    plain_counts, fp32_counts):
+def kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_4k,
+                    int8_counts, plain_counts, fp32_counts, f32_counts, f32_counts_4k):
     """The per-kernel closing object: launches from the served paths (each
-    kernel from the path it belongs to), every other number measured above
-    in this run."""
+    kernel from the path it belongs to, counted from 0 over that path's
+    requests alone), every other number measured above in this run."""
     entries = [_conv_entry(
         "conv_phase", "rrin_tpu_torch/csrc/conv_phase.cu", conv,
         plain_counts["conv_phase"],
         "sum over the 9 launches of one flow U-Net at 1088x1920 (plain path)")]
     for name in ("warp_u8", "warp_f32", "warp_bf16"):
         timed = next(c for c in warps if c["kernel"] == name and "kernel_ms" in c)
-        counts = serve_counts if name == "warp_u8" else fp32_counts
+        counts = {"warp_u8": serve_counts, "warp_f32": f32_counts}.get(name, fp32_counts)
         entries.append({
             "name": name, "route": "cuda", "source": "rrin_tpu_torch/csrc/warp.cu",
             "replaces": TPU_KERNEL_LINES[name],
@@ -1028,7 +1187,28 @@ def kernels_summary(conv, packed, int8, warps, serve_counts, counts_4k, int8_cou
                                     int8_counts[f"{name}_int8"])
         check(entry["int8"]["launches"] > 0, f"{name}: no int8 launch on the int8 path")
         entries.append(entry)
-    check(len(entries) == len(TPU_KERNEL_LINES) == 9, "the closing line lists nine TPU kernels")
+    check(sorted(e["name"] for e in entries) == sorted(TPU_KERNEL_LINES),
+          "the closing line lists the nine TPU kernels")
+    for name in ("conv_packed", "conv_pool_packed", "conv_up_packed", "conv_up_m_packed",
+                 "conv_up_f_packed"):
+        # the float32 mode, on the mma.sync core, launches from serve_fp32_packed
+        cases = [c for c in packed_f32 if c["kernel"] == name]
+        k6 = name == "conv_up_packed"
+        where = "2160x3840 (its 4K request)" if k6 else "1088x1920"
+        entry = _conv_entry(
+            name, "rrin_tpu_torch/csrc/conv_packed.cu", cases,
+            (f32_counts_4k if k6 else f32_counts)[f"{name}_f32"],
+            f"float32 mode (3xTF32 on mma.sync): sum over the "
+            f"{sum(c['per_flow_unet'] for c in cases)} launches of one flow U-Net at "
+            f"{where}; launches from serve_fp32_packed; library F.conv2d float32 without TF32",
+            F32_TENSOR_FLOPS, "_f32")
+        entry["prepared_ms"] = sum(c["kernel_prepared_ms"] * c["per_flow_unet"]
+                                   for c in cases if c["per_flow_unet"])
+        entry["sites"] = [{k: c[k] for k in ("site", "out_shape", "cins", "k", "max_abs_err",
+                                             "max_err_over_bar", "kernel_ms",
+                                             "kernel_prepared_ms", "plain_ms", "library_ms",
+                                             "bound_ms", "bound_by")} for c in cases]
+        entries.append(entry)
     entries.append(_prep_entry(packed, serve_counts))
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was never launched by the path it belongs to")
@@ -1086,10 +1266,13 @@ def main() -> int:
     conv = conv_cases(rng, dev)
     packed = packed_cases(rng, dev)
     int8 = int8_cases(rng, dev)
+    packed_f32 = packed_cases(rng, dev, f32=True)
     warps = warp_cases(rng, dev)
-    emit("kernels", conv_phase=conv, conv_packed=packed, conv_packed_int8=int8, warp=warps,
+    emit("kernels", conv_phase=conv, conv_packed=packed, conv_packed_int8=int8,
+         conv_packed_f32=packed_f32, warp=warps,
          peaks={"hbm_bytes_per_s": HBM_BYTES_PER_S, "bf16_flops": BF16_FLOPS,
-                "int8_ops": INT8_OPS, "fp32_flops": FP32_FLOPS})
+                "int8_ops": INT8_OPS, "fp32_flops": FP32_FLOPS,
+                "f32_tensor_flops_3xtf32": F32_TENSOR_FLOPS})
 
     params = init_params(torch.Generator().manual_seed(0), ModelConfig(), device=dev)
     serve_counts = phase_serve(params, dev)
@@ -1102,10 +1285,16 @@ def main() -> int:
         phase_profile(params, dev, "int8", n=1, int8=True)
         phase_profile(params, dev, "packed 4K", hw=(H4K, W4K), n=1)
     fp32_counts = phase_serve_fp32(params, dev)
+    f32_counts, f32_counts_4k = phase_serve_fp32_packed(params, dev)
+    if "--profile" in sys.argv[1:]:
+        phase_profile(params, dev, "float32 packed", compute_dtype="float32", n=1)
+        phase_profile(params, dev, "float32 plain", compute_dtype="float32", n=1,
+                      packed=False)
     phase_agreement(params, dev)
 
-    summary = kernels_summary(conv, packed, int8, warps, serve_counts, counts_4k,
-                              int8_counts, plain_counts, fp32_counts)
+    summary = kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_4k,
+                              int8_counts, plain_counts, fp32_counts, f32_counts,
+                              f32_counts_4k)
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

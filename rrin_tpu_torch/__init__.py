@@ -15,8 +15,29 @@ defaults to the card; ``device="cpu"`` runs the kernels' plain versions.
 """
 
 from rrin_tpu_torch.config import ModelConfig
-from rrin_tpu_torch.models.rrin import RRIN, forward, init_params
+from rrin_tpu_torch.models.rrin import (
+    RRIN,
+    forward,
+    forward_calibrate,
+    forward_saturation,
+    init_params,
+    merge_quant_stats,
+    scale_quant_stats,
+)
 
 __version__ = "0.1.0"
 
-__all__ = ["RRIN", "ModelConfig", "init_params", "forward", "__version__"]
+# The JAX package's names but prepare_packed_params (prepare-once params,
+# ROADMAP.md Queue A item 1). forward_saturation raises NotImplementedError
+# (Queue A item 2).
+__all__ = [
+    "RRIN",
+    "ModelConfig",
+    "init_params",
+    "forward",
+    "forward_calibrate",
+    "forward_saturation",
+    "merge_quant_stats",
+    "scale_quant_stats",
+    "__version__",
+]

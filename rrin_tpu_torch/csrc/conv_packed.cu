@@ -1,30 +1,40 @@
 // The convolutions of the packed serving path on NHWC tensors: one
-// implicit-GEMM core with two load prologues, one C entry point each, in
-// bfloat16 or int8.
+// implicit-GEMM core on mma.sync with five load prologues, in bfloat16, int8
+// or float32. They replace the Pallas kernels of rrin_tpu/ops/conv_packed.py
+// named beside each (K5 _kernel_body, K6 _kernel_body_up, K7
+// _kernel_body_pool, K8 _kernel_body_up_m, K9 _kernel_body_up_f).
 //
-//   conv_packed       stride-1 SAME conv over the channel concat of 1..4
+//   conv_packed       (K5) stride-1 SAME conv over the channel concat of 1..4
 //                     operands given separately (the concat never exists in
 //                     device memory: the K-loop walks the operands);
-//   conv_up_packed    conv(upsample_2x_bilinear(x)): the block builds the
-//                     upsampled halo tile from the half-resolution tensor
-//                     while loading, interpolating along W first and then H,
-//                     and in int8 dequantising an int8 input before it
-//                     interpolates, as the reference's plain version of that
-//                     kernel does.
+//   conv_up_packed    (K6) conv(upsample_2x_bilinear(x)): the block builds
+//                     the upsampled halo tile from the half-resolution
+//                     tensor while loading, interpolating along W first and
+//                     then H, and in int8 dequantising an int8 input before
+//                     it interpolates, as the reference's plain version of
+//                     that kernel does;
+//   conv_pool_packed  (K7, float32 only) conv(avg_pool_2x(x)): the block
+//                     pools the 2x footprint of its halo tile while loading;
+//   conv_up_m_packed  (K8, float32 only) conv(upsample_2x_bilinear(x)), H
+//                     interpolated first, as upsample_2x_bilinear does;
+//   conv_up_f_packed  (K9, float32 only) the same function for k = 3 with the
+//                     W-upsample folded into per-output-parity weights on the
+//                     host: the block builds only the H-interpolated rows, at
+//                     half width, and the GEMM emits two output columns per
+//                     pixel (below).
 //
-// conv_pool_packed (conv(avg_pool_2x(x))), conv_up_m_packed and
-// conv_up_f_packed (the upsampling function of conv_up_packed) live on the
-// wgmma core of conv_up_sm90.cu.
+// In bfloat16 and int8, K7, K8 and K9 run on the wgmma core of
+// conv_up_sm90.cu; a tf32 wgmma takes both operands K-major only, which that
+// core's layout is not, so their float32 modes live here.
 //
-// bfloat16 (Q = false): bf16 operands, mma.sync.m16n8k16 with float32
-// accumulation; the epilogue adds a float32 bias and an optional LeakyReLU
-// and rounds once to bfloat16. Values built in a prologue are computed in
-// float32 and rounded once to bfloat16 (round to nearest even) as they enter
-// shared memory.
+// bfloat16: bf16 operands, mma.sync.m16n8k16 with float32 accumulation; the
+// epilogue adds a float32 bias and an optional LeakyReLU and rounds once to
+// bfloat16. Values built in a prologue are computed in float32 and rounded
+// once to bfloat16 (round to nearest even) as they enter shared memory.
 //
-// int8 (Q = true): every operand is bf16 or already int8 on its grid. The
-// prologue builds the float32 value as above (dequantising an int8 input in
-// mode UPD) and stores clip(rint(v * 127/ax), +-127) as int8 (round half to
+// int8: every operand is bf16 or already int8 on its grid. The prologue
+// builds the float32 value as above (dequantising an int8 input in mode
+// UPD) and stores clip(rint(v * 127/ax), +-127) as int8 (round half to
 // even, the reference's jnp.round); an int8 input is copied as it is in mode
 // DIRECT. The weights are int8 per output channel, pre-scaled per operand
 // on the host, so one int32 sum serves all operands; mma.sync.m16n8k32 (s8
@@ -34,24 +44,48 @@
 // reaches the kernel as a device pointer per operand: nothing is read back
 // to the host.
 //
+// float32 ("3xTF32"): the reference contracts float32 operands at full
+// float32 precision, which a single TF32 product (10 mantissa bits) misses
+// by three orders of magnitude. Every operand is split into two TF32 parts,
+// hi = rna(x) and lo = rna(x - hi); the host splits the weights once, the
+// kernel splits each activation as it loads an A fragment from the float32
+// halo tile; mma.sync.m16n8k8.tf32 sums lo_a*hi_b + hi_a*lo_b + hi_a*hi_b
+// of one k-step (the dropped lo_a*lo_b and the rounding of lo are about
+// 2^-22 of each product), which is added to a float32 accumulator with
+// round to nearest (mma_tile says why). Prologue values are float32, stored as they
+// are; the epilogue adds bias and LeakyReLU and stores float32. Three
+// products per tf32 step: the float32 modes are bound by the tensor cores'
+// float32-accurate rate, a third of the TF32 peak.
+//
 // GEMM view: M = pixels, N = channels per pixel of the output, K = taps x
-// input channels (KK = 16 bf16 or 32 int8 per mma):
+// input channels (KK = 16 bf16, 32 int8 or 8 float32 per mma, 32 bytes):
 //   * a block computes 8 rows x 32 columns of pixels for one block of NT*8
 //     <= 64 output channels (blockIdx.z walks batch x channel blocks); warp
 //     w owns row w as two m-tiles of 16 consecutive pixels;
 //   * input channels are walked operand by operand in chunks of at most 64
-//     (bf16) or 128 (int8); for each chunk the halo tile
+//     (bf16), 128 (int8) or 32 (float32); for each chunk the halo tile
 //     (8+ky-1) x (32+kx-1) x chunk is staged in shared memory (zero outside
 //     the image: SAME padding at the resolution the conv runs at), each
 //     pixel padded by 16 bytes so the eight pixel rows of an A fragment fall
 //     on distinct banks. An A fragment's four registers lie at the same byte
-//     offsets in both element types;
+//     offsets in all three element types (a tf32 k8 fragment holds one
+//     element a register where a bf16 k16 fragment holds two);
 //   * the weights arrive in B-fragment order
 //     [channel block][chunk][dy][tap][k-step][n-tile][lane] (one uint2 a
-//     lane) and are streamed into shared memory one dy row at a time.
+//     lane; float32: one uint4, the hi pair then the lo pair) and are
+//     streamed into shared memory one dy row at a time.
 // Redundant halo loads across channel blocks and neighbouring tiles are
 // served by the L2 cache. Ragged edges are masked at the store; nothing
 // assumes W % 32 or H % 8.
+//
+// The folded mode (K9): along W, conv3(upsample(s)) at output column 2j + r
+// is a 3-tap stencil on half-resolution columns j-1, j, j+1 with weights
+// that depend on the parity r, so the GEMM runs on (row, j) pixels with N =
+// (r, cout) and the output tensor (B, 2Hs, Ws, 2*cout) is the NHWC result
+// (B, 2Hs, 2Ws, cout) byte for byte. The stencil assumes s[-1] = s[Ws] = 0
+// where the upsample clamps; the exact difference is a product of the edge
+// pixel's values with two more weight taps (3: left, 4: right), which the
+// warps holding column 0 or Ws-1 add with a row-masked A fragment.
 //
 // Plain C entry points; each returns cudaGetLastError() after the launch,
 // runs on the given stream, allocates nothing and does not synchronise.
@@ -73,7 +107,29 @@ constexpr int THREADS = TH * 32;
 constexpr int PAD_BYTES = 16;    // padding per halo pixel
 constexpr int MAX_OPS = 4;       // operands of one conv_packed call
 
-enum Mode { DIRECT = 0, UPD = 1 };
+enum Mode { DIRECT = 0, UPD = 1, POOL = 2, UP_M = 3, UP_F = 4 };
+
+// Element types as the entry points name them (dt).
+enum Dt { BF16 = 0, S8 = 1, F32 = 2 };
+
+// Per element type: the accumulator, one lane's B fragment of one n-tile
+// and k-step, and the channels of one k-step (32 bytes each).
+template <typename E> struct Elem;
+template <> struct Elem<__nv_bfloat16> {
+  using Acc = float;
+  using BFrag = uint2;
+  static constexpr int KK = 16;
+};
+template <> struct Elem<int8_t> {
+  using Acc = int;
+  using BFrag = uint2;
+  static constexpr int KK = 32;
+};
+template <> struct Elem<float> {
+  using Acc = float;
+  using BFrag = uint4;  // tf32 hi of rows tig, tig + 4, then their lo parts
+  static constexpr int KK = 8;
+};
 
 struct ConvArgs {
   const void* x[MAX_OPS];
@@ -82,7 +138,7 @@ struct ConvArgs {
   int in_i8[MAX_OPS];  // int8 mode: the operand is int8 on its grid already
   const float* ax[MAX_OPS];  // int8 mode: its calibrated |x| maximum
   int n_ops;
-  const uint2* wfrag;
+  const void* wfrag;
   const float* bias;
   const float* scale;  // int8 mode: per output channel
   void* out;
@@ -91,7 +147,7 @@ struct ConvArgs {
   int Hs, Ws;        // rows and columns of the stored operands
   int cout;          // channels per GEMM pixel of the output
   int ky, kx;        // taps that slide in y and in x
-  int ntaps;         // weight taps per dy row (kx)
+  int ntaps;         // weight taps per dy row (kx, + 2 edge taps when folded)
   int cchunk, total_chunks, n_cb;
   int has_slope;
   float slope;
@@ -111,40 +167,135 @@ __device__ __forceinline__ void mma_m16n8k32_s8(int (&c)[4], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
 }
 
-__device__ __forceinline__ void mma_tile(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint2 b) {
-  mma_m16n8k16_bf16(c, a, b);
+// tf32 x tf32 -> f32 tensor-core product, one element a register:
+//   A (16 x 8):  a0 = A[g][tig]   a1 = A[g + 8][tig]
+//                a2 = A[g][tig + 4]   a3 = A[g + 8][tig + 4]
+//   B (8 x 8):   b0 = B[tig][g]   b1 = B[tig + 4][g]
+//   C (16 x 8):  as mma_m16n8k16_bf16's.
+// Each register sits at the byte offset of the bf16 k16 fragment's.
+__device__ __forceinline__ void mma_m16n8k8_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                                 uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void mma_tile(int (&c)[4], const uint32_t (&a)[4],
-                                         const uint2 b) {
-  mma_m16n8k32_s8(c, a, b);
+// x rounded to tf32 (nearest, ties away from zero), as a float32 bit pattern.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// One m-tile's A operand: the four registers as read from the halo tile; in
+// float32 they hold the tf32 hi parts and lo the lo parts.
+struct AFrag {
+  uint32_t r[4];
+  uint32_t lo[4];
+};
+
+template <typename E>
+__device__ __forceinline__ AFrag load_a(const unsigned char* p, int pstride) {
+  AFrag f;
+  f.r[0] = *reinterpret_cast<const uint32_t*>(p);
+  f.r[1] = *reinterpret_cast<const uint32_t*>(p + 8 * pstride);
+  f.r[2] = *reinterpret_cast<const uint32_t*>(p + 16);
+  f.r[3] = *reinterpret_cast<const uint32_t*>(p + 8 * pstride + 16);
+  if constexpr (std::is_same<E, float>::value) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x = __uint_as_float(f.r[i]);
+      f.r[i] = tf32_rna(x);
+      f.lo[i] = tf32_rna(__fsub_rn(x, __uint_as_float(f.r[i])));
+    }
+  }
+  return f;
+}
+
+// The fragment with only rows g (keep_g) and g + 8 (keep_g8) kept.
+__device__ __forceinline__ AFrag row_masked(const AFrag& f, bool keep_g, bool keep_g8) {
+  AFrag e;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool keep = (i & 1) ? keep_g8 : keep_g;
+    e.r[i] = keep ? f.r[i] : 0u;
+    e.lo[i] = keep ? f.lo[i] : 0u;
+  }
+  return e;
+}
+
+__device__ __forceinline__ void mma_tile(float (&c)[4], const AFrag& a, const uint2 b) {
+  mma_m16n8k16_bf16(c, a.r, b);
+}
+
+__device__ __forceinline__ void mma_tile(int (&c)[4], const AFrag& a, const uint2 b) {
+  mma_m16n8k32_s8(c, a.r, b);
+}
+
+// 3xTF32, the small products first, summed from zero on the tensor cores
+// and added to the accumulator with round to nearest: the tensor cores add
+// to their accumulator by truncation, which over the hundreds of k-steps of
+// a wide conv sums to a bias of about one float32 step of the result a
+// step (1e-4 at K = 4608 in a first version that accumulated on them).
+__device__ __forceinline__ void mma_tile(float (&c)[4], const AFrag& a, const uint4 b) {
+  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_m16n8k8_tf32(t, a.lo, b.x, b.y);
+  mma_m16n8k8_tf32(t, a.r, b.z, b.w);
+  mma_m16n8k8_tf32(t, a.r, b.x, b.y);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] = __fadd_rn(c[i], t[i]);
+}
+
+// Eight channels of one stored pixel as float32 (int8 mode: times `pre`).
+template <typename E>
+__device__ __forceinline__ F8 tap(const void* xb, int i8, int cs, int Ws, int y, int x, int c,
+                                  float pre) {
+  if constexpr (std::is_same<E, float>::value)
+    return load8_f32(static_cast<const float*>(xb), cs, Ws, y, x, c);
+  else
+    return tap8<std::is_same<E, int8_t>::value>(xb, i8, cs, Ws, y, x, c, pre);
 }
 
 // Eight channels of the pixel (gy, gx) that the GEMM reads, inside the image,
-// as float32: as stored, or upsampled in both axes (W first, then H: the
-// order of the reference's K6).
-template <int MODE, bool Q>
+// as float32: as stored; pooled 2x2; upsampled in both axes, W first and then
+// H (K6, the order of the reference's upsample_2x_packed) or H first (K8, the
+// order of upsample_2x_bilinear); or interpolated along H only (K9).
+template <int MODE, typename E>
 __device__ __forceinline__ F8 construct8(const void* xb, int i8, int cs, int Hs, int Ws,
                                          int gy, int gx, int c, float pre) {
-  if (MODE == DIRECT) return tap8<Q>(xb, i8, cs, Ws, gy, gx, c, pre);
-  const int yn = gy >> 1, yf = far_tap(gy, Hs);
-  const int xn = gx >> 1, xf = far_tap(gx, Ws);
-  const F8 wf = lerp8(tap8<Q>(xb, i8, cs, Ws, yf, xf, c, pre),
-                      tap8<Q>(xb, i8, cs, Ws, yf, xn, c, pre));
-  const F8 wn = lerp8(tap8<Q>(xb, i8, cs, Ws, yn, xf, c, pre),
-                      tap8<Q>(xb, i8, cs, Ws, yn, xn, c, pre));
-  return lerp8(wf, wn);
+  auto t = [&](int y, int x) { return tap<E>(xb, i8, cs, Ws, y, x, c, pre); };
+  if constexpr (MODE == DIRECT) {
+    return t(gy, gx);
+  } else if constexpr (MODE == POOL) {
+    return avg4_8(t(2 * gy, 2 * gx), t(2 * gy, 2 * gx + 1), t(2 * gy + 1, 2 * gx),
+                  t(2 * gy + 1, 2 * gx + 1));
+  } else {
+    const int yn = gy >> 1, yf = far_tap(gy, Hs);
+    if constexpr (MODE == UP_F) {
+      return lerp8(t(yf, gx), t(yn, gx));
+    } else {
+      const int xn = gx >> 1, xf = far_tap(gx, Ws);
+      if constexpr (MODE == UP_M)
+        return lerp8(lerp8(t(yf, xf), t(yn, xf)), lerp8(t(yf, xn), t(yn, xn)));
+      else
+        return lerp8(lerp8(t(yf, xf), t(yf, xn)), lerp8(t(yn, xf), t(yn, xn)));
+    }
+  }
 }
 
 // At most 128 registers a thread, so that two blocks fit a multiprocessor and
 // one block's tensor-core work covers the other's loads and barriers; with
 // one block resident the kernel runs markedly slower on an H100.
-template <int NT, int MODE, bool Q>
+template <int NT, int MODE, typename E>
 __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs a) {
-  using Acc = typename std::conditional<Q, int, float>::type;
-  constexpr int ES = Q ? 1 : 2;    // bytes per staged element
-  constexpr int KK = Q ? 32 : 16;  // channels per mma step
+  using Acc = typename Elem<E>::Acc;
+  using BFrag = typename Elem<E>::BFrag;
+  constexpr bool Q = std::is_same<E, int8_t>::value;
+  constexpr bool F = std::is_same<E, float>::value;
+  constexpr int ES = sizeof(E);         // bytes per staged element
+  constexpr int KK = Elem<E>::KK;       // channels per mma step
   extern __shared__ __align__(16) unsigned char smem[];
   const int hpy = (a.ky - 1) / 2;
   const int hpx = (a.kx - 1) / 2;
@@ -153,10 +304,11 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
   const int cchunk = a.cchunk;
   const int pstride = cchunk * ES + PAD_BYTES;  // bytes per halo pixel
   const int kc_count = cchunk / KK;
-  const int tap_elems = kc_count * NT * 32;  // uint2 per (chunk, dy, tap)
+  const int tap_elems = kc_count * NT * 32;  // BFrag per (chunk, dy, tap)
   const int wrow_elems = a.ntaps * tap_elems;
   unsigned char* halo = smem;
-  uint2* wrow = reinterpret_cast<uint2*>(smem + static_cast<size_t>(hh) * hw * pstride);
+  BFrag* wrow = reinterpret_cast<BFrag*>(smem + static_cast<size_t>(hh) * hw * pstride);
+  const BFrag* wfrag = static_cast<const BFrag*>(a.wfrag);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -182,7 +334,7 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
     const int cs = a.cs[op];
     const int i8 = Q ? a.in_i8[op] : 0;
     const void* xb = static_cast<const unsigned char*>(a.x[op]) +
-                     b * a.Hs * a.Ws * cs * (i8 ? 1 : 2);
+                     b * a.Hs * a.Ws * cs * (i8 ? 1 : (F ? 4 : 2));
     // int8 mode: bf16 values are taken to the grid by 127/ax after the
     // prologue; mode UPD dequantises an int8 input first.
     float pre = 1.0f, post = 1.0f;
@@ -201,7 +353,7 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
       const int c_base = ch * cchunk;
       __syncthreads();  // the previous chunk's fragments are all read
       if (MODE != DIRECT || ((cin & 7) == 0 && (cs & 7) == 0)) {
-        // 8 channels at a time (16 bytes of bf16, 8 of int8).
+        // 8 channels at a time (16 bytes of bf16, 8 of int8, 32 of float32).
         const int v_per_pix = cchunk >> 3;
         const int total = hh * hw * v_per_pix;
         for (int i = tid; i < total; i += THREADS) {
@@ -212,17 +364,21 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
           const int c = c_base + v * 8;
           const bool inside = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && c < cin;
           unsigned char* dst = halo + pix * pstride + v * 8 * ES;
-          if (Q) {
+          if constexpr (Q) {
             uint2 val = make_uint2(0u, 0u);
             if (inside) {
               if (MODE == DIRECT && i8)
                 val = __ldg(reinterpret_cast<const uint2*>(
                     static_cast<const int8_t*>(xb) + pix_off(cs, a.Ws, gy, gx, c)));
               else
-                val = quant8(construct8<MODE, Q>(xb, i8, cs, a.Hs, a.Ws, gy, gx, c, pre),
+                val = quant8(construct8<MODE, E>(xb, i8, cs, a.Hs, a.Ws, gy, gx, c, pre),
                              post);
             }
             *reinterpret_cast<uint2*>(dst) = val;
+          } else if constexpr (F) {
+            F8 val = {};
+            if (inside) val = construct8<MODE, E>(xb, 0, cs, a.Hs, a.Ws, gy, gx, c, pre);
+            store8_f32(dst, val);
           } else {
             uint4 val = make_uint4(0u, 0u, 0u, 0u);
             if (inside) {
@@ -230,7 +386,7 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
                 val = __ldg(reinterpret_cast<const uint4*>(
                     static_cast<const __nv_bfloat16*>(xb) + pix_off(cs, a.Ws, gy, gx, c)));
               else
-                val = pack8(construct8<MODE, Q>(xb, i8, cs, a.Hs, a.Ws, gy, gx, c, pre));
+                val = pack8(construct8<MODE, E>(xb, i8, cs, a.Hs, a.Ws, gy, gx, c, pre));
             }
             *reinterpret_cast<uint4*>(dst) = val;
           }
@@ -246,21 +402,22 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
           const bool inside =
               gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && c_base + c < cin;
           unsigned char* dst = halo + pix * pstride;
-          if (Q) {
+          const size_t off = inside ? pix_off(cs, a.Ws, gy, gx, c_base + c) : 0;
+          if constexpr (Q) {
             int8_t val = 0;
-            if (inside) {
-              const size_t off = pix_off(cs, a.Ws, gy, gx, c_base + c);
+            if (inside)
               val = i8 ? static_cast<const int8_t*>(xb)[off]
                        : static_cast<int8_t>(quant1(
                              __bfloat162float(static_cast<const __nv_bfloat16*>(xb)[off]),
                              post));
-            }
             reinterpret_cast<int8_t*>(dst)[c] = val;
+          } else if constexpr (F) {
+            float val = 0.0f;
+            if (inside) val = static_cast<const float*>(xb)[off];
+            reinterpret_cast<float*>(dst)[c] = val;
           } else {
             __nv_bfloat16 val = __float2bfloat16_rn(0.0f);
-            if (inside)
-              val = static_cast<const __nv_bfloat16*>(xb)[pix_off(cs, a.Ws, gy, gx,
-                                                                   c_base + c)];
+            if (inside) val = static_cast<const __nv_bfloat16*>(xb)[off];
             reinterpret_cast<__nv_bfloat16*>(dst)[c] = val;
           }
         }
@@ -268,32 +425,50 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
 
       for (int dy = 0; dy < a.ky; ++dy) {
         __syncthreads();  // halo tile written; previous weight row consumed
-        const uint2* wsrc =
-            a.wfrag +
-            (static_cast<size_t>(cb * a.total_chunks + gch) * a.ky + dy) * wrow_elems;
+        const BFrag* wsrc =
+            wfrag + (static_cast<size_t>(cb * a.total_chunks + gch) * a.ky + dy) * wrow_elems;
         for (int i = tid; i < wrow_elems; i += THREADS) wrow[i] = __ldg(wsrc + i);
         __syncthreads();
 
         const unsigned char* arow = halo + (warp + dy) * hw * pstride;
         for (int dx = 0; dx < a.kx; ++dx) {
           for (int kc = 0; kc < kc_count; ++kc) {
-            // The A registers lie at the same byte offsets for both element
-            // types: KK elements are 32 bytes, a register 4.
-            uint32_t af[2][4];
+            // KK channels are 32 bytes in every element type, a register 4.
+            AFrag af[2];
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              const unsigned char* p = arow + (mt * 16 + g + dx) * pstride + kc * 32 + tig * 4;
-              af[mt][0] = *reinterpret_cast<const uint32_t*>(p);
-              af[mt][1] = *reinterpret_cast<const uint32_t*>(p + 8 * pstride);
-              af[mt][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-              af[mt][3] = *reinterpret_cast<const uint32_t*>(p + 8 * pstride + 16);
-            }
-            const uint2* bp = wrow + dx * tap_elems + kc * NT * 32 + lane;
+            for (int mt = 0; mt < 2; ++mt)
+              af[mt] = load_a<E>(arow + (mt * 16 + g + dx) * pstride + kc * 32 + tig * 4,
+                                 pstride);
+            const BFrag* bp = wrow + dx * tap_elems + kc * NT * 32 + lane;
 #pragma unroll
             for (int nt = 0; nt < NT; ++nt) {
-              const uint2 bfrag = bp[nt * 32];
+              const BFrag bfrag = bp[nt * 32];
               mma_tile(acc[0][nt], af[0], bfrag);
               mma_tile(acc[1][nt], af[1], bfrag);
+            }
+            if constexpr (MODE == UP_F) {
+              if (dx == 1) {
+                // The centre tap's fragment holds s[row][j] itself: keep only
+                // the edge pixel's row and multiply by the edge taps. The
+                // conditions are uniform over the warp.
+#pragma unroll
+                for (int mt = 0; mt < 2; ++mt) {
+                  const int xs = x0 + mt * 16;  // column of fragment row 0
+                  if (xs == 0) {
+                    const AFrag e = row_masked(af[mt], g == 0, false);
+                    const BFrag* ep = wrow + 3 * tap_elems + kc * NT * 32 + lane;
+#pragma unroll
+                    for (int nt = 0; nt < NT; ++nt) mma_tile(acc[mt][nt], e, ep[nt * 32]);
+                  }
+                  const int r = a.W - 1 - xs;  // fragment row of the last column
+                  if (r >= 0 && r < 16) {
+                    const AFrag e = row_masked(af[mt], g == r, g + 8 == r);
+                    const BFrag* ep = wrow + 4 * tap_elems + kc * NT * 32 + lane;
+#pragma unroll
+                    for (int nt = 0; nt < NT; ++nt) mma_tile(acc[mt][nt], e, ep[nt * 32]);
+                  }
+                }
+              }
             }
           }
         }
@@ -340,6 +515,14 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
             op[co] = static_cast<int8_t>(q0);
             if (has1) op[co + 1] = static_cast<int8_t>(q1);
           }
+        } else if (F) {
+          float* op = static_cast<float*>(a.out) + obase;
+          if (pair_store) {
+            *reinterpret_cast<float2*>(op + co) = make_float2(v0, v1);
+          } else {
+            op[co] = v0;
+            if (has1) op[co + 1] = v1;
+          }
         } else {
           __nv_bfloat16* op = static_cast<__nv_bfloat16*>(a.out) + obase;
           if (pair_store) {
@@ -354,41 +537,49 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
   }
 }
 
-long long smem_bytes(int ky, int kx, int ntaps, int cchunk, int n_tiles, int q) {
-  const int es = q ? 1 : 2, kk = q ? 32 : 16;
+long long smem_bytes(int ky, int kx, int ntaps, int cchunk, int n_tiles, int dt) {
+  const int es = dt == S8 ? 1 : (dt == F32 ? 4 : 2);
+  const int kk = 32 / es;
+  const int bfrag = dt == F32 ? 16 : 8;
   const long long halo =
       static_cast<long long>(TH + ky - 1) * (TW + kx - 1) * (cchunk * es + PAD_BYTES);
-  const long long wrow = static_cast<long long>(ntaps) * (cchunk / kk) * n_tiles * 32 * 8;
+  const long long wrow =
+      static_cast<long long>(ntaps) * (cchunk / kk) * n_tiles * 32 * bfrag;
   return halo + wrow;
 }
 
-template <int NT, int MODE, bool Q>
+template <int NT, int MODE, typename E>
 int launch_one(const ConvArgs& a, int B, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(conv_packed_kernel<NT, MODE, Q>,
+  cudaError_t err = cudaFuncSetAttribute(conv_packed_kernel<NT, MODE, E>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((a.W + TW - 1) / TW, (a.H + TH - 1) / TH, B * a.n_cb);
-  conv_packed_kernel<NT, MODE, Q><<<grid, THREADS, smem, stream>>>(a);
+  conv_packed_kernel<NT, MODE, E><<<grid, THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MODE, bool Q>
+template <int MODE, typename E>
 int launch_nt(const ConvArgs& a, int B, int n_tiles, size_t smem, cudaStream_t s) {
   switch (n_tiles) {
-    case 1: return launch_one<1, MODE, Q>(a, B, smem, s);
-    case 2: return launch_one<2, MODE, Q>(a, B, smem, s);
-    case 4: return launch_one<4, MODE, Q>(a, B, smem, s);
-    case 8: return launch_one<8, MODE, Q>(a, B, smem, s);
+    case 1: return launch_one<1, MODE, E>(a, B, smem, s);
+    case 2: return launch_one<2, MODE, E>(a, B, smem, s);
+    case 4: return launch_one<4, MODE, E>(a, B, smem, s);
+    case 8: return launch_one<8, MODE, E>(a, B, smem, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// K5 and K6 in every element type; the float32-only modes K7, K8 and K9
+// in float32.
 template <int MODE>
-int launch_mode(ConvArgs a, int B, int n_tiles, int q, void* stream) {
+int launch_mode(ConvArgs a, int B, int n_tiles, int dt, void* stream) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  constexpr bool every_type = MODE == DIRECT || MODE == UPD;
+  if (dt != F32 && (!every_type || (dt != BF16 && dt != S8))) return invalid;
   if (B <= 0 || a.H <= 0 || a.W <= 0) return 0;
-  const int kk = q ? 32 : 16;
+  const bool q = dt == S8;
+  const int kk = dt == S8 ? 32 : (dt == F32 ? 8 : 16);
   if (a.ky < 1 || (a.ky & 1) == 0 || a.kx < 1 || (a.kx & 1) == 0 || a.cchunk < kk ||
       a.cchunk % kk || a.cout < 1 || a.n_ops < 1 || a.n_ops > MAX_OPS ||
       (q && !a.scale) || (!q && a.out_i8))
@@ -396,7 +587,7 @@ int launch_mode(ConvArgs a, int B, int n_tiles, int q, void* stream) {
   a.total_chunks = 0;
   for (int i = 0; i < a.n_ops; ++i) {
     if (a.c[i] < 1 || a.cs[i] < a.c[i] || (q ? !a.ax[i] : a.in_i8[i] != 0)) return invalid;
-    // The upsampling prologue loads 8 channels at once.
+    // The resampling prologues load 8 channels at once.
     if (MODE != DIRECT && ((a.c[i] & 7) || (a.cs[i] & 7))) return invalid;
     a.total_chunks += (a.c[i] + a.cchunk - 1) / a.cchunk;
   }
@@ -404,13 +595,16 @@ int launch_mode(ConvArgs a, int B, int n_tiles, int q, void* stream) {
   if (static_cast<long long>(B) * a.n_cb > 65535 || (a.H + TH - 1) / TH > 65535)
     return invalid;
   const size_t smem =
-      static_cast<size_t>(smem_bytes(a.ky, a.kx, a.ntaps, a.cchunk, n_tiles, q));
+      static_cast<size_t>(smem_bytes(a.ky, a.kx, a.ntaps, a.cchunk, n_tiles, dt));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return q ? launch_nt<MODE, true>(a, B, n_tiles, smem, s)
-           : launch_nt<MODE, false>(a, B, n_tiles, smem, s);
+  if constexpr (every_type) {
+    if (dt == S8) return launch_nt<MODE, int8_t>(a, B, n_tiles, smem, s);
+    if (dt == BF16) return launch_nt<MODE, __nv_bfloat16>(a, B, n_tiles, smem, s);
+  }
+  return launch_nt<MODE, float>(a, B, n_tiles, smem, s);
 }
 
-// The arguments of the fused entry point: one operand x of c channels.
+// The arguments of the fused entry points: one operand x of c channels.
 ConvArgs fused_args(const void* x, int c, int in_i8, const void* ax, const void* wfrag,
                     const void* bias, const void* scale, void* out, int out_i8, int H,
                     int W, int Hs, int Ws, int cout, int ky, int kx, int ntaps, int cchunk,
@@ -422,7 +616,7 @@ ConvArgs fused_args(const void* x, int c, int in_i8, const void* ax, const void*
   a.in_i8[0] = in_i8;
   a.ax[0] = static_cast<const float*>(ax);
   a.n_ops = 1;
-  a.wfrag = static_cast<const uint2*>(wfrag);
+  a.wfrag = wfrag;
   a.bias = static_cast<const float*>(bias);
   a.scale = static_cast<const float*>(scale);
   a.out = out;
@@ -438,18 +632,20 @@ ConvArgs fused_args(const void* x, int c, int in_i8, const void* ax, const void*
 
 }  // namespace
 
-// Every entry point takes, beside its tensors: q (0 bfloat16, 1 int8); in
-// int8 mode in_i8 (the operand is int8 on its grid), ax (device pointer to
-// the operand's float32 calibrated |x| maximum), scale (cout float32, the
-// int32 sum's dequantisation, 127/ax_out folded in when out_i8) and out_i8
-// (store int8 instead of bf16). wfrag holds bf16 or int8 weights in fragment
-// order (see the file head) for chunks of cchunk channels per operand and
-// blocks of n_tiles*8 output channels; bias is float32.
+// The float32-only entry points (suffix _f32) take their tensors, shapes,
+// plan and slope. The others take, beside these: dt (0 bfloat16, 1 int8, 2
+// float32); in int8 mode in_i8 (the operand is int8 on its grid), ax
+// (device pointer to the operand's float32 calibrated |x| maximum), scale
+// (cout float32, the int32 sum's dequantisation, 127/ax_out folded in when
+// out_i8) and out_i8 (store int8 instead of bf16). wfrag holds bf16, int8 or split float32 weights in
+// fragment order (see the file head) for chunks of cchunk channels per
+// operand and blocks of n_tiles*8 output channels; bias is float32. A
+// float32 call stores float32.
 extern "C" {
 
 // Shared memory one block needs, in bytes (also used by the Python planner).
-long long rrin_conv_packed_smem(int ky, int kx, int ntaps, int cchunk, int n_tiles, int q) {
-  return smem_bytes(ky, kx, ntaps, cchunk, n_tiles, q);
+long long rrin_conv_packed_smem(int ky, int kx, int ntaps, int cchunk, int n_tiles, int dt) {
+  return smem_bytes(ky, kx, ntaps, cchunk, n_tiles, dt);
 }
 
 // xs: n_ops pointers to (B,H,W,strides[i]) NHWC tensors of which the first
@@ -458,7 +654,7 @@ int rrin_conv_packed_launch(const void* const* xs, const int* cs, const int* str
                             const int* in_i8, const void* const* ax, int n_ops,
                             const void* wfrag, const void* bias, const void* scale,
                             void* out, int out_i8, int B, int H, int W, int cout, int k,
-                            int cchunk, int n_tiles, int has_slope, float slope, int q,
+                            int cchunk, int n_tiles, int has_slope, float slope, int dt,
                             void* stream) {
   if (n_ops < 1 || n_ops > MAX_OPS) return static_cast<int>(cudaErrorInvalidValue);
   ConvArgs a = {};
@@ -470,7 +666,7 @@ int rrin_conv_packed_launch(const void* const* xs, const int* cs, const int* str
     a.ax[i] = static_cast<const float*>(ax[i]);
   }
   a.n_ops = n_ops;
-  a.wfrag = static_cast<const uint2*>(wfrag);
+  a.wfrag = wfrag;
   a.bias = static_cast<const float*>(bias);
   a.scale = static_cast<const float*>(scale);
   a.out = out;
@@ -481,7 +677,7 @@ int rrin_conv_packed_launch(const void* const* xs, const int* cs, const int* str
   a.cchunk = cchunk;
   a.has_slope = has_slope;
   a.slope = slope;
-  return launch_mode<DIRECT>(a, B, n_tiles, q, stream);
+  return launch_mode<DIRECT>(a, B, n_tiles, dt, stream);
 }
 
 // x: (B,Hs,Ws,c) half resolution; out: (B,2Hs,2Ws,cout) =
@@ -490,12 +686,50 @@ int rrin_conv_packed_launch(const void* const* xs, const int* cs, const int* str
 int rrin_conv_up_packed_launch(const void* x, int c, int in_i8, const void* ax,
                                const void* wfrag, const void* bias, const void* scale,
                                void* out, int out_i8, int B, int Hs, int Ws, int cout, int k,
-                               int cchunk, int n_tiles, int has_slope, float slope, int q,
+                               int cchunk, int n_tiles, int has_slope, float slope, int dt,
                                void* stream) {
   return launch_mode<UPD>(
       fused_args(x, c, in_i8, ax, wfrag, bias, scale, out, out_i8, 2 * Hs, 2 * Ws, Hs, Ws,
                  cout, k, k, k, cchunk, has_slope, slope),
-      B, n_tiles, q, stream);
+      B, n_tiles, dt, stream);
+}
+
+// float32 only. x: (B,2H,2W,c) full resolution; out: (B,H,W,cout) =
+// conv_k(avg_pool_2x(x)).
+int rrin_conv_pool_packed_f32_launch(const void* x, int c, const void* wfrag,
+                                     const void* bias, void* out, int B, int H, int W,
+                                     int cout, int k, int cchunk, int n_tiles, int has_slope,
+                                     float slope, void* stream) {
+  return launch_mode<POOL>(
+      fused_args(x, c, 0, nullptr, wfrag, bias, nullptr, out, 0, H, W, 2 * H, 2 * W, cout,
+                 k, k, k, cchunk, has_slope, slope),
+      B, n_tiles, F32, stream);
+}
+
+// float32 only. x: (B,Hs,Ws,c) half resolution; out: (B,2Hs,2Ws,cout) =
+// conv_k(upsample_2x_bilinear(x)), H interpolated first.
+int rrin_conv_up_m_packed_f32_launch(const void* x, int c, const void* wfrag,
+                                     const void* bias, void* out, int B, int Hs, int Ws,
+                                     int cout, int k, int cchunk, int n_tiles, int has_slope,
+                                     float slope, void* stream) {
+  return launch_mode<UP_M>(
+      fused_args(x, c, 0, nullptr, wfrag, bias, nullptr, out, 0, 2 * Hs, 2 * Ws, Hs, Ws,
+                 cout, k, k, k, cchunk, has_slope, slope),
+      B, n_tiles, F32, stream);
+}
+
+// float32 only. x: (B,Hs,Ws,c) half resolution; out: (B,2Hs,2Ws,cout) =
+// conv_3(upsample_2x_bilinear(x)); wfrag holds the folded weights with five
+// taps per dy row and 2*cout output channels, bias is 2*cout long (see the
+// file head).
+int rrin_conv_up_f_packed_f32_launch(const void* x, int c, const void* wfrag,
+                                     const void* bias, void* out, int B, int Hs, int Ws,
+                                     int cout, int cchunk, int n_tiles, int has_slope,
+                                     float slope, void* stream) {
+  return launch_mode<UP_F>(
+      fused_args(x, c, 0, nullptr, wfrag, bias, nullptr, out, 0, 2 * Hs, Ws, Hs, Ws,
+                 2 * cout, 3, 3, 5, cchunk, has_slope, slope),
+      B, n_tiles, F32, stream);
 }
 
 }  // extern "C"

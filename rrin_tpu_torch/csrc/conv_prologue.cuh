@@ -1,9 +1,10 @@
 // The element arithmetic of the fused-resample load prologues, shared by the
 // convolution kernels of this directory (conv_packed.cu, conv_up_sm90.cu):
-// eight channels of one stored pixel at a time, widened to float32, pooled
-// or interpolated with every product and sum rounded separately (as the
-// plain PyTorch versions compute them, no fused multiply-add), then rounded
-// once to bfloat16 or taken to the int8 grid.
+// eight channels of one stored pixel at a time, widened to float32 (or read
+// as float32), pooled or interpolated with every product and sum rounded
+// separately (as the plain PyTorch versions compute them, no fused
+// multiply-add), then rounded once to bfloat16, taken to the int8 grid, or
+// stored as float32 as they are.
 
 #pragma once
 
@@ -67,6 +68,18 @@ __device__ __forceinline__ F8 lerp8(const F8& far, const F8& near) {
   return r;
 }
 
+// The 2x2 mean of four pixels' eight channels in avg_pool_2x's order:
+// ((p00 + p01) + p10) + p11, then times 1/4, each step rounded.
+__device__ __forceinline__ F8 avg4_8(const F8& p00, const F8& p01, const F8& p10,
+                                     const F8& p11) {
+  F8 r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    r.v[i] = __fmul_rn(
+        __fadd_rn(__fadd_rn(__fadd_rn(p00.v[i], p01.v[i]), p10.v[i]), p11.v[i]), 0.25f);
+  return r;
+}
+
 // The far tap of output position p of a 2x half-pixel bilinear upsample of n
 // samples, clamped at both ends; the near tap is p / 2.
 __device__ __forceinline__ int far_tap(int p, int n) {
@@ -107,4 +120,18 @@ template <bool Q>
 __device__ __forceinline__ F8 tap8(const void* xb, int i8, int cs, int Ws, int y, int x,
                                    int c, float pre) {
   return widen8<Q>(load8<Q>(xb, i8, cs, Ws, y, x, c), i8, pre);
+}
+
+// Eight float32 channels of one stored pixel (two 16-byte loads).
+__device__ __forceinline__ F8 load8_f32(const float* xb, int cs, int Ws, int y, int x, int c) {
+  const float4* p = reinterpret_cast<const float4*>(xb + pix_off(cs, Ws, y, x, c));
+  const float4 lo = __ldg(p), hi = __ldg(p + 1);
+  return F8{{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}};
+}
+
+// Eight float32 values stored as they are (two 16-byte stores).
+__device__ __forceinline__ void store8_f32(unsigned char* dst, const F8& f) {
+  float4* p = reinterpret_cast<float4*>(dst);
+  p[0] = make_float4(f.v[0], f.v[1], f.v[2], f.v[3]);
+  p[1] = make_float4(f.v[4], f.v[5], f.v[6], f.v[7]);
 }

@@ -583,13 +583,7 @@ __device__ __forceinline__ void build_halo(const UpArgs& a, const Layout& L,
 // avg_pool_2x sums them: ((p00 + p01) + p10) + p11, then times 1/4, each
 // step rounded.
 __device__ __forceinline__ F8 pool8(const uint4 (&s)[4]) {
-  const F8 p00 = unpack8(s[0]), p01 = unpack8(s[1]), p10 = unpack8(s[2]), p11 = unpack8(s[3]);
-  F8 r;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    r.v[i] = __fmul_rn(
-        __fadd_rn(__fadd_rn(__fadd_rn(p00.v[i], p01.v[i]), p10.v[i]), p11.v[i]), 0.25f);
-  return r;
+  return avg4_8(unpack8(s[0]), unpack8(s[1]), unpack8(s[2]), unpack8(s[3]));
 }
 
 // The pooled int8 codes of four stored pixels' eight int8 codes: rint of

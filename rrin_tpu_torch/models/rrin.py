@@ -185,9 +185,9 @@ def forward(
         (``models.unet.unet_apply_packed``): the serving path, inference
         only. ``None`` follows ``use_pallas``. A shape or config that
         ``packed_supported`` rejects takes the plain path (routing by shape,
-        as in the JAX package). On the card the packed kernels are bfloat16:
-        ``compute_dtype=torch.float32`` there raises ``NotImplementedError``,
-        so float32 requests pass ``packed=False``.
+        as in the JAX package). On the card the packed kernels run in
+        bfloat16 and in float32 (split-TF32 products that keep float32
+        accuracy), as the JAX package serves both dtypes packed.
       quant_stats: calibration stats from :func:`forward_calibrate` (per
         U-Net |x| maxima, on ``device``). Requires the packed path (raises
         ``ValueError`` without it); every packed conv but the heads then runs

@@ -237,8 +237,10 @@ def packed_branch_flags(h: int, w: int, cfg: ModelConfig):
     that the CUDA kernels have no gate on H, W or M, so ``h`` does not enter
     and the other flags depend on the channel widths and kernel sizes only.
     The JAX package's flags differ at some shapes: it gates fuse_d2 and
-    fuse_u2 on H alignment (False at 2160x3840) and its l2/l3/l4 branches and
-    fused up sites on minimum heights (h < 64)."""
+    fuse_u2 on H alignment (False where ``h // 4`` is no multiple of 8: 720p,
+    2160x3840) and its l2/l3/l4 branches and fused up sites on minimum
+    heights (h < 64). Those of its flags that decide the int8 carry plan
+    are copied as :func:`reference_carry_flags`."""
     w1, w2, w3, w4, w5 = cfg.widths
     k = cfg.down_kernels
     sk = cfg.stem_kernel
@@ -285,16 +287,61 @@ def packed_bf16_supported(w: int) -> bool:
     return True
 
 
-def carry_plan(flags) -> set:
+# The JAX package's layout geometry that its int8 carry gates on, copied:
+# output rows per grid step, the conv window's rows (its min_h), the source
+# rows of the pool and upsample windows, and lanes.
+_REF_RB, _REF_MIN_H, _REF_WIN_PSRC, _REF_WIN_SRC, _REF_LANES = 8, 24, 32, 16, 128
+
+
+def _ref_supports_pool(p, c, w, m, k, cout, h_src) -> bool:
+    """The JAX package's ``supports_pool`` on a packed spec (p, c, w, m)."""
+    if p < 2 or p % 2 or h_src % 2 or w % 2:
+        return False
+    return (k % 2 == 1 and k <= 5 and (h_src // 2) % _REF_RB == 0
+            and h_src >= _REF_WIN_PSRC and m % 8 == 0
+            and (p // 2) * cout <= 4 * _REF_LANES and p * c <= 4 * _REF_LANES
+            and (p * c) % _REF_LANES == 0)
+
+
+def _ref_supports_up_m(c, w, m, k, cout, h_src, m_out) -> bool:
+    """The JAX package's ``supports_up_m`` on a P=1, offset-0 input written
+    at offset 0 (u2c1's place in its layout plan)."""
+    hh = (k - 1) // 2
+    return (k % 2 == 1 and 3 <= k <= 5 and k * cout > _REF_LANES
+            and (2 * h_src) % _REF_RB == 0 and h_src >= _REF_WIN_SRC
+            and m % 8 == 0 and m_out % 8 == 0 and cout <= 4 * _REF_LANES
+            and c <= 4 * _REF_LANES and 2 * w <= m_out and 2 * m <= m_out + hh)
+
+
+def reference_carry_flags(h: int, w: int, cfg: ModelConfig):
+    """(l2_kernel, l3_kernel, fuse_d1, fuse_d2, fuse_u2) as the JAX
+    package's ``packed_branch_flags`` computes them at (h, w), with its
+    H-alignment and minimum-height gates: they decide its int8 carry plan.
+    The port routes its kernels by :func:`packed_branch_flags`; these flags
+    decide the carry only (:func:`int8_carry`)."""
+    m0 = _packed_m0(w)
+    k = cfg.down_kernels
+    w1, w2, w3, w4, _ = cfg.widths
+    l2_kernel = -(-(h // 4) // 8) * 8 >= _REF_MIN_H
+    l3_kernel = -(-(h // 8) // 8) * 8 >= _REF_MIN_H
+    fuse_d1 = _ref_supports_pool(4, w1, w, m0, k[0], w2, h)
+    fuse_d2 = _ref_supports_pool(2, w2, w // 2, m0, k[1], w3, h // 2)
+    fuse_u2 = l2_kernel and l3_kernel and _ref_supports_up_m(
+        w4, w // 8, -(-(w // 8) // 8) * 8, 3, w3, h // 8, m0)
+    return l2_kernel, l3_kernel, fuse_d1, fuse_d2, fuse_u2
+
+
+def int8_carry(h: int, w: int, cfg: ModelConfig) -> set:
     """The int8 carry plan ``_CARRY`` of the JAX package's
-    ``unet_apply_packed``: the sites whose output stays on its own int8 grid
-    (the kernel's epilogue emits int8) because every consumer reads it
-    straight into a packed kernel; a site feeding a materialised pool or
-    upsample stays bfloat16. Derived from the port's own flags, which differ
-    from the JAX package's where that gates fuse_d2 and fuse_u2 on H
-    alignment: at 2160x3840 the JAX package carries neither d1c2 nor u1c2,
-    the port carries both."""
-    l2_kernel, _, fuse_d1, fuse_d2, _, _, _, fuse_u2 = flags
+    ``unet_apply_packed`` at (h, w), from :func:`reference_carry_flags`: the
+    sites whose output stays on its own int8 grid (the kernel's epilogue
+    emits int8) because every consumer reads it straight into a packed
+    kernel; a site feeding a materialised pool or upsample stays bfloat16.
+    The JAX package gates fuse_d2 and fuse_u2 on H alignment, which the
+    port's kernels do not need: where ``h // 4`` is no multiple of 8 (720p,
+    2160x3840) it carries neither d1c2 nor u1c2, and K7 and K8 then quantise
+    their bfloat16 input in the load."""
+    l2_kernel, _, fuse_d1, fuse_d2, fuse_u2 = reference_carry_flags(h, w, cfg)
     carry = {
         "c1", "d1c1", "d2c1", "d3c1", "d4c1", "u1c1",
         "u2c1", "u2c2", "u3c1", "u3c2", "u4c1",
@@ -321,14 +368,14 @@ def unet_apply_packed(
     Equal to :func:`unet_apply` up to the summation order of the convs and,
     in bfloat16, up to where the fused resamples round. x: (B, H, W, in_ch)
     with ``packed_supported(H, W, cfg)``; runs on the device and in the dtype
-    of ``x`` (bfloat16 on the card; float32 only on the CPU, through the
-    kernels' plain versions).
+    of ``x``: bfloat16 or float32 on the card (the kernels' bfloat16 and
+    float32 modes), any float dtype on the CPU (their plain versions).
 
     ``absmax``: calibration stats from :func:`unet_apply_stats` (producer
     name -> |x| max, device scalars). Every conv but the head then runs int8:
     its operands are quantised per ``QUANT_SITES`` and the sites of
-    :func:`carry_plan` emit int8 for their consumers; the head stays in the
-    dtype of ``x``.
+    :func:`int8_carry` emit int8 for their consumers; the head stays in the
+    dtype of ``x``. On the card int8 takes a bfloat16 ``x``.
 
     ``prep``/``collect`` (prepare-once weight constants) are not ported yet
     and raise ``NotImplementedError``.
@@ -345,7 +392,7 @@ def unet_apply_packed(
     flags = packed_branch_flags(h, w, cfg)
     s = cfg.leaky_slope
     dt = x.dtype
-    carry = carry_plan(flags) if absmax is not None else set()
+    carry = int8_carry(h, w, cfg) if absmax is not None else set()
 
     def q(site):
         """(in_absmax, out_absmax) of a site, or Nones in bfloat16."""

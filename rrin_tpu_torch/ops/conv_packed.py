@@ -1,5 +1,5 @@
 """The convolutions of the packed serving path: five hand-written CUDA
-kernels and their wrappers, in bfloat16 and in int8.
+kernels and their wrappers, in bfloat16, int8 and float32.
 
 Replaces five Pallas kernels of the JAX package's ``ops/conv_packed.py``:
 
@@ -21,8 +21,9 @@ Replaces five Pallas kernels of the JAX package's ``ops/conv_packed.py``:
                         residual added exactly.
 
 K5 and K6 are ``csrc/conv_packed.cu``: one implicit-GEMM core on
-``mma.sync`` with two load prologues. K7, K8 and K9 are
-``csrc/conv_up_sm90.cu``, a Hopper core on ``wgmma`` with a producer
+``mma.sync`` with five load prologues (K7-K9's are for float32 only). K7,
+K8 and K9 in bfloat16 and int8 are ``csrc/conv_up_sm90.cu``, a Hopper core
+on ``wgmma`` with a producer
 warpgroup that builds the pooled or interpolated halo tile of the next
 channel chunk while two consumer warpgroups contract the current one, all of
 a site's output channels (up to 128) in one block; its planner is
@@ -43,6 +44,18 @@ repeats that routing.
 
 **bfloat16.** A float32 bias and an optional LeakyReLU are added to a
 float32 sum, rounded once to bfloat16.
+
+**float32** (float32 operands on the card): every kernel has a float32
+mode on the ``mma.sync`` core of ``csrc/conv_packed.cu``, K7-K9 included
+(:data:`_SM90_KERNELS` is bfloat16 and int8 only). The reference contracts
+float32 at full precision; the kernels split each operand into two TF32
+parts (``hi = rna(x)``, ``lo = rna(x - hi)``, :func:`_tf32`) and sum
+``lo_a*hi_b + hi_a*lo_b + hi_a*hi_b`` on ``mma.m16n8k8.tf32`` in float32
+("3xTF32"): about 2^-22 of each product is lost, against 2^-11 for one
+TF32 product. The weights are split on the host (:func:`_weight_fragments`
+with ``q=F32``: a hi and a lo plane), the activations in the kernel.
+Prologue values stay float32; the output is float32. Launches count under
+``"<kernel>_f32"``.
 
 **int8** (``in_absmax`` given, one calibrated |x| maximum per operand, from
 ``models.unet.unet_apply_stats``): activations are quantised per tensor,
@@ -77,10 +90,10 @@ need: odd k in the set each is built for, channel counts that allow 8-channel
 loads where a prologue needs them, and a tile that fits shared memory. There
 is no gate on H, W or M. Each wrapper launches its kernel for a CUDA tensor
 or raises; it takes the plain version beside it only for a CPU tensor.
-float32 on the card is refused (the kernels are bfloat16 and int8 only so
-far). Forward only. ``prepared=`` takes the result of the matching
-``prep_*`` (built with the same absmax) and skips the per-call weight
-re-layout and quantisation. Without it, K7, K8 and K9 in bfloat16 lay out
+Forward only. ``prepared=`` takes the result of the matching
+``prep_*`` (built with the same absmax and ``dtype``) and skips the per-call
+weight re-layout, split and quantisation. Without it, K7, K8 and K9 in
+bfloat16 lay out
 (and K9 folds) their weights on the card in one launch of the core's prep
 kernel (launch count ``conv_up_prep``); the ``prep_*`` functions are its
 plain version.
@@ -96,7 +109,7 @@ import torch
 import torch.nn.functional as F
 
 from rrin_tpu_torch import _build
-from rrin_tpu_torch.ops.conv_phase import _conv_plain, _leaky
+from rrin_tpu_torch.ops.conv_phase import _conv_plain, _leaky, no_tf32
 from rrin_tpu_torch.ops.resize import (
     _upsample_2x_axis,
     avg_pool_2x,
@@ -109,9 +122,14 @@ _TH, _TW, _PAD_BYTES, MAX_OPS = 8, 32, 16, 4
 _SMEM_MAX = 232448
 # Kernel sizes each kernel is built for.
 _K_CONV, _K_POOL, _K_UP, _K_UP_M, _K_UP_F = (3, 5, 7), (3, 5), (1, 3, 5), (3, 5), (3,)
-# Channel chunks of the K-loop, largest first: bfloat16 steps 16 channels
-# per mma, int8 32.
-_CHUNKS = {False: (64, 48, 32, 16), True: (128, 64, 32)}
+# Element types of csrc/conv_packed.cu, as its entry points number them: a
+# ``q`` argument below is False (bfloat16), True (int8) or F32.
+F32 = 2
+# Per element type: bytes an element, channels per mma step (32 bytes), bytes
+# of one lane's B fragment (float32: the hi and the lo pair).
+_ELEM = {False: (2, 16, 8), True: (1, 32, 8), F32: (4, 8, 16)}
+# Channel chunks of the K-loop, largest first.
+_CHUNKS = {False: (64, 48, 32, 16), True: (128, 64, 32), F32: (32, 16, 8)}
 # csrc/conv_up_sm90.cu (K7, K8, K9): pixels per block row, output channels per
 # block (N of its wgmma) that it is built for, consumer warpgroups, channel
 # chunks (powers of two: its producer threads split a chunk evenly).
@@ -149,24 +167,24 @@ def _n_tiles(n_out: int) -> int:
 
 
 def _smem_bytes(
-    ky: int, kx: int, ntaps: int, cchunk: int, n_tiles: int, q: bool = False,
+    ky: int, kx: int, ntaps: int, cchunk: int, n_tiles: int, q: int = False,
 ) -> int:
-    es, kk = (1, 32) if q else (2, 16)
+    es, kk, bfrag = _ELEM[q]
     halo = (_TH + ky - 1) * (_TW + kx - 1) * (cchunk * es + _PAD_BYTES)
-    wrow = ntaps * (cchunk // kk) * n_tiles * 32 * 8
+    wrow = ntaps * (cchunk // kk) * n_tiles * 32 * bfrag
     return halo + wrow
 
 
 def _plan(
-    ky: int, kx: int, ntaps: int, cins: Sequence[int], n_out: int, q: bool = False,
+    ky: int, kx: int, ntaps: int, cins: Sequence[int], n_out: int, q: int = False,
 ) -> Optional[Tuple[int, int, int]]:
     """(cchunk, n_tiles, n_cout_blocks) of the kernel for this site, or None.
     ``n_out`` is the number of channels per GEMM pixel (2*cout when folded);
-    ``q`` plans the int8 kernel."""
+    ``q`` plans the int8 kernel (True) or the float32 one (F32)."""
     if not cins or min(cins) < 1 or n_out < 1:
         return None
     n_tiles = _n_tiles(n_out)
-    kk = 32 if q else 16
+    kk = _ELEM[q][1]
     cin_k = -(-max(cins) // kk) * kk
     for cchunk in _CHUNKS[q]:
         if cchunk > cin_k:
@@ -177,7 +195,7 @@ def _plan(
 
 
 def _fits(ky, kx, ntaps, cins, n_out) -> bool:
-    return all(_plan(ky, kx, ntaps, cins, n_out, q) is not None for q in (False, True))
+    return all(_plan(ky, kx, ntaps, cins, n_out, q) is not None for q in _ELEM)
 
 
 def _sm90_rows(n: int) -> int:
@@ -250,8 +268,12 @@ def _sm90_plan(
 
 
 def _sm90_fits(k: int, cin: int, n_out: int, folded: bool, resident: bool = False) -> bool:
+    """Whether the K7-K9 site has a plan on the Hopper core (bfloat16, int8)
+    and, for float32, on the ``mma.sync`` core (five taps a row when
+    ``folded``): the routing does not depend on the dtype."""
     return all(_sm90_plan(k, cin, n_out, q, folded, resident) is not None
-               for q in (False, True))
+               for q in (False, True)) and _plan(
+                   k, k, 5 if folded else k, (cin,), n_out, F32) is not None
 
 
 def supports(cins: Sequence[int], k: int, cout: int) -> bool:
@@ -356,20 +378,33 @@ def _float_dtype(xs: Sequence[torch.Tensor]) -> torch.dtype:
 
 # ----------------------------------------------------------- weight layout
 
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """float32 ``t`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: the
+    low 13 bits of the magnitude rounded off, to nearest, ties away from
+    zero (10 mantissa bits left)."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
 def _weight_fragments(
-    wt: torch.Tensor, cins: Sequence[int], cchunk: int, n_tiles: int, q: bool = False,
+    wt: torch.Tensor, cins: Sequence[int], cchunk: int, n_tiles: int, q: int = False,
 ) -> torch.Tensor:
-    """(ky, ntaps, sum(cins), n_out) weights -> bf16 (``q``: int8 codes) in
-    the kernel's B-fragment order
-    ``[cout block][chunk][dy][tap][kstep][n-tile][lane = g*4+tig][reg r][p]``.
+    """(ky, ntaps, sum(cins), n_out) weights -> bf16 (``q``: int8 codes;
+    ``q=F32``: float32 split in two TF32 planes) in the kernel's B-fragment
+    order ``[cout block][chunk][dy][tap][kstep][n-tile][lane = g*4+tig][reg
+    r][p]``.
 
     Chunks run operand by operand, each operand's channels zero-padded to a
     multiple of ``cchunk``; the element is ``wt[dy, tap, row(chunk) +
     kstep*KK + r*KK/2 + tig*KK/8 + p, block*n_tiles*8 + n-tile*8 + g]`` with
-    KK = 16 (bf16, p < 2) or 32 (int8, p < 4), zero where cin or cout is
-    padding. ``wt`` is rounded to bfloat16 here, once (int8: cast, exact)."""
+    KK = 16 (bf16, p < 2), 32 (int8, p < 4) or 8 (float32, p < 1), zero where
+    cin or cout is padding. ``wt`` is rounded to bfloat16 here, once (int8:
+    cast, exact). In float32 a plane dimension comes before r: ``[...][lane]
+    [plane][r][p]`` holds ``hi = _tf32(w)`` (plane 0) and ``lo = _tf32(w -
+    hi)`` (plane 1), so that a lane reads its hi and lo pairs as one 16-byte
+    word."""
     ky, ntaps, _, n_out = wt.shape
-    kk = 32 if q else 16
+    kk = _ELEM[q][1]
     nb = n_tiles * 8
     n_cb = -(-n_out // nb)
     segs, row = [], 0
@@ -377,11 +412,16 @@ def _weight_fragments(
         pad_c = -(-c // cchunk) * cchunk - c
         segs.append(F.pad(wt[:, :, row:row + c], (0, n_cb * nb - n_out, 0, pad_c)))
         row += c
-    wp = torch.cat(segs, dim=2).to(torch.int8 if q else torch.bfloat16)
+    dt = torch.float32 if q == F32 else (torch.int8 if q else torch.bfloat16)
+    wp = torch.cat(segs, dim=2).to(dt)
     n_chunks = wp.shape[2] // cchunk
     wp = wp.view(ky, ntaps, n_chunks, cchunk // kk, 2, 4, kk // 8, n_cb, n_tiles, 8)
     #            dy  tap    ch        kstep        r  tig p       cb    nt       g
-    return wp.permute(7, 2, 0, 1, 3, 8, 9, 5, 4, 6).contiguous()
+    frag = wp.permute(7, 2, 0, 1, 3, 8, 9, 5, 4, 6)
+    if q != F32:
+        return frag.contiguous()
+    hi = _tf32(frag)
+    return torch.stack([hi, _tf32(frag - hi)], dim=-3).contiguous()
 
 
 def _sm90_weights(
@@ -400,14 +440,15 @@ def _sm90_weights(
 
 
 def _prepared(wt, bias, cins, k, cout, plan, scale=None, out_q=False,
-              layout=_weight_fragments) -> Prepared:
-    """``scale`` is None for bfloat16 weights and the per-channel int8
-    dequantisation for int8 codes ``wt``; ``layout`` lays the weights out
-    for the kernel (``_sm90_weights`` for K7-K9)."""
+              layout=_weight_fragments, f32=False) -> Prepared:
+    """``scale`` is None for bfloat16 (``f32``: float32) weights and the
+    per-channel int8 dequantisation for int8 codes ``wt``; ``layout`` lays
+    the weights out for the kernel (``_sm90_weights`` for K7-K9 in bfloat16
+    and int8). The layout's dtype (``wfrag``) says which calls it serves."""
     cchunk, n_tiles, _ = plan
     q = scale is not None
     return {
-        "wfrag": layout(wt, cins, cchunk, n_tiles, q),
+        "wfrag": layout(wt, cins, cchunk, n_tiles, F32 if f32 else q),
         "bias": bias.to(torch.float32).contiguous(),
         "scale": None if scale is None else scale.contiguous(),
         "cins": tuple(cins), "k": k, "cout": cout, "plan": plan,
@@ -448,19 +489,30 @@ def _check_q(name: str, xs: Sequence[torch.Tensor], in_absmax, out_absmax) -> bo
     return True
 
 
+def _is_f32(dtype: torch.dtype) -> bool:
+    """Whether a prep without absmax is for float32 operands (else bfloat16)."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the packed kernels take bfloat16 or float32 operands, not {dtype}")
+    return dtype == torch.float32
+
+
 def prep_conv(
     w: torch.Tensor, bias: torch.Tensor, real_cs: Sequence[int],
     absmax: Optional[Sequence[Absmax]] = None, out_absmax: Optional[Absmax] = None,
+    dtype: torch.dtype = torch.bfloat16,
 ) -> Prepared:
     """Weight-side constants of one ``conv_packed`` site: HWIO weights in
-    fragment order, split per operand, and the float32 bias; with ``absmax``
-    (one per operand) the int8 codes, the per-channel scale and the bias, both
-    folded with ``127/out_absmax`` when that is given."""
+    fragment order, split per operand, and the float32 bias, for operands of
+    ``dtype`` (bfloat16, or float32: the weights split in two TF32 planes);
+    with ``absmax`` (one per operand) the int8 codes, the per-channel scale
+    and the bias, both folded with ``127/out_absmax`` when that is given."""
     real_cs = tuple(int(c) for c in real_cs)
     k, cout = _check_w(w, bias, sum(real_cs))
     _need(supports(real_cs, k, cout), "conv_packed", real_cs, k, cout)
     if absmax is None:
-        return _prepared(w.float(), bias, real_cs, k, cout, _plan(k, k, k, real_cs, cout))
+        f32 = _is_f32(dtype)
+        return _prepared(w.float(), bias, real_cs, k, cout,
+                         _plan(k, k, k, real_cs, cout, F32 if f32 else False), f32=f32)
     wqs, sw = _quantize_weights(torch.split(w.float(), real_cs, dim=2), absmax)
     scale, b = _q_fold(absmax[0], sw, bias, out_absmax)
     return _prepared(
@@ -468,25 +520,31 @@ def prep_conv(
         _plan(k, k, k, real_cs, cout, q=True), scale, out_absmax is not None)
 
 
-def _prep_single(name, ok, w, bias, absmax, out_absmax) -> Prepared:
+def _prep_single(name, ok, w, bias, absmax, out_absmax, dtype) -> Prepared:
     k, cout = _check_w(w, bias, w.shape[2])
     cin = w.shape[2]
     _need(ok(cin, k, cout), name, cin, k, cout)
     if absmax is None:
-        return _prepared(w.float(), bias, (cin,), k, cout, _plan(k, k, k, (cin,), cout))
+        f32 = _is_f32(dtype)
+        return _prepared(w.float(), bias, (cin,), k, cout,
+                         _plan(k, k, k, (cin,), cout, F32 if f32 else False), f32=f32)
     (wq,), sw = _quantize_weights([w.float()], (absmax,))
     scale, b = _q_fold(absmax, sw, bias, out_absmax)
     return _prepared(wq.float(), b, (cin,), k, cout, _plan(k, k, k, (cin,), cout, q=True),
                      scale, out_absmax is not None)
 
 
-def _prep_sm90(name, ok, w, bias, absmax, out_absmax) -> Prepared:
+def _prep_sm90(name, ok, w, bias, absmax, out_absmax, dtype) -> Prepared:
     """The conv's own weights in the layout of the K7-K9 core
-    (:func:`_sm90_weights`); int8 as in :func:`prep_conv`."""
+    (:func:`_sm90_weights`); int8 as in :func:`prep_conv`; float32 in the
+    ``mma.sync`` core's layout (:func:`_weight_fragments`, two planes)."""
     k, cout = _check_w(w, bias, w.shape[2])
     cin = w.shape[2]
     _need(ok(cin, k, cout), name, cin, k, cout)
     _, res = _SM90_KERNELS[name]
+    if absmax is None and _is_f32(dtype):
+        return _prepared(w.float(), bias, (cin,), k, cout, _plan(k, k, k, (cin,), cout, F32),
+                         f32=True)
     if absmax is None:
         return _prepared(w.float(), bias, (cin,), k, cout,
                          _sm90_plan(k, cin, cout, resident=res), layout=_sm90_weights)
@@ -498,27 +556,31 @@ def _prep_sm90(name, ok, w, bias, absmax, out_absmax) -> Prepared:
 
 
 def prep_conv_pool(w: torch.Tensor, bias: torch.Tensor, absmax: Optional[Absmax] = None,
-                   out_absmax: Optional[Absmax] = None) -> Prepared:
+                   out_absmax: Optional[Absmax] = None,
+                   dtype: torch.dtype = torch.bfloat16) -> Prepared:
     """Weight-side constants of one ``conv_pool_packed`` site (the conv's own
     weights: the pool lives in the kernel's load) in the layout of the K7-K9
-    core (:func:`_sm90_weights`); int8 as in :func:`prep_conv`."""
-    return _prep_sm90("conv_pool_packed", supports_pool, w, bias, absmax, out_absmax)
+    core (:func:`_sm90_weights`); int8 and ``dtype`` as in
+    :func:`prep_conv`."""
+    return _prep_sm90("conv_pool_packed", supports_pool, w, bias, absmax, out_absmax, dtype)
 
 
 def prep_conv_up(w: torch.Tensor, bias: torch.Tensor, absmax: Optional[Absmax] = None,
-                 out_absmax: Optional[Absmax] = None) -> Prepared:
+                 out_absmax: Optional[Absmax] = None,
+                 dtype: torch.dtype = torch.bfloat16) -> Prepared:
     """Weight-side constants of one ``conv_up_packed`` site (the conv's own
     weights: the upsample lives in the kernel's load; the input's absmax
     calibrates the upsampled values, a convex combination of it)."""
-    return _prep_single("conv_up_packed", supports_up, w, bias, absmax, out_absmax)
+    return _prep_single("conv_up_packed", supports_up, w, bias, absmax, out_absmax, dtype)
 
 
 def prep_conv_up_m(w: torch.Tensor, bias: torch.Tensor, absmax: Optional[Absmax] = None,
-                   out_absmax: Optional[Absmax] = None) -> Prepared:
+                   out_absmax: Optional[Absmax] = None,
+                   dtype: torch.dtype = torch.bfloat16) -> Prepared:
     """Weight-side constants of one ``conv_up_m_packed`` site, as
     :func:`prep_conv_up`, in the layout of the K7-K9 core
-    (:func:`_sm90_weights`)."""
-    return _prep_sm90("conv_up_m_packed", supports_up_m, w, bias, absmax, out_absmax)
+    (:func:`_sm90_weights`; float32 as :func:`prep_conv_pool`)."""
+    return _prep_sm90("conv_up_m_packed", supports_up_m, w, bias, absmax, out_absmax, dtype)
 
 
 def _upf_fold(w: torch.Tensor):
@@ -567,16 +629,22 @@ def _upf_q_taps(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def prep_conv_up_f(w: torch.Tensor, bias: torch.Tensor, absmax: Optional[Absmax] = None,
-                   out_absmax: Optional[Absmax] = None) -> Prepared:
+                   out_absmax: Optional[Absmax] = None,
+                   dtype: torch.dtype = torch.bfloat16) -> Prepared:
     """Weight-side constants of one ``conv_up_f_packed`` site: the weights
     folded in float32, then rounded to bfloat16 (or quantised to int8 with
     their edge taps on one per-channel grid) in the layout of the K7-K9 core
     (:func:`_sm90_weights`, five taps per dy row: the stencil, then the two
     edge taps), and the bias (and scale) repeated for both output parities.
-    In bfloat16 also the plain version of the core's prep kernel."""
+    In bfloat16 also the plain version of the core's prep kernel. For float32
+    operands (``dtype``) the folded float32 weights are split in two TF32
+    planes in the ``mma.sync`` core's layout (:func:`_weight_fragments`)."""
     k, cout = _check_w(w, bias, w.shape[2])
     cin = w.shape[2]
     _need(supports_up_f(cin, k, cout), "conv_up_f_packed", cin, k, cout)
+    if absmax is None and _is_f32(dtype):
+        return _prepared(_upf_taps(w.float()), torch.cat([bias, bias]), (cin,), k, cout,
+                         _plan(3, 3, 5, (cin,), 2 * cout, F32), f32=True)
     if absmax is None:
         return _prepared(
             _upf_taps(w.float()), torch.cat([bias, bias]), (cin,), k, cout,
@@ -627,12 +695,8 @@ def _fold_apply(rows: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     cin) and folded weights (3, 5, cin, 2*cout) -> (B, 2Hs, 2Ws, cout),
     without bias."""
     b, h2, ws, _ = rows.shape
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with no_tf32():
         y = F.conv2d(rows.permute(0, 3, 1, 2), taps[:, :3].permute(3, 2, 0, 1), padding=1)
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
     y = y.permute(0, 2, 3, 1).contiguous()                     # (B, 2Hs, Ws, 2*cout)
     for col, tap in ((0, 3), (ws - 1, 4)):
         edge = F.pad(rows[:, :, col], (0, 0, 1, 1))            # zero rows above, below
@@ -743,7 +807,12 @@ def _lib() -> ctypes.CDLL:
             [pv, pi, pi, pi, pv, ci] + [vp] * 4 + [ci] * 9 + [cf, ci, vp])
         lib.rrin_conv_up_packed_launch.argtypes = (
             [vp, ci, ci] + [vp] * 5 + [ci] * 9 + [cf, ci, vp])
-        for name in ("conv_packed", "conv_up_packed"):
+        # the float32-only entry points: no int8 arguments, no dt
+        f32 = [vp, ci] + [vp] * 3 + [ci] * 8 + [cf, vp]
+        lib.rrin_conv_pool_packed_f32_launch.argtypes = f32
+        lib.rrin_conv_up_m_packed_f32_launch.argtypes = f32
+        lib.rrin_conv_up_f_packed_f32_launch.argtypes = f32[:5] + [ci] * 7 + [cf, vp]
+        for name in ("conv_packed", "conv_up_packed", *(f"{n}_f32" for n in _SM90_KERNELS)):
             getattr(lib, f"rrin_{name}_launch").restype = ci
         lib._rrin_typed = True
     return lib
@@ -794,13 +863,15 @@ def _check_cuda(
     name: str, xs, w, bias, prepared, cins, k, cout, q: bool = False, out_q: bool = False,
 ) -> Optional[Prepared]:
     """What a kernel asks of its tensors and of ``prepared``, which it
-    returns."""
+    returns: bfloat16 or float32 operands, or (int8, ``q``) bfloat16 and
+    int8 ones, and a ``prepared`` built for this call's site and types."""
+    f32 = xs[0].dtype == torch.float32
     for x in xs:
-        if x.dtype != torch.bfloat16 and not (q and x.dtype == torch.int8):
+        if not (x.dtype == torch.bfloat16 or (q and x.dtype == torch.int8)
+                or (not q and x.dtype == torch.float32)):
             raise NotImplementedError(
-                f"{name}: the packed kernels are bfloat16 and int8 only so far, got "
-                f"{x.dtype} on {x.device}; pass packed=False for float32 "
-                "(ROADMAP.md Queue B item 3, 'float32 variants of K5-K9')")
+                f"{name}: the packed kernels take bfloat16 or float32 operands, or in "
+                f"int8 mode bfloat16 and int8 ones; got {x.dtype} on {x.device}")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(
                 f"{name} takes NHWC-contiguous, 16-byte aligned operands")
@@ -820,12 +891,20 @@ def _check_cuda(
         raise ValueError(
             f"{name}: prepared= was built for int8 {prepared['q']}, int8 output "
             f"{prepared['out_q']}; this call has {q}, {out_q}")
+    want = torch.int8 if q else (torch.float32 if f32 else torch.bfloat16)
+    if prepared["wfrag"].dtype != want:
+        raise ValueError(
+            f"{name}: prepared= holds {prepared['wfrag'].dtype} weights, this call needs "
+            f"{want} (build it with the operands' dtype)")
     if prepared["wfrag"].device != xs[0].device:
         raise ValueError(f"{name}: prepared= lies on another device")
     return prepared
 
 
+@functools.lru_cache(maxsize=None)
 def _smem_agrees(lib, ky, kx, ntaps, plan, q) -> None:
+    """Raise unless ``rrin_conv_packed_smem`` and :func:`_smem_bytes` agree
+    (checked once per site and element type)."""
     cchunk, n_tiles, _ = plan
     if lib.rrin_conv_packed_smem(ky, kx, ntaps, cchunk, n_tiles, int(q)) != _smem_bytes(
             ky, kx, ntaps, cchunk, n_tiles, q):
@@ -873,11 +952,23 @@ def _slope_args(slope: Optional[float]) -> Tuple[int, float]:
     return int(slope is not None), 0.0 if slope is None else float(slope)
 
 
-def _out_tensor(name, shape, dev, q, out_absmax, out_dtype) -> torch.Tensor:
+def _out_tensor(name, shape, dev, f32, out_absmax, out_dtype) -> torch.Tensor:
+    """The output of a launch: float32 for float32 operands (``f32``), else
+    int8 with ``out_absmax``, else ``out_dtype`` (bfloat16 by default)."""
+    if f32:
+        if out_dtype not in (None, torch.float32):
+            raise NotImplementedError(
+                f"{name} stores float32 from float32 operands, not {out_dtype}")
+        return torch.empty(shape, dtype=torch.float32, device=dev)
     dt = torch.int8 if out_absmax is not None else (out_dtype or torch.bfloat16)
     if dt not in (torch.int8, torch.bfloat16):
         raise NotImplementedError(f"{name} stores bfloat16 or int8 on the card, not {dt}")
     return torch.empty(shape, dtype=dt, device=dev)
+
+
+def _counter(name: str, et: int) -> str:
+    """The launch count of ``name`` in element type ``et``."""
+    return name + {False: "", True: "_int8", F32: "_f32"}[et]
 
 
 def _q_launch_args(prepared, axs, dev):
@@ -918,26 +1009,29 @@ def conv_packed(
         raise RuntimeError(f"no conv_packed kernel for device {xs[0].device}")
     prepared = _check_cuda("conv_packed", xs, w, bias, prepared, cs, k, cout, q,
                            out_absmax is not None)
+    f32 = xs[0].dtype == torch.float32
+    et = F32 if f32 else q
     if prepared is None:
-        prepared = prep_conv(w, bias, cs, in_absmax, out_absmax)
+        prepared = prep_conv(w, bias, cs, in_absmax, out_absmax,
+                             torch.float32 if f32 else torch.bfloat16)
     cchunk, n_tiles, _ = prepared["plan"]
     lib = _lib()
-    _smem_agrees(lib, k, k, k, prepared["plan"], q)
+    _smem_agrees(lib, k, k, k, prepared["plan"], et)
     b, h, width, _ = xs[0].shape
     dev = xs[0].device
-    out = _out_tensor("conv_packed", (b, h, width, cout), dev, q, out_absmax, out_dtype)
+    out = _out_tensor("conv_packed", (b, h, width, cout), dev, f32, out_absmax, out_dtype)
     n = len(xs)
     axs, scale = _q_launch_args(prepared, in_absmax, dev) if q else ([], None)
     with torch.cuda.device(dev):
         _build.launch(
-            "conv_packed_int8" if q else "conv_packed", lib.rrin_conv_packed_launch,
+            _counter("conv_packed", et), lib.rrin_conv_packed_launch,
             (ctypes.c_void_p * n)(*[x.data_ptr() for x in xs]),
             (ctypes.c_int * n)(*cs), (ctypes.c_int * n)(*[x.shape[-1] for x in xs]),
             (ctypes.c_int * n)(*[int(x.dtype == torch.int8) for x in xs]),
             (ctypes.c_void_p * n)(*([a.data_ptr() for a in axs] or [None] * n)), n,
             prepared["wfrag"].data_ptr(), prepared["bias"].data_ptr(), scale,
             out.data_ptr(), int(out.dtype == torch.int8), b, h, width, cout, k,
-            cchunk, n_tiles, *_slope_args(slope), int(q),
+            cchunk, n_tiles, *_slope_args(slope), int(et),
             torch.cuda.current_stream().cuda_stream,
         )
     return out
@@ -965,36 +1059,47 @@ def _fused(name: str, x, w, bias, slope, prepared, in_absmax, out_absmax,
         raise RuntimeError(f"no {name} kernel for device {x.device}")
     prepared = _check_cuda(name, [x], w, bias, prepared, (cin,), k, cout, q,
                            out_absmax is not None)
-    sm90 = name in _SM90_KERNELS
+    f32 = x.dtype == torch.float32
+    et = F32 if f32 else q
+    # K7-K9 in bfloat16 and int8 run on the Hopper core, every float32 kernel
+    # on the mma.sync core.
+    sm90 = name in _SM90_KERNELS and not f32
     folded, res = _SM90_KERNELS.get(name, (False, False))
     if prepared is None:
         prepared = (_prep_on_card(name, w, bias) if sm90 and not q
-                    else prep(w, bias, in_absmax, out_absmax))
+                    else prep(w, bias, in_absmax, out_absmax,
+                              torch.float32 if f32 else torch.bfloat16))
     cchunk, n_tiles, _ = prepared["plan"]
     if sm90:
         if not prepared["wfrag"].permute(*_SM90_ORDER).is_contiguous():
             raise ValueError(f"{name}: prepared['wfrag'] is not in the layout of _sm90_weights")
         lib = _lib_sm90()
         _sm90_smem_agrees(lib, k, cin, prepared["plan"], q, folded, res)
+        entry = f"rrin_{name}_launch"
     else:
+        if not prepared["wfrag"].is_contiguous():
+            raise ValueError(f"{name}: prepared['wfrag'] is not in the layout of "
+                             "_weight_fragments")
         lib = _lib()
-        _smem_agrees(lib, k, k, k, prepared["plan"], q)
+        _smem_agrees(lib, k, k, 5 if folded else k, prepared["plan"], et)
+        entry = f"rrin_{name}{'_f32' if name in _SM90_KERNELS else ''}_launch"
     oh, ow = (h // 2, width // 2) if pool else (2 * h, 2 * width)
-    out = _out_tensor(name, (b, oh, ow, cout), x.device, q, out_absmax, out_dtype)
-    axs, scale = _q_launch_args(prepared, [in_absmax], x.device) if q else ([None], None)
+    out = _out_tensor(name, (b, oh, ow, cout), x.device, f32, out_absmax, out_dtype)
+    wb = (prepared["wfrag"].data_ptr(), prepared["bias"].data_ptr())
     # The pool's entry point takes the output's size, the upsamples' the
     # input's; the folded one has k = 3 built in.
-    dims = (oh, ow) if pool else (h, width)
+    shape = (b, *((oh, ow) if pool else (h, width)), cout, *(() if folded else (k,)),
+             cchunk, n_tiles, *_slope_args(slope))
+    if f32 and name in _SM90_KERNELS:  # float32 only: no int8 arguments, no dt
+        args = (x.data_ptr(), cin, *wb, out.data_ptr(), *shape)
+    else:
+        axs, scale = _q_launch_args(prepared, [in_absmax], x.device) if q else ([None], None)
+        args = (x.data_ptr(), cin, int(x.dtype == torch.int8),
+                None if axs[0] is None else axs[0].data_ptr(), *wb, scale,
+                out.data_ptr(), int(out.dtype == torch.int8), *shape, int(et))
     with torch.cuda.device(x.device):
-        _build.launch(
-            f"{name}_int8" if q else name, getattr(lib, f"rrin_{name}_launch"),
-            x.data_ptr(), cin, int(x.dtype == torch.int8),
-            None if axs[0] is None else axs[0].data_ptr(),
-            prepared["wfrag"].data_ptr(), prepared["bias"].data_ptr(), scale,
-            out.data_ptr(), int(out.dtype == torch.int8), b, *dims, cout,
-            *(() if folded else (k,)), cchunk, n_tiles, *_slope_args(slope), int(q),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        _build.launch(_counter(name, et), getattr(lib, entry), *args,
+                      torch.cuda.current_stream().cuda_stream)
     return out
 
 

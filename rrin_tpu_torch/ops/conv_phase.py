@@ -27,8 +27,9 @@ tensors. Forward only: inputs that require grad are refused on the card.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -83,6 +84,18 @@ def supports(
     return None if plan is None else plan[0]
 
 
+@contextlib.contextmanager
+def no_tf32() -> Iterator[None]:
+    """cuDNN's float32 convs without TF32 inside the block, as the JAX
+    package's float32 convs run at HIGHEST precision."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
 def _leaky(y: torch.Tensor, slope: Optional[float]) -> torch.Tensor:
     return y if slope is None else torch.where(y >= 0, y, slope * y)
 
@@ -98,14 +111,7 @@ def _conv_plain(
     pad = (w.shape[0] - 1) // 2
     xn = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory = channels_last
     wn = w.to(x.dtype).permute(3, 2, 0, 1)
-    if x.is_cuda and x.dtype == torch.float32:
-        tf32 = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        try:
-            y = F.conv2d(xn, wn, padding=pad)
-        finally:
-            torch.backends.cudnn.allow_tf32 = tf32
-    else:
+    with no_tf32():
         y = F.conv2d(xn, wn, padding=pad)
     y = y.permute(0, 2, 3, 1).contiguous() + bias.to(x.dtype)
     return _leaky(y, slope)

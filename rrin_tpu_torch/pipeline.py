@@ -13,8 +13,9 @@ decode -> normalize -> pad16 -> interpolate -> unpad -> quantize -> encode:
     in-flight window blocks only at the device-to-host copy of a result.
   * Per-stage wall-clock timers are collected into a structured JSON report.
 
-Serves the packed path (``packed=None`` follows ``use_pallas``), in bfloat16
-or calibrated int8 (``int8=True``), or the plain path on one device; the
+Serves the packed path (``packed=None`` follows ``use_pallas``, whatever
+the ``compute_dtype``, as in the JAX package), in bfloat16, float32 or
+calibrated int8 (``int8=True``), or the plain path on one device; the
 options that belong to paths not ported yet raise ``NotImplementedError``
 (see ROADMAP.md).
 """

@@ -55,8 +55,12 @@ class TestArgumentChecks:
         launch (the checks need no card)."""
         x, w, b = case(rng, (1, 8, 8, 16), 3, 16, 8)
         x, w, b = t(x), t(w), t(b)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcp._check_cuda("conv_packed", [x], w, b, None, (16,), 3, 8)
+        # float32 has its own mode; float64, and float32 in int8 mode, none
+        assert tcp._check_cuda("conv_packed", [x], w, b, None, (16,), 3, 8) is None
+        with pytest.raises(NotImplementedError, match="float64"):
+            tcp._check_cuda("conv_packed", [x.double()], w, b, None, (16,), 3, 8)
+        with pytest.raises(NotImplementedError, match="int8 mode"):
+            tcp._check_cuda("conv_packed", [x], w, b, None, (16,), 3, 8, q=True)
         xb = x.to(torch.bfloat16)
         with pytest.raises(ValueError, match="contiguous"):
             tcp._check_cuda("conv_packed", [xb[..., :8]], w, b, None, (8,), 3, 8)
