@@ -12,9 +12,9 @@ and numpy; nothing else and no network. It builds the CUDA kernels of
   kernels      every kernel against its plain PyTorch version on the card at
                the shapes of the 1080p paths (K6, K8 and K9 also at the 4K up
                sites, K7 at the 4K d1c1 site), in bfloat16, in int8 and in
-               float32, with times and bounds; the K7-K9 weight-prep kernel
-               bit-equal to its plain version; the warps through warp_one and
-               as one launch per pair
+               float32, with times and bounds; the weight-prep kernel of the
+               Hopper core (K5-K9 in bfloat16) bit-equal to its plain
+               version; the warps through warp_one and as one launch per pair
   serve        the main path: the default Interpolator (bfloat16, kernels,
                packed U-Net path, full model width) answering 1080p requests
   serve_4k     the same Interpolator answering 2160x3840 requests, whose up
@@ -266,9 +266,12 @@ PACKED_KERNELS = {
 }
 
 
-# The kernels of csrc/conv_up_sm90.cu, whose bf16 wrappers lay out (and
-# fold) their weights on the card.
-SM90 = ("conv_pool_packed", "conv_up_m_packed", "conv_up_f_packed")
+# The kernels on the Hopper core (csrc/conv_sm90.cuh) in bfloat16 and int8,
+# whose bf16 wrappers lay out (and fold) their weights on the card, and the
+# source of their entry points; their float32 modes are csrc/conv_packed.cu.
+SM90 = {"conv_packed": "conv_packed_sm90.cu", "conv_up_packed": "conv_packed_sm90.cu",
+        "conv_pool_packed": "conv_up_sm90.cu", "conv_up_m_packed": "conv_up_sm90.cu",
+        "conv_up_f_packed": "conv_up_sm90.cu"}
 
 
 def packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope, int8=None, f32=False):
@@ -390,7 +393,7 @@ def packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope, int8=None, f
     if int8 is None and not f32 and kernel in SM90:
         # The weight prep that the wrapper runs on the card without
         # prepared=, against prep_* (its plain version): bit-equal.
-        on_card = conv_packed._prep_on_card(kernel, wt, bias)
+        on_card = conv_packed._prep_on_card(kernel, wt, bias, cins)
         check(torch.equal(on_card["wfrag"], prep["wfrag"])
               and torch.equal(on_card["bias"], prep["bias"]) and on_card["plan"] == prep["plan"],
               f"{name}: the weight-prep kernel differs from prep_*")
@@ -398,7 +401,7 @@ def packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope, int8=None, f
         out.update({
             "prep_bit_equal": True,
             "prep_max_abs_err": float(prep_err),
-            "prep_ms": time_ms(lambda: conv_packed._prep_on_card(kernel, wt, bias)),
+            "prep_ms": time_ms(lambda: conv_packed._prep_on_card(kernel, wt, bias, cins)),
             "prep_plain_ms": time_ms(lambda: prepare(wt, bias, cins)),
             "prep_bytes": wt.numel() * 4 + bias.numel() * 4 + on_card["wfrag"].numel() * 2
                           + on_card["bias"].numel() * 4,
@@ -446,6 +449,10 @@ def packed_cases(rng, dev, f32=False):
         ("conv_packed", "head_cout2", HP, WP, (32,), 2, 3, None, 0),
         ("conv_packed", "head_cout3", HP, WP, (32,), 3, 3, None, 0),
         ("conv_packed", "ragged_270x485", 270, 485, (32, 32), 32, 3, s, 0),
+        # k 7 with a width that is no multiple of a k7 tile's 58 columns
+        ("conv_packed", "k7_ragged_270x485", 270, 485, (32,), 32, 7, s, 0),
+        # four operands, one of them gathered a channel at a time (cin 10)
+        ("conv_packed", "four_operands_136x240", 136, 240, (64, 24, 16, 10), 48, 3, s, 0),
         ("conv_pool_packed", "d1c1", HP // 2, WP // 2, (32,), 64, 5, s, 1),
         ("conv_pool_packed", "d2c1", HP // 4, WP // 4, (64,), 128, 3, s, 1),
         ("conv_pool_packed", "ragged_135x243", 135, 243, (32,), 64, 5, s, 0),
@@ -490,6 +497,10 @@ def int8_cases(rng, dev):
         ("conv_packed", "c1_flow_cin6", HP, WP, (6,), 32, 7, ((False,), True)),
         ("conv_packed", "d4c2", HP // 16, WP // 16, (512,), 512, 3, ((True,), False)),
         ("conv_packed", "u1c2", HP // 8, WP // 8, (256, 256), 256, 3, ((True, False), True)),
+        ("conv_packed", "u4c2", HP, WP, (32, 32), 32, 3, ((True, True), False)),
+        # int8 and bf16 operands mixed, one gathered a channel at a time
+        ("conv_packed", "four_operands_136x240", 136, 240, (64, 24, 16, 10), 48, 3,
+         ((True, False, True, True), True)),
         ("conv_pool_packed", "d1c1", HP // 2, WP // 2, (32,), 64, 5, ((True,), True)),
         ("conv_pool_packed", "d2c1", HP // 4, WP // 4, (64,), 128, 3, ((True,), True)),
         ("conv_pool_packed", "d1c1_bf16_in_out", HP // 2, WP // 2, (32,), 64, 5,
@@ -506,6 +517,7 @@ def int8_cases(rng, dev):
         ("conv_up_packed", "u3c1_4k", H4K // 2, W4K // 2, (128,), 64, 3, ((True,), True)),
         ("conv_up_packed", "u4c1_4k", H4K, W4K, (64,), 32, 3, ((True,), True)),
         ("conv_up_packed", "k5_bf16_in_out", 270, 480, (64,), 32, 5, ((False,), False)),
+        ("conv_up_packed", "k1_ragged_270x486", 270, 486, (32,), 16, 1, ((True,), True)),
     ]
     return [packed_case(rng, dev, kernel, name, h, w, cins, cout, k, s, int8=q)
             for kernel, name, h, w, cins, cout, k, q in specs]
@@ -657,19 +669,22 @@ def serve_request(interp, pairs):
 
 # Launches of one exp=1 request (4 U-Nets, one warp pair) on each U-Net
 # path: 1080p and 4K differ at u3c1 and u4c1 (K9 below width 3200, K6 from
-# there on); a bf16 K7, K8 or K9 launch comes with one launch of their weight
+# there on); every bf16 K5-K9 launch comes with one launch of the weight
 # prep; in int8 every conv but the four heads is int8 (weights quantised in
-# PyTorch); both warps of a pair are one launch, with no packing pass; the
-# int8 calibration pass runs the plain path.
+# PyTorch), the bf16 heads prepare theirs on the card; both warps of a pair
+# are one launch, with no packing pass; the int8 calibration pass runs the
+# plain path.
 WARP_PAIR = {"warp_u8": 1}
 PACKED_PER_REQUEST = {"conv_packed": 56, "conv_pool_packed": 8, "conv_up_m_packed": 4,
-                      "conv_up_f_packed": 8, "conv_up_prep": 20, **WARP_PAIR}
+                      "conv_up_f_packed": 8, "conv_up_prep": 76, **WARP_PAIR}
 PACKED_4K_PER_REQUEST = {"conv_packed": 56, "conv_pool_packed": 8, "conv_up_m_packed": 4,
-                         "conv_up_packed": 8, "conv_up_prep": 12, **WARP_PAIR}
+                         "conv_up_packed": 8, "conv_up_prep": 76, **WARP_PAIR}
 INT8_PER_REQUEST = {"conv_packed_int8": 52, "conv_packed": 4, "conv_pool_packed_int8": 8,
-                    "conv_up_m_packed_int8": 4, "conv_up_f_packed_int8": 8, **WARP_PAIR}
+                    "conv_up_m_packed_int8": 4, "conv_up_f_packed_int8": 8,
+                    "conv_up_prep": 4, **WARP_PAIR}
 INT8_4K_PER_REQUEST = {"conv_packed_int8": 52, "conv_packed": 4, "conv_pool_packed_int8": 8,
-                       "conv_up_m_packed_int8": 4, "conv_up_packed_int8": 8, **WARP_PAIR}
+                       "conv_up_m_packed_int8": 4, "conv_up_packed_int8": 8,
+                       "conv_up_prep": 4, **WARP_PAIR}
 PLAIN_PER_REQUEST = {"conv_phase": 36, **WARP_PAIR}
 CALIBRATION_LAUNCHES = PLAIN_PER_REQUEST
 # float32: the float32 modes of the same kernels (weights laid out and split
@@ -856,23 +871,22 @@ def phase_serve_plain(params, dev):
 _PACKED_MODES = {"0": "conv_packed (K5)", "1": "conv_up_packed (K6)",
                  "2": "conv_pool_packed (K7)", "3": "conv_up_m_packed (K8)",
                  "4": "conv_up_f_packed (K9)"}
-_PACKED_TYPES = {"__nv_bfloat16": "", "signed char": " int8", "float": " float32"}
 _SM90_MODES = {"0": "conv_up_m_packed (K8)", "1": "conv_up_f_packed (K9)",
-               "2": "conv_pool_packed (K7)"}
+               "2": "conv_pool_packed (K7)", "3": "conv_up_packed (K6)",
+               "4": "conv_packed (K5)"}
 
 
 def _profile_group(name: str) -> str:
     low = name.lower()
-    packed = re.search(
-        r"conv_packed_kernel<\s*\d+,\s*(?:\(.*?\))?(\d+),\s*([a-z_0-9 ]+?)\s*>", low)
-    if packed:  # conv_packed_kernel<NT, MODE, E>: the mode is the entry point
-        return _PACKED_MODES[packed.group(1)] + _PACKED_TYPES.get(packed.group(2), " ?")
+    packed = re.search(r"conv_packed_kernel<\s*\d+,\s*(?:\(.*?\))?(\d+)\s*>", low)
+    if packed:  # conv_packed_kernel<NT, MODE>, float32: the mode is the entry point
+        return _PACKED_MODES[packed.group(1)] + " float32"
     sm90 = re.search(
         r"conv_up_sm90_kernel<\s*\d+,\s*(?:\(.*?\))?(\d+),\s*(true|false)", low)
     if sm90:  # conv_up_sm90_kernel<N, MODE, Q, K>
         return _SM90_MODES[sm90.group(1)] + (" int8" if sm90.group(2) == "true" else "")
     if "conv_up_prep_kernel" in low:
-        return "K7-K9 weight prep"
+        return "K5-K9 weight prep"
     if "conv_phase_kernel" in low:
         return "conv_phase (K1)"
     if "warp_kernel" in low:
@@ -1166,8 +1180,7 @@ def kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_
                  "conv_up_f_packed"):
         cases = [c for c in packed if c["kernel"] == name]
         n = sum(c["per_flow_unet"] for c in cases)
-        source = "rrin_tpu_torch/csrc/" + ("conv_up_sm90.cu" if name in SM90
-                                           else "conv_packed.cu")
+        source = "rrin_tpu_torch/csrc/" + SM90[name]
         if name == "conv_up_packed":
             entry = _conv_entry(
                 name, source, cases, counts_4k[name],
@@ -1180,9 +1193,8 @@ def kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_
             entry = _conv_entry(
                 name, source, cases, serve_counts[name],
                 f"sum over the {n} launches of one flow U-Net at 1088x1920 (packed path)")
-        if name in SM90:
-            entry["prepared_ms"] = sum(c["kernel_prepared_ms"] * c["per_flow_unet"]
-                                       for c in cases if c["per_flow_unet"])
+        entry["prepared_ms"] = sum(c["kernel_prepared_ms"] * c["per_flow_unet"]
+                                   for c in cases if c["per_flow_unet"])
         entry["int8"] = _int8_entry([c for c in int8 if c["kernel"] == name],
                                     int8_counts[f"{name}_int8"])
         check(entry["int8"]["launches"] > 0, f"{name}: no int8 launch on the int8 path")
@@ -1216,12 +1228,14 @@ def kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_
 
 
 def _prep_entry(packed, serve_counts):
-    """The K7-K9 weight prep on the card: not a TPU kernel (the reference
-    folds and lays out these weights with XLA ops in ``prep_conv_up_f``,
-    ``prep_conv_up_m`` and ``prep_conv_pool``); its sites as K7, K8 and K9
-    have them in one flow U-Net at 1088x1920, bytes-bound (fp32 weights in,
-    the bf16 layout out)."""
-    cases = [c for c in packed if c["kernel"] in SM90 and c["per_flow_unet"]]
+    """The weight prep of the Hopper core on the card: not a TPU kernel (the
+    reference lays out, and for K9 folds, these weights with XLA ops in
+    ``prep_conv``, ``prep_conv_up_f``, ``prep_conv_up_m`` and
+    ``prep_conv_pool``); its sites as K5, K7, K8 and K9 have them in one flow
+    U-Net at 1088x1920 (K6's sites are 4K ones), bytes-bound (fp32 weights
+    in, the bf16 layout out)."""
+    cases = [c for c in packed
+             if c["kernel"] != "conv_up_packed" and c["per_flow_unet"]]
 
     def total(key):
         return sum(c[key] * c["per_flow_unet"] for c in cases)
@@ -1229,16 +1243,17 @@ def _prep_entry(packed, serve_counts):
     return {
         "name": "conv_up_prep", "route": "cuda", "source": "rrin_tpu_torch/csrc/conv_up_sm90.cu",
         "replaces": "rrin_tpu/ops/conv_packed.py:2106",
-        "replaces_what": "prep_conv_up_f (and prep_conv_up_m, :1642, prep_conv_pool, :1010): "
-                         "XLA weight fold and layout, not a Pallas kernel",
+        "replaces_what": "prep_conv_up_f (and prep_conv, :345, prep_conv_up, :711, "
+                         "prep_conv_pool, :1010, prep_conv_up_m, :1642): XLA weight fold "
+                         "and layout, not a Pallas kernel",
         "launches": serve_counts["conv_up_prep"],
         "max_abs_err": max(c["prep_max_abs_err"] for c in cases),
         "ms": total("prep_ms"), "plain_ms": total("prep_plain_ms"),
         "bound_ms": total("prep_bytes") / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None, "library_null_reason": "no PyTorch call folds these weights",
-        "what": f"sum over the {sum(c['per_flow_unet'] for c in cases)} K7-K9 launches of one "
-                "flow U-Net at 1088x1920, bit-equal to prep_conv_pool / prep_conv_up_m / "
-                "prep_conv_up_f",
+        "what": f"sum over the {sum(c['per_flow_unet'] for c in cases)} K5, K7-K9 launches of "
+                "one flow U-Net at 1088x1920, bit-equal to prep_conv / prep_conv_pool / "
+                "prep_conv_up_m / prep_conv_up_f (and to prep_conv_up at K6's sites)",
     }
 
 

@@ -1,8 +1,11 @@
-// The convolutions of the packed serving path on NHWC tensors: one
-// implicit-GEMM core on mma.sync with five load prologues, in bfloat16, int8
-// or float32. They replace the Pallas kernels of rrin_tpu/ops/conv_packed.py
-// named beside each (K5 _kernel_body, K6 _kernel_body_up, K7
-// _kernel_body_pool, K8 _kernel_body_up_m, K9 _kernel_body_up_f).
+// The float32 modes of the convolutions of the packed serving path on NHWC
+// tensors: one implicit-GEMM core on mma.sync with five load prologues. They
+// replace the Pallas kernels of rrin_tpu/ops/conv_packed.py named beside
+// each (K5 _kernel_body, K6 _kernel_body_up, K7 _kernel_body_pool, K8
+// _kernel_body_up_m, K9 _kernel_body_up_f) for float32 operands; their
+// bfloat16 and int8 modes run on the wgmma core of conv_sm90.cuh, where a
+// tf32 wgmma would take both operands K-major, which that core's layout is
+// not.
 //
 //   conv_packed       (K5) stride-1 SAME conv over the channel concat of 1..4
 //                     operands given separately (the concat never exists in
@@ -10,70 +13,44 @@
 //   conv_up_packed    (K6) conv(upsample_2x_bilinear(x)): the block builds
 //                     the upsampled halo tile from the half-resolution
 //                     tensor while loading, interpolating along W first and
-//                     then H, and in int8 dequantising an int8 input before
-//                     it interpolates, as the reference's plain version of
-//                     that kernel does;
-//   conv_pool_packed  (K7, float32 only) conv(avg_pool_2x(x)): the block
-//                     pools the 2x footprint of its halo tile while loading;
-//   conv_up_m_packed  (K8, float32 only) conv(upsample_2x_bilinear(x)), H
-//                     interpolated first, as upsample_2x_bilinear does;
-//   conv_up_f_packed  (K9, float32 only) the same function for k = 3 with the
-//                     W-upsample folded into per-output-parity weights on the
-//                     host: the block builds only the H-interpolated rows, at
-//                     half width, and the GEMM emits two output columns per
-//                     pixel (below).
+//                     then H, as the reference's plain version does;
+//   conv_pool_packed  (K7) conv(avg_pool_2x(x)): the block pools the 2x
+//                     footprint of its halo tile while loading;
+//   conv_up_m_packed  (K8) conv(upsample_2x_bilinear(x)), H interpolated
+//                     first, as upsample_2x_bilinear does;
+//   conv_up_f_packed  (K9) the same function for k = 3 with the W-upsample
+//                     folded into per-output-parity weights on the host: the
+//                     block builds only the H-interpolated rows, at half
+//                     width, and the GEMM emits two output columns per pixel
+//                     (below).
 //
-// In bfloat16 and int8, K7, K8 and K9 run on the wgmma core of
-// conv_up_sm90.cu; a tf32 wgmma takes both operands K-major only, which that
-// core's layout is not, so their float32 modes live here.
-//
-// bfloat16: bf16 operands, mma.sync.m16n8k16 with float32 accumulation; the
-// epilogue adds a float32 bias and an optional LeakyReLU and rounds once to
-// bfloat16. Values built in a prologue are computed in float32 and rounded
-// once to bfloat16 (round to nearest even) as they enter shared memory.
-//
-// int8: every operand is bf16 or already int8 on its grid. The prologue
-// builds the float32 value as above (dequantising an int8 input in mode
-// UPD) and stores clip(rint(v * 127/ax), +-127) as int8 (round half to
-// even, the reference's jnp.round); an int8 input is copied as it is in mode
-// DIRECT. The weights are int8 per output channel, pre-scaled per operand
-// on the host, so one int32 sum serves all operands; mma.sync.m16n8k32 (s8
-// x s8 -> s32); the epilogue computes sum * scale[co] + bias[co], LeakyReLU,
-// and stores bf16, or int8 via rint and a clip when the next layer carries
-// int8 (the 127/ax_out step is folded into scale and bias on the host). ax
-// reaches the kernel as a device pointer per operand: nothing is read back
-// to the host.
-//
-// float32 ("3xTF32"): the reference contracts float32 operands at full
-// float32 precision, which a single TF32 product (10 mantissa bits) misses
-// by three orders of magnitude. Every operand is split into two TF32 parts,
-// hi = rna(x) and lo = rna(x - hi); the host splits the weights once, the
-// kernel splits each activation as it loads an A fragment from the float32
-// halo tile; mma.sync.m16n8k8.tf32 sums lo_a*hi_b + hi_a*lo_b + hi_a*hi_b
-// of one k-step (the dropped lo_a*lo_b and the rounding of lo are about
-// 2^-22 of each product), which is added to a float32 accumulator with
-// round to nearest (mma_tile says why). Prologue values are float32, stored as they
+// "3xTF32": the reference contracts float32 operands at full float32
+// precision, which a single TF32 product (10 mantissa bits) misses by three
+// orders of magnitude. Every operand is split into two TF32 parts, hi =
+// rna(x) and lo = rna(x - hi); the host splits the weights once, the kernel
+// splits each activation as it loads an A fragment from the float32 halo
+// tile; mma.sync.m16n8k8.tf32 sums lo_a*hi_b + hi_a*lo_b + hi_a*hi_b of one
+// k-step (the dropped lo_a*lo_b and the rounding of lo are about 2^-22 of
+// each product), which is added to a float32 accumulator with round to
+// nearest (mma_tile says why). Prologue values are float32, stored as they
 // are; the epilogue adds bias and LeakyReLU and stores float32. Three
-// products per tf32 step: the float32 modes are bound by the tensor cores'
+// products per tf32 step: the kernels are bound by the tensor cores'
 // float32-accurate rate, a third of the TF32 peak.
 //
 // GEMM view: M = pixels, N = channels per pixel of the output, K = taps x
-// input channels (KK = 16 bf16, 32 int8 or 8 float32 per mma, 32 bytes):
+// input channels (KK = 8 per mma, 32 bytes):
 //   * a block computes 8 rows x 32 columns of pixels for one block of NT*8
 //     <= 64 output channels (blockIdx.z walks batch x channel blocks); warp
 //     w owns row w as two m-tiles of 16 consecutive pixels;
-//   * input channels are walked operand by operand in chunks of at most 64
-//     (bf16), 128 (int8) or 32 (float32); for each chunk the halo tile
-//     (8+ky-1) x (32+kx-1) x chunk is staged in shared memory (zero outside
-//     the image: SAME padding at the resolution the conv runs at), each
-//     pixel padded by 16 bytes so the eight pixel rows of an A fragment fall
-//     on distinct banks. An A fragment's four registers lie at the same byte
-//     offsets in all three element types (a tf32 k8 fragment holds one
-//     element a register where a bf16 k16 fragment holds two);
+//   * input channels are walked operand by operand in chunks of at most 32;
+//     for each chunk the halo tile (8+ky-1) x (32+kx-1) x chunk is staged in
+//     shared memory (zero outside the image: SAME padding at the resolution
+//     the conv runs at), each pixel padded by 16 bytes so the eight pixel
+//     rows of an A fragment fall on distinct banks;
 //   * the weights arrive in B-fragment order
-//     [channel block][chunk][dy][tap][k-step][n-tile][lane] (one uint2 a
-//     lane; float32: one uint4, the hi pair then the lo pair) and are
-//     streamed into shared memory one dy row at a time.
+//     [channel block][chunk][dy][tap][k-step][n-tile][lane] (one uint4 a
+//     lane: the hi pair, then the lo pair) and are streamed into shared
+//     memory one dy row at a time.
 // Redundant halo loads across channel blocks and neighbouring tiles are
 // served by the L2 cache. Ragged edges are masked at the store; nothing
 // assumes W % 32 or H % 8.
@@ -90,14 +67,10 @@
 // Plain C entry points; each returns cudaGetLastError() after the launch,
 // runs on the given stream, allocates nothing and does not synchronise.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "conv_prologue.cuh"
-#include "mma_bf16.cuh"
 
 namespace {
 
@@ -106,43 +79,18 @@ constexpr int TW = 32;           // pixel columns per block = 2 m-tiles
 constexpr int THREADS = TH * 32;
 constexpr int PAD_BYTES = 16;    // padding per halo pixel
 constexpr int MAX_OPS = 4;       // operands of one conv_packed call
+constexpr int KK = 8;            // channels per tf32 mma step (32 bytes)
 
 enum Mode { DIRECT = 0, UPD = 1, POOL = 2, UP_M = 3, UP_F = 4 };
-
-// Element types as the entry points name them (dt).
-enum Dt { BF16 = 0, S8 = 1, F32 = 2 };
-
-// Per element type: the accumulator, one lane's B fragment of one n-tile
-// and k-step, and the channels of one k-step (32 bytes each).
-template <typename E> struct Elem;
-template <> struct Elem<__nv_bfloat16> {
-  using Acc = float;
-  using BFrag = uint2;
-  static constexpr int KK = 16;
-};
-template <> struct Elem<int8_t> {
-  using Acc = int;
-  using BFrag = uint2;
-  static constexpr int KK = 32;
-};
-template <> struct Elem<float> {
-  using Acc = float;
-  using BFrag = uint4;  // tf32 hi of rows tig, tig + 4, then their lo parts
-  static constexpr int KK = 8;
-};
 
 struct ConvArgs {
   const void* x[MAX_OPS];
   int c[MAX_OPS];      // channels of each operand that enter the conv
   int cs[MAX_OPS];     // its pixel stride in elements (>= c)
-  int in_i8[MAX_OPS];  // int8 mode: the operand is int8 on its grid already
-  const float* ax[MAX_OPS];  // int8 mode: its calibrated |x| maximum
   int n_ops;
   const void* wfrag;
   const float* bias;
-  const float* scale;  // int8 mode: per output channel
   void* out;
-  int out_i8;
   int H, W;          // rows and columns of the GEMM's pixels
   int Hs, Ws;        // rows and columns of the stored operands
   int cout;          // channels per GEMM pixel of the output
@@ -153,26 +101,12 @@ struct ConvArgs {
   float slope;
 };
 
-// s8 x s8 -> s32 tensor-core product. Fragments, g = lane / 4, tig = lane % 4:
-//   A (16 x 32): a0 = A[g][4*tig .. +3]       a1 = A[g + 8][4*tig .. +3]
-//                a2 = A[g][4*tig + 16 .. +3]  a3 = A[g + 8][4*tig + 16 .. +3]
-//   B (32 x 8):  b.x = B[4*tig .. +3][g]      b.y = B[4*tig + 16 .. +3][g]
-//   C (16 x 8):  as mma_m16n8k16_bf16's, int32.
-__device__ __forceinline__ void mma_m16n8k32_s8(int (&c)[4], const uint32_t (&a)[4],
-                                                const uint2 b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-
-// tf32 x tf32 -> f32 tensor-core product, one element a register:
+// tf32 x tf32 -> f32 tensor-core product, one element a register, with
+// g = lane / 4 and tig = lane % 4:
 //   A (16 x 8):  a0 = A[g][tig]   a1 = A[g + 8][tig]
 //                a2 = A[g][tig + 4]   a3 = A[g + 8][tig + 4]
 //   B (8 x 8):   b0 = B[tig][g]   b1 = B[tig + 4][g]
-//   C (16 x 8):  as mma_m16n8k16_bf16's.
-// Each register sits at the byte offset of the bf16 k16 fragment's.
+//   C (16 x 8):  c0, c1 = C[g][2*tig .. +1]  c2, c3 = C[g + 8][2*tig .. +1]
 __device__ __forceinline__ void mma_m16n8k8_tf32(float (&c)[4], const uint32_t (&a)[4],
                                                  uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -189,27 +123,24 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   return r;
 }
 
-// One m-tile's A operand: the four registers as read from the halo tile; in
-// float32 they hold the tf32 hi parts and lo the lo parts.
+// One m-tile's A operand as read from the halo tile: the tf32 hi parts (r)
+// and lo parts (lo).
 struct AFrag {
   uint32_t r[4];
   uint32_t lo[4];
 };
 
-template <typename E>
 __device__ __forceinline__ AFrag load_a(const unsigned char* p, int pstride) {
   AFrag f;
   f.r[0] = *reinterpret_cast<const uint32_t*>(p);
   f.r[1] = *reinterpret_cast<const uint32_t*>(p + 8 * pstride);
   f.r[2] = *reinterpret_cast<const uint32_t*>(p + 16);
   f.r[3] = *reinterpret_cast<const uint32_t*>(p + 8 * pstride + 16);
-  if constexpr (std::is_same<E, float>::value) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float x = __uint_as_float(f.r[i]);
-      f.r[i] = tf32_rna(x);
-      f.lo[i] = tf32_rna(__fsub_rn(x, __uint_as_float(f.r[i])));
-    }
+  for (int i = 0; i < 4; ++i) {
+    const float x = __uint_as_float(f.r[i]);
+    f.r[i] = tf32_rna(x);
+    f.lo[i] = tf32_rna(__fsub_rn(x, __uint_as_float(f.r[i])));
   }
   return f;
 }
@@ -226,19 +157,12 @@ __device__ __forceinline__ AFrag row_masked(const AFrag& f, bool keep_g, bool ke
   return e;
 }
 
-__device__ __forceinline__ void mma_tile(float (&c)[4], const AFrag& a, const uint2 b) {
-  mma_m16n8k16_bf16(c, a.r, b);
-}
-
-__device__ __forceinline__ void mma_tile(int (&c)[4], const AFrag& a, const uint2 b) {
-  mma_m16n8k32_s8(c, a.r, b);
-}
-
 // 3xTF32, the small products first, summed from zero on the tensor cores
 // and added to the accumulator with round to nearest: the tensor cores add
 // to their accumulator by truncation, which over the hundreds of k-steps of
 // a wide conv sums to a bias of about one float32 step of the result a
 // step (1e-4 at K = 4608 in a first version that accumulated on them).
+// b: the hi pair of rows tig, tig + 4, then their lo parts.
 __device__ __forceinline__ void mma_tile(float (&c)[4], const AFrag& a, const uint4 b) {
   float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   mma_m16n8k8_tf32(t, a.lo, b.x, b.y);
@@ -248,24 +172,14 @@ __device__ __forceinline__ void mma_tile(float (&c)[4], const AFrag& a, const ui
   for (int i = 0; i < 4; ++i) c[i] = __fadd_rn(c[i], t[i]);
 }
 
-// Eight channels of one stored pixel as float32 (int8 mode: times `pre`).
-template <typename E>
-__device__ __forceinline__ F8 tap(const void* xb, int i8, int cs, int Ws, int y, int x, int c,
-                                  float pre) {
-  if constexpr (std::is_same<E, float>::value)
-    return load8_f32(static_cast<const float*>(xb), cs, Ws, y, x, c);
-  else
-    return tap8<std::is_same<E, int8_t>::value>(xb, i8, cs, Ws, y, x, c, pre);
-}
-
-// Eight channels of the pixel (gy, gx) that the GEMM reads, inside the image,
-// as float32: as stored; pooled 2x2; upsampled in both axes, W first and then
-// H (K6, the order of the reference's upsample_2x_packed) or H first (K8, the
+// Eight channels of the pixel (gy, gx) that the GEMM reads, inside the image:
+// as stored; pooled 2x2; upsampled in both axes, W first and then H (K6,
+// the order of the reference's upsample_2x_packed) or H first (K8, the
 // order of upsample_2x_bilinear); or interpolated along H only (K9).
-template <int MODE, typename E>
-__device__ __forceinline__ F8 construct8(const void* xb, int i8, int cs, int Hs, int Ws,
-                                         int gy, int gx, int c, float pre) {
-  auto t = [&](int y, int x) { return tap<E>(xb, i8, cs, Ws, y, x, c, pre); };
+template <int MODE>
+__device__ __forceinline__ F8 construct8(const float* xb, int cs, int Hs, int Ws, int gy,
+                                         int gx, int c) {
+  auto t = [&](int y, int x) { return load8_f32(xb, cs, Ws, y, x, c); };
   if constexpr (MODE == DIRECT) {
     return t(gy, gx);
   } else if constexpr (MODE == POOL) {
@@ -288,14 +202,9 @@ __device__ __forceinline__ F8 construct8(const void* xb, int i8, int cs, int Hs,
 // At most 128 registers a thread, so that two blocks fit a multiprocessor and
 // one block's tensor-core work covers the other's loads and barriers; with
 // one block resident the kernel runs markedly slower on an H100.
-template <int NT, int MODE, typename E>
+template <int NT, int MODE>
 __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs a) {
-  using Acc = typename Elem<E>::Acc;
-  using BFrag = typename Elem<E>::BFrag;
-  constexpr bool Q = std::is_same<E, int8_t>::value;
-  constexpr bool F = std::is_same<E, float>::value;
-  constexpr int ES = sizeof(E);         // bytes per staged element
-  constexpr int KK = Elem<E>::KK;       // channels per mma step
+  constexpr int ES = 4;                 // bytes per staged element
   extern __shared__ __align__(16) unsigned char smem[];
   const int hpy = (a.ky - 1) / 2;
   const int hpx = (a.kx - 1) / 2;
@@ -304,11 +213,11 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
   const int cchunk = a.cchunk;
   const int pstride = cchunk * ES + PAD_BYTES;  // bytes per halo pixel
   const int kc_count = cchunk / KK;
-  const int tap_elems = kc_count * NT * 32;  // BFrag per (chunk, dy, tap)
+  const int tap_elems = kc_count * NT * 32;  // uint4 per (chunk, dy, tap)
   const int wrow_elems = a.ntaps * tap_elems;
   unsigned char* halo = smem;
-  BFrag* wrow = reinterpret_cast<BFrag*>(smem + static_cast<size_t>(hh) * hw * pstride);
-  const BFrag* wfrag = static_cast<const BFrag*>(a.wfrag);
+  uint4* wrow = reinterpret_cast<uint4*>(smem + static_cast<size_t>(hh) * hw * pstride);
+  const uint4* wfrag = static_cast<const uint4*>(a.wfrag);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -320,40 +229,25 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
   const int cb = blockIdx.z % a.n_cb;
   const size_t b = blockIdx.z / a.n_cb;
 
-  Acc acc[2][NT][4];
+  float acc[2][NT][4];
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
 
   int gch = 0;  // chunk index over all operands
   for (int op = 0; op < a.n_ops; ++op) {
     const int cin = a.c[op];
     const int cs = a.cs[op];
-    const int i8 = Q ? a.in_i8[op] : 0;
-    const void* xb = static_cast<const unsigned char*>(a.x[op]) +
-                     b * a.Hs * a.Ws * cs * (i8 ? 1 : (F ? 4 : 2));
-    // int8 mode: bf16 values are taken to the grid by 127/ax after the
-    // prologue; mode UPD dequantises an int8 input first.
-    float pre = 1.0f, post = 1.0f;
-    if (Q) {
-      const float axc = fmaxf(__ldg(a.ax[op]), 1e-12f);
-      const float inv = __fdiv_rn(127.0f, axc);
-      if (!i8) {
-        post = inv;
-      } else if (MODE == UPD) {
-        pre = __fdiv_rn(axc, 127.0f);
-        post = inv;
-      }
-    }
+    const float* xb = static_cast<const float*>(a.x[op]) + b * a.Hs * a.Ws * cs;
     const int n_chunks = (cin + cchunk - 1) / cchunk;
     for (int ch = 0; ch < n_chunks; ++ch, ++gch) {
       const int c_base = ch * cchunk;
       __syncthreads();  // the previous chunk's fragments are all read
       if (MODE != DIRECT || ((cin & 7) == 0 && (cs & 7) == 0)) {
-        // 8 channels at a time (16 bytes of bf16, 8 of int8, 32 of float32).
+        // 8 channels (32 bytes) at a time.
         const int v_per_pix = cchunk >> 3;
         const int total = hh * hw * v_per_pix;
         for (int i = tid; i < total; i += THREADS) {
@@ -363,33 +257,9 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
           const int gx = x0 + pix % hw - hpx;
           const int c = c_base + v * 8;
           const bool inside = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && c < cin;
-          unsigned char* dst = halo + pix * pstride + v * 8 * ES;
-          if constexpr (Q) {
-            uint2 val = make_uint2(0u, 0u);
-            if (inside) {
-              if (MODE == DIRECT && i8)
-                val = __ldg(reinterpret_cast<const uint2*>(
-                    static_cast<const int8_t*>(xb) + pix_off(cs, a.Ws, gy, gx, c)));
-              else
-                val = quant8(construct8<MODE, E>(xb, i8, cs, a.Hs, a.Ws, gy, gx, c, pre),
-                             post);
-            }
-            *reinterpret_cast<uint2*>(dst) = val;
-          } else if constexpr (F) {
-            F8 val = {};
-            if (inside) val = construct8<MODE, E>(xb, 0, cs, a.Hs, a.Ws, gy, gx, c, pre);
-            store8_f32(dst, val);
-          } else {
-            uint4 val = make_uint4(0u, 0u, 0u, 0u);
-            if (inside) {
-              if (MODE == DIRECT)
-                val = __ldg(reinterpret_cast<const uint4*>(
-                    static_cast<const __nv_bfloat16*>(xb) + pix_off(cs, a.Ws, gy, gx, c)));
-              else
-                val = pack8(construct8<MODE, E>(xb, i8, cs, a.Hs, a.Ws, gy, gx, c, pre));
-            }
-            *reinterpret_cast<uint4*>(dst) = val;
-          }
+          F8 val = {};
+          if (inside) val = construct8<MODE>(xb, cs, a.Hs, a.Ws, gy, gx, c);
+          store8_f32(halo + pix * pstride + v * 8 * ES, val);
         }
       } else {
         // cin in {6, 9, 10, ...}: element loads, zero-padded to the chunk.
@@ -401,31 +271,15 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
           const int gx = x0 + pix % hw - hpx;
           const bool inside =
               gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && c_base + c < cin;
-          unsigned char* dst = halo + pix * pstride;
-          const size_t off = inside ? pix_off(cs, a.Ws, gy, gx, c_base + c) : 0;
-          if constexpr (Q) {
-            int8_t val = 0;
-            if (inside)
-              val = i8 ? static_cast<const int8_t*>(xb)[off]
-                       : static_cast<int8_t>(quant1(
-                             __bfloat162float(static_cast<const __nv_bfloat16*>(xb)[off]),
-                             post));
-            reinterpret_cast<int8_t*>(dst)[c] = val;
-          } else if constexpr (F) {
-            float val = 0.0f;
-            if (inside) val = static_cast<const float*>(xb)[off];
-            reinterpret_cast<float*>(dst)[c] = val;
-          } else {
-            __nv_bfloat16 val = __float2bfloat16_rn(0.0f);
-            if (inside) val = static_cast<const __nv_bfloat16*>(xb)[off];
-            reinterpret_cast<__nv_bfloat16*>(dst)[c] = val;
-          }
+          float val = 0.0f;
+          if (inside) val = xb[pix_off(cs, a.Ws, gy, gx, c_base + c)];
+          reinterpret_cast<float*>(halo + pix * pstride)[c] = val;
         }
       }
 
       for (int dy = 0; dy < a.ky; ++dy) {
         __syncthreads();  // halo tile written; previous weight row consumed
-        const BFrag* wsrc =
+        const uint4* wsrc =
             wfrag + (static_cast<size_t>(cb * a.total_chunks + gch) * a.ky + dy) * wrow_elems;
         for (int i = tid; i < wrow_elems; i += THREADS) wrow[i] = __ldg(wsrc + i);
         __syncthreads();
@@ -433,16 +287,15 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
         const unsigned char* arow = halo + (warp + dy) * hw * pstride;
         for (int dx = 0; dx < a.kx; ++dx) {
           for (int kc = 0; kc < kc_count; ++kc) {
-            // KK channels are 32 bytes in every element type, a register 4.
+            // KK channels are 32 bytes, a register 4.
             AFrag af[2];
 #pragma unroll
             for (int mt = 0; mt < 2; ++mt)
-              af[mt] = load_a<E>(arow + (mt * 16 + g + dx) * pstride + kc * 32 + tig * 4,
-                                 pstride);
-            const BFrag* bp = wrow + dx * tap_elems + kc * NT * 32 + lane;
+              af[mt] = load_a(arow + (mt * 16 + g + dx) * pstride + kc * 32 + tig * 4, pstride);
+            const uint4* bp = wrow + dx * tap_elems + kc * NT * 32 + lane;
 #pragma unroll
             for (int nt = 0; nt < NT; ++nt) {
-              const BFrag bfrag = bp[nt * 32];
+              const uint4 bfrag = bp[nt * 32];
               mma_tile(acc[0][nt], af[0], bfrag);
               mma_tile(acc[1][nt], af[1], bfrag);
             }
@@ -456,14 +309,14 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
                   const int xs = x0 + mt * 16;  // column of fragment row 0
                   if (xs == 0) {
                     const AFrag e = row_masked(af[mt], g == 0, false);
-                    const BFrag* ep = wrow + 3 * tap_elems + kc * NT * 32 + lane;
+                    const uint4* ep = wrow + 3 * tap_elems + kc * NT * 32 + lane;
 #pragma unroll
                     for (int nt = 0; nt < NT; ++nt) mma_tile(acc[mt][nt], e, ep[nt * 32]);
                   }
                   const int r = a.W - 1 - xs;  // fragment row of the last column
                   if (r >= 0 && r < 16) {
                     const AFrag e = row_masked(af[mt], g == r, g + 8 == r);
-                    const BFrag* ep = wrow + 4 * tap_elems + kc * NT * 32 + lane;
+                    const uint4* ep = wrow + 4 * tap_elems + kc * NT * 32 + lane;
 #pragma unroll
                     for (int nt = 0; nt < NT; ++nt) mma_tile(acc[mt][nt], e, ep[nt * 32]);
                   }
@@ -476,7 +329,7 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
     }
   }
 
-  // Epilogue: (int8: scale,) bias, LeakyReLU, one rounding, masked stores.
+  // Epilogue: bias, LeakyReLU, masked stores.
   const int oy = y0 + warp;
   if (oy >= a.H) return;
   const int cout = a.cout;
@@ -488,105 +341,58 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
     for (int half = 0; half < 2; ++half) {
       const int ox = x0 + mt * 16 + g + half * 8;
       if (ox >= a.W) continue;
-      const size_t obase = ((b * a.H + oy) * a.W + ox) * cout;
+      float* op = static_cast<float*>(a.out) + ((b * a.H + oy) * a.W + ox) * cout;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int co = co_base + nt * 8 + 2 * tig;
         if (co >= cout) continue;
         const bool has1 = co + 1 < cout;
-        float v0 = static_cast<float>(acc[mt][nt][half * 2]);
-        float v1 = static_cast<float>(acc[mt][nt][half * 2 + 1]);
-        if (Q) {
-          v0 *= __ldg(a.scale + co);
-          if (has1) v1 *= __ldg(a.scale + co + 1);
-        }
-        v0 += __ldg(a.bias + co);
+        float v0 = acc[mt][nt][half * 2] + __ldg(a.bias + co);
+        float v1 = acc[mt][nt][half * 2 + 1];
         if (has1) v1 += __ldg(a.bias + co + 1);
         if (a.has_slope) {
           v0 = v0 >= 0.0f ? v0 : a.slope * v0;
           v1 = v1 >= 0.0f ? v1 : a.slope * v1;
         }
-        if (Q && a.out_i8) {
-          int8_t* op = static_cast<int8_t*>(a.out) + obase;
-          const int q0 = quant1(v0, 1.0f), q1 = quant1(v1, 1.0f);
-          if (pair_store) {
-            *reinterpret_cast<char2*>(op + co) = make_char2(q0, q1);
-          } else {
-            op[co] = static_cast<int8_t>(q0);
-            if (has1) op[co + 1] = static_cast<int8_t>(q1);
-          }
-        } else if (F) {
-          float* op = static_cast<float*>(a.out) + obase;
-          if (pair_store) {
-            *reinterpret_cast<float2*>(op + co) = make_float2(v0, v1);
-          } else {
-            op[co] = v0;
-            if (has1) op[co + 1] = v1;
-          }
+        if (pair_store) {
+          *reinterpret_cast<float2*>(op + co) = make_float2(v0, v1);
         } else {
-          __nv_bfloat16* op = static_cast<__nv_bfloat16*>(a.out) + obase;
-          if (pair_store) {
-            *reinterpret_cast<__nv_bfloat162*>(op + co) = __floats2bfloat162_rn(v0, v1);
-          } else {
-            op[co] = __float2bfloat16_rn(v0);
-            if (has1) op[co + 1] = __float2bfloat16_rn(v1);
-          }
+          op[co] = v0;
+          if (has1) op[co + 1] = v1;
         }
       }
     }
   }
 }
 
-long long smem_bytes(int ky, int kx, int ntaps, int cchunk, int n_tiles, int dt) {
-  const int es = dt == S8 ? 1 : (dt == F32 ? 4 : 2);
-  const int kk = 32 / es;
-  const int bfrag = dt == F32 ? 16 : 8;
+long long smem_bytes(int ky, int kx, int ntaps, int cchunk, int n_tiles) {
   const long long halo =
-      static_cast<long long>(TH + ky - 1) * (TW + kx - 1) * (cchunk * es + PAD_BYTES);
-  const long long wrow =
-      static_cast<long long>(ntaps) * (cchunk / kk) * n_tiles * 32 * bfrag;
+      static_cast<long long>(TH + ky - 1) * (TW + kx - 1) * (cchunk * 4 + PAD_BYTES);
+  const long long wrow = static_cast<long long>(ntaps) * (cchunk / KK) * n_tiles * 32 * 16;
   return halo + wrow;
 }
 
-template <int NT, int MODE, typename E>
+template <int NT, int MODE>
 int launch_one(const ConvArgs& a, int B, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(conv_packed_kernel<NT, MODE, E>,
+  cudaError_t err = cudaFuncSetAttribute(conv_packed_kernel<NT, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((a.W + TW - 1) / TW, (a.H + TH - 1) / TH, B * a.n_cb);
-  conv_packed_kernel<NT, MODE, E><<<grid, THREADS, smem, stream>>>(a);
+  conv_packed_kernel<NT, MODE><<<grid, THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MODE, typename E>
-int launch_nt(const ConvArgs& a, int B, int n_tiles, size_t smem, cudaStream_t s) {
-  switch (n_tiles) {
-    case 1: return launch_one<1, MODE, E>(a, B, smem, s);
-    case 2: return launch_one<2, MODE, E>(a, B, smem, s);
-    case 4: return launch_one<4, MODE, E>(a, B, smem, s);
-    case 8: return launch_one<8, MODE, E>(a, B, smem, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// K5 and K6 in every element type; the float32-only modes K7, K8 and K9
-// in float32.
 template <int MODE>
-int launch_mode(ConvArgs a, int B, int n_tiles, int dt, void* stream) {
+int launch_mode(ConvArgs a, int B, int n_tiles, void* stream) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
-  constexpr bool every_type = MODE == DIRECT || MODE == UPD;
-  if (dt != F32 && (!every_type || (dt != BF16 && dt != S8))) return invalid;
   if (B <= 0 || a.H <= 0 || a.W <= 0) return 0;
-  const bool q = dt == S8;
-  const int kk = dt == S8 ? 32 : (dt == F32 ? 8 : 16);
-  if (a.ky < 1 || (a.ky & 1) == 0 || a.kx < 1 || (a.kx & 1) == 0 || a.cchunk < kk ||
-      a.cchunk % kk || a.cout < 1 || a.n_ops < 1 || a.n_ops > MAX_OPS ||
-      (q && !a.scale) || (!q && a.out_i8))
+  if (a.ky < 1 || (a.ky & 1) == 0 || a.kx < 1 || (a.kx & 1) == 0 || a.cchunk < KK ||
+      a.cchunk % KK || a.cout < 1 || a.n_ops < 1 || a.n_ops > MAX_OPS)
     return invalid;
   a.total_chunks = 0;
   for (int i = 0; i < a.n_ops; ++i) {
-    if (a.c[i] < 1 || a.cs[i] < a.c[i] || (q ? !a.ax[i] : a.in_i8[i] != 0)) return invalid;
+    if (a.c[i] < 1 || a.cs[i] < a.c[i]) return invalid;
     // The resampling prologues load 8 channels at once.
     if (MODE != DIRECT && ((a.c[i] & 7) || (a.cs[i] & 7))) return invalid;
     a.total_chunks += (a.c[i] + a.cchunk - 1) / a.cchunk;
@@ -595,32 +401,29 @@ int launch_mode(ConvArgs a, int B, int n_tiles, int dt, void* stream) {
   if (static_cast<long long>(B) * a.n_cb > 65535 || (a.H + TH - 1) / TH > 65535)
     return invalid;
   const size_t smem =
-      static_cast<size_t>(smem_bytes(a.ky, a.kx, a.ntaps, a.cchunk, n_tiles, dt));
+      static_cast<size_t>(smem_bytes(a.ky, a.kx, a.ntaps, a.cchunk, n_tiles));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if constexpr (every_type) {
-    if (dt == S8) return launch_nt<MODE, int8_t>(a, B, n_tiles, smem, s);
-    if (dt == BF16) return launch_nt<MODE, __nv_bfloat16>(a, B, n_tiles, smem, s);
+  switch (n_tiles) {
+    case 1: return launch_one<1, MODE>(a, B, smem, s);
+    case 2: return launch_one<2, MODE>(a, B, smem, s);
+    case 4: return launch_one<4, MODE>(a, B, smem, s);
+    case 8: return launch_one<8, MODE>(a, B, smem, s);
+    default: return invalid;
   }
-  return launch_nt<MODE, float>(a, B, n_tiles, smem, s);
 }
 
 // The arguments of the fused entry points: one operand x of c channels.
-ConvArgs fused_args(const void* x, int c, int in_i8, const void* ax, const void* wfrag,
-                    const void* bias, const void* scale, void* out, int out_i8, int H,
-                    int W, int Hs, int Ws, int cout, int ky, int kx, int ntaps, int cchunk,
-                    int has_slope, float slope) {
+ConvArgs fused_args(const void* x, int c, const void* wfrag, const void* bias, void* out,
+                    int H, int W, int Hs, int Ws, int cout, int ky, int kx, int ntaps,
+                    int cchunk, int has_slope, float slope) {
   ConvArgs a = {};
   a.x[0] = x;
   a.c[0] = c;
   a.cs[0] = c;
-  a.in_i8[0] = in_i8;
-  a.ax[0] = static_cast<const float*>(ax);
   a.n_ops = 1;
   a.wfrag = wfrag;
   a.bias = static_cast<const float*>(bias);
-  a.scale = static_cast<const float*>(scale);
   a.out = out;
-  a.out_i8 = out_i8;
   a.H = H; a.W = W; a.Hs = Hs; a.Ws = Ws;
   a.cout = cout;
   a.ky = ky; a.kx = kx; a.ntaps = ntaps;
@@ -632,93 +435,68 @@ ConvArgs fused_args(const void* x, int c, int in_i8, const void* ax, const void*
 
 }  // namespace
 
-// The float32-only entry points (suffix _f32) take their tensors, shapes,
-// plan and slope. The others take, beside these: dt (0 bfloat16, 1 int8, 2
-// float32); in int8 mode in_i8 (the operand is int8 on its grid), ax
-// (device pointer to the operand's float32 calibrated |x| maximum), scale
-// (cout float32, the int32 sum's dequantisation, 127/ax_out folded in when
-// out_i8) and out_i8 (store int8 instead of bf16). wfrag holds bf16, int8 or split float32 weights in
-// fragment order (see the file head) for chunks of cchunk channels per
-// operand and blocks of n_tiles*8 output channels; bias is float32. A
-// float32 call stores float32.
+// Every entry point takes float32 tensors, their shapes, the plan and the
+// slope: wfrag holds the weights split in two TF32 planes, in fragment order
+// (see the file head), for chunks of cchunk channels per operand and blocks
+// of n_tiles*8 output channels; bias is float32; the output is float32.
 extern "C" {
 
 // Shared memory one block needs, in bytes (also used by the Python planner).
-long long rrin_conv_packed_smem(int ky, int kx, int ntaps, int cchunk, int n_tiles, int dt) {
-  return smem_bytes(ky, kx, ntaps, cchunk, n_tiles, dt);
+long long rrin_conv_packed_smem(int ky, int kx, int ntaps, int cchunk, int n_tiles) {
+  return smem_bytes(ky, kx, ntaps, cchunk, n_tiles);
 }
 
 // xs: n_ops pointers to (B,H,W,strides[i]) NHWC tensors of which the first
 // cs[i] channels enter the conv, in order; out: (B,H,W,cout).
-int rrin_conv_packed_launch(const void* const* xs, const int* cs, const int* strides,
-                            const int* in_i8, const void* const* ax, int n_ops,
-                            const void* wfrag, const void* bias, const void* scale,
-                            void* out, int out_i8, int B, int H, int W, int cout, int k,
-                            int cchunk, int n_tiles, int has_slope, float slope, int dt,
-                            void* stream) {
+int rrin_conv_packed_f32_launch(const void* const* xs, const int* cs, const int* strides,
+                                int n_ops, const void* wfrag, const void* bias, void* out,
+                                int B, int H, int W, int cout, int k, int cchunk, int n_tiles,
+                                int has_slope, float slope, void* stream) {
   if (n_ops < 1 || n_ops > MAX_OPS) return static_cast<int>(cudaErrorInvalidValue);
-  ConvArgs a = {};
+  ConvArgs a = fused_args(nullptr, 0, wfrag, bias, out, H, W, H, W, cout, k, k, k, cchunk,
+                          has_slope, slope);
   for (int i = 0; i < n_ops; ++i) {
     a.x[i] = xs[i];
     a.c[i] = cs[i];
     a.cs[i] = strides[i];
-    a.in_i8[i] = in_i8[i];
-    a.ax[i] = static_cast<const float*>(ax[i]);
   }
   a.n_ops = n_ops;
-  a.wfrag = wfrag;
-  a.bias = static_cast<const float*>(bias);
-  a.scale = static_cast<const float*>(scale);
-  a.out = out;
-  a.out_i8 = out_i8;
-  a.H = H; a.W = W; a.Hs = H; a.Ws = W;
-  a.cout = cout;
-  a.ky = k; a.kx = k; a.ntaps = k;
-  a.cchunk = cchunk;
-  a.has_slope = has_slope;
-  a.slope = slope;
-  return launch_mode<DIRECT>(a, B, n_tiles, dt, stream);
+  return launch_mode<DIRECT>(a, B, n_tiles, stream);
 }
 
 // x: (B,Hs,Ws,c) half resolution; out: (B,2Hs,2Ws,cout) =
-// conv_k(upsample_2x_bilinear(x)), k in {1, 3, 5}; in int8 an int8 input is
-// dequantised before it is interpolated.
-int rrin_conv_up_packed_launch(const void* x, int c, int in_i8, const void* ax,
-                               const void* wfrag, const void* bias, const void* scale,
-                               void* out, int out_i8, int B, int Hs, int Ws, int cout, int k,
-                               int cchunk, int n_tiles, int has_slope, float slope, int dt,
-                               void* stream) {
-  return launch_mode<UPD>(
-      fused_args(x, c, in_i8, ax, wfrag, bias, scale, out, out_i8, 2 * Hs, 2 * Ws, Hs, Ws,
-                 cout, k, k, k, cchunk, has_slope, slope),
-      B, n_tiles, dt, stream);
+// conv_k(upsample_2x_bilinear(x)), k in {1, 3, 5}, W interpolated first.
+int rrin_conv_up_packed_f32_launch(const void* x, int c, const void* wfrag, const void* bias,
+                                   void* out, int B, int Hs, int Ws, int cout, int k,
+                                   int cchunk, int n_tiles, int has_slope, float slope,
+                                   void* stream) {
+  return launch_mode<UPD>(fused_args(x, c, wfrag, bias, out, 2 * Hs, 2 * Ws, Hs, Ws, cout, k,
+                                     k, k, cchunk, has_slope, slope),
+                          B, n_tiles, stream);
 }
 
-// float32 only. x: (B,2H,2W,c) full resolution; out: (B,H,W,cout) =
-// conv_k(avg_pool_2x(x)).
+// x: (B,2H,2W,c) full resolution; out: (B,H,W,cout) = conv_k(avg_pool_2x(x)).
 int rrin_conv_pool_packed_f32_launch(const void* x, int c, const void* wfrag,
                                      const void* bias, void* out, int B, int H, int W,
                                      int cout, int k, int cchunk, int n_tiles, int has_slope,
                                      float slope, void* stream) {
-  return launch_mode<POOL>(
-      fused_args(x, c, 0, nullptr, wfrag, bias, nullptr, out, 0, H, W, 2 * H, 2 * W, cout,
-                 k, k, k, cchunk, has_slope, slope),
-      B, n_tiles, F32, stream);
+  return launch_mode<POOL>(fused_args(x, c, wfrag, bias, out, H, W, 2 * H, 2 * W, cout, k, k,
+                                      k, cchunk, has_slope, slope),
+                           B, n_tiles, stream);
 }
 
-// float32 only. x: (B,Hs,Ws,c) half resolution; out: (B,2Hs,2Ws,cout) =
+// x: (B,Hs,Ws,c) half resolution; out: (B,2Hs,2Ws,cout) =
 // conv_k(upsample_2x_bilinear(x)), H interpolated first.
 int rrin_conv_up_m_packed_f32_launch(const void* x, int c, const void* wfrag,
                                      const void* bias, void* out, int B, int Hs, int Ws,
                                      int cout, int k, int cchunk, int n_tiles, int has_slope,
                                      float slope, void* stream) {
-  return launch_mode<UP_M>(
-      fused_args(x, c, 0, nullptr, wfrag, bias, nullptr, out, 0, 2 * Hs, 2 * Ws, Hs, Ws,
-                 cout, k, k, k, cchunk, has_slope, slope),
-      B, n_tiles, F32, stream);
+  return launch_mode<UP_M>(fused_args(x, c, wfrag, bias, out, 2 * Hs, 2 * Ws, Hs, Ws, cout, k,
+                                      k, k, cchunk, has_slope, slope),
+                           B, n_tiles, stream);
 }
 
-// float32 only. x: (B,Hs,Ws,c) half resolution; out: (B,2Hs,2Ws,cout) =
+// x: (B,Hs,Ws,c) half resolution; out: (B,2Hs,2Ws,cout) =
 // conv_3(upsample_2x_bilinear(x)); wfrag holds the folded weights with five
 // taps per dy row and 2*cout output channels, bias is 2*cout long (see the
 // file head).
@@ -726,10 +504,9 @@ int rrin_conv_up_f_packed_f32_launch(const void* x, int c, const void* wfrag,
                                      const void* bias, void* out, int B, int Hs, int Ws,
                                      int cout, int cchunk, int n_tiles, int has_slope,
                                      float slope, void* stream) {
-  return launch_mode<UP_F>(
-      fused_args(x, c, 0, nullptr, wfrag, bias, nullptr, out, 0, 2 * Hs, Ws, Hs, Ws,
-                 2 * cout, 3, 3, 5, cchunk, has_slope, slope),
-      B, n_tiles, F32, stream);
+  return launch_mode<UP_F>(fused_args(x, c, wfrag, bias, out, 2 * Hs, Ws, Hs, Ws, 2 * cout, 3,
+                                      3, 5, cchunk, has_slope, slope),
+                           B, n_tiles, stream);
 }
 
 }  // extern "C"

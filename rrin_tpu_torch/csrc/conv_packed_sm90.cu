@@ -1,0 +1,81 @@
+// K5 and K6 of the packed serving path on Hopper (sm_90a), in bfloat16 or
+// int8, as the producer modes DIRECT and UPW of the wgmma core in
+// conv_sm90.cuh (its head gives the design). Their float32 modes are the
+// _f32 entry points of conv_packed.cu.
+//
+//   conv_packed     replaces _kernel_body (rrin_tpu/ops/conv_packed.py,
+//                   pallas_call at :506): stride-1 SAME conv over the channel
+//                   concat of 1..4 operands given separately, k in {3, 5,
+//                   7}; the K-loop walks the operands chunk by chunk, so the
+//                   concat never exists in device memory. In int8 an operand
+//                   is int8 on its grid already (copied as it is) or bf16
+//                   (quantised by 127/ax as it is stored), and the weights
+//                   are int8 per output channel, pre-scaled per operand on
+//                   the host, so that one int32 sum serves all operands.
+//   conv_up_packed  replaces _kernel_body_up (pallas_call at :824):
+//                   conv(upsample_2x_bilinear(x)) from the half-resolution
+//                   tensor, k in {1, 3, 5}, the upsampled halo tile built W
+//                   first, then H, as the reference's upsample_2x_packed
+//                   rounds; in int8 an int8 input is dequantised (times
+//                   ax/127) before it is interpolated and the value
+//                   quantised after, as the reference's plain version does.
+//
+// What bounds them on an H100: operations. K5 does 988 GFLOP in the 14
+// launches of one flow U-Net at 1088x1920 (0.999 ms at 989 TFLOP/s bf16),
+// most of it at full and half resolution with N = 32 or 64 output channels,
+// where the ldmatrix reads of A cost about as much shared-memory bandwidth
+// as the tensor work; the head (cout 4), u4c2 and the cin-6 stem are
+// bytes-bound (the stems' channels are padded to a chunk of 16 or 32 in the
+// tensor work). K6 does 305 GFLOP at each of its two 4K sites (0.309 ms).
+//
+// Plain C entry points; each returns cudaGetLastError() after the launch,
+// runs on the given stream, allocates nothing and does not synchronise.
+
+#include "conv_sm90.cuh"
+
+// Every entry point takes, beside its tensors: q (0 bfloat16, 1 int8); in
+// int8 mode in_i8 (the operand holds int8 codes), ax (device pointer to the
+// operand's float32 calibrated |x| maximum), scale (cout float32, the int32
+// sum's dequantisation, 127/ax_out folded in when out_i8) and out_i8 (store
+// int8 instead of bf16). wfrag holds bf16 or int8 weights in the layout of
+// conv_sm90.cuh for chunks of cchunk channels (each operand's channels padded
+// to whole chunks) and blocks of n_tiles*8 output channels (n_tiles in {1, 2,
+// 4, 8, 16}); bias is float32.
+extern "C" {
+
+// Shared memory one block needs, in bytes (also computed by the Python
+// planner, which checks that the two agree). res_chunks: K5's channel chunks
+// (over all operands) where all output channels are one block, else 0.
+long long rrin_conv_packed_sm90_smem(int k, int cchunk, int n_tiles, int q, int res_chunks) {
+  return make_layout(k, cchunk, n_tiles * 8, q, 0, res_chunks).total;
+}
+
+// xs: n_ops pointers to (B,H,W,strides[i]) NHWC tensors of which the first
+// cs[i] channels enter the conv, in order; out: (B,H,W,cout).
+int rrin_conv_packed_launch(const void* const* xs, const int* cs, const int* strides,
+                            const int* in_i8, const void* const* ax, int n_ops,
+                            const void* wfrag, const void* bias, const void* scale, void* out,
+                            int out_i8, int B, int H, int W, int cout, int k, int cchunk,
+                            int n_tiles, int has_slope, float slope, int q, void* stream) {
+  if (n_ops < 1 || n_ops > MAX_OPS) return kInvalid;
+  UpArgs a = up_args(nullptr, 0, 0, nullptr, wfrag, bias, scale, out, out_i8, H, W, H, W, cout,
+                     k, cchunk, has_slope, slope);
+  a.n_ops = n_ops;
+  for (int i = 0; i < n_ops; ++i)
+    a.ops[i] = Operand{xs[i], cs[i], strides[i], in_i8[i], static_cast<const float*>(ax[i]), 0};
+  return launch_mode<DIRECT>(a, B, n_tiles, q, stream);
+}
+
+// x: (B,Hs,Ws,c) half resolution; out: (B,2Hs,2Ws,cout) =
+// conv_k(upsample_2x_bilinear(x)), k in {1, 3, 5}, W interpolated first.
+int rrin_conv_up_packed_launch(const void* x, int c, int in_i8, const void* ax,
+                               const void* wfrag, const void* bias, const void* scale,
+                               void* out, int out_i8, int B, int Hs, int Ws, int cout, int k,
+                               int cchunk, int n_tiles, int has_slope, float slope, int q,
+                               void* stream) {
+  return launch_mode<UPW>(up_args(x, c, in_i8, ax, wfrag, bias, scale, out, out_i8, 2 * Hs,
+                                  2 * Ws, Hs, Ws, cout, k, cchunk, has_slope, slope),
+                          B, n_tiles, q, stream);
+}
+
+}  // extern "C"

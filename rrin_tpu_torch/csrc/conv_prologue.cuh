@@ -1,10 +1,10 @@
 // The element arithmetic of the fused-resample load prologues, shared by the
-// convolution kernels of this directory (conv_packed.cu, conv_up_sm90.cu):
+// convolution kernels of this directory (conv_packed.cu, conv_sm90.cuh):
 // eight channels of one stored pixel at a time, widened to float32 (or read
 // as float32), pooled or interpolated with every product and sum rounded
 // separately (as the plain PyTorch versions compute them, no fused
-// multiply-add), then rounded once to bfloat16, taken to the int8 grid, or
-// stored as float32 as they are.
+// multiply-add), then rounded once to bfloat16, taken to the int8 grid
+// (conv_sm90.cuh's codes8), or stored as float32 as they are.
 
 #pragma once
 
@@ -43,19 +43,6 @@ __device__ __forceinline__ uint4 pack8(const F8& f) {
     w[i] = *reinterpret_cast<const uint32_t*>(&p);
   }
   return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-__device__ __forceinline__ int quant1(float v, float post) {
-  return min(max(__float2int_rn(__fmul_rn(v, post)), -127), 127);
-}
-
-// clip(rint(v * post), +-127) of eight values, packed as eight int8.
-__device__ __forceinline__ uint2 quant8(const F8& f, float post) {
-  uint32_t w[2] = {0u, 0u};
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    w[i >> 2] |= (static_cast<uint32_t>(quant1(f.v[i], post)) & 0xffu) << (8 * (i & 3));
-  return make_uint2(w[0], w[1]);
 }
 
 // 0.25 * far + 0.75 * near with each product and the sum rounded separately,
@@ -113,13 +100,6 @@ __device__ __forceinline__ F8 widen8(const uint4 u, int i8, float pre) {
     for (int i = 0; i < 8; ++i) f.v[i] = __fmul_rn(f.v[i], pre);
   }
   return f;
-}
-
-// Eight channels of one stored pixel as float32 (times `pre` in int8 mode).
-template <bool Q>
-__device__ __forceinline__ F8 tap8(const void* xb, int i8, int cs, int Ws, int y, int x,
-                                   int c, float pre) {
-  return widen8<Q>(load8<Q>(xb, i8, cs, Ws, y, x, c), i8, pre);
 }
 
 // Eight float32 channels of one stored pixel (two 16-byte loads).

@@ -1,7 +1,8 @@
 // K7, K8 and K9 of the packed serving path on Hopper (sm_90a): the fused
 // resample+conv sites of the U-Net, conv(resample(x)) + bias + an optional
-// LeakyReLU on NHWC tensors, in bfloat16 or int8, on one wgmma core with
-// three producer modes.
+// LeakyReLU on NHWC tensors, in bfloat16 or int8, as the producer modes
+// POOL, UP and UPF of the wgmma core in conv_sm90.cuh (its head gives the
+// design); and the bf16 weight prep of every kernel on that core.
 //
 //   conv_pool_packed  replaces _kernel_body_pool (rrin_tpu/ops/conv_packed.py,
 //                     pallas_call at :1115): conv(avg_pool_2x(x)). The block
@@ -23,1027 +24,21 @@
 //                     (B, 2Hs, 2Ws, cout) byte for byte. The stencil assumes
 //                     s[-1] = s[Ws] = 0 where the upsample clamps; the exact
 //                     difference is the edge pixel times two more weight taps
-//                     (3: left, 4: right), added in the epilogue (below).
+//                     (3: left, 4: right), added in the epilogue.
 //
 // What bounds them on an H100: operations (77 GFLOP at each of K8's and
 // K9's 1080p sites, 0.078 ms at 989 TFLOP/s bf16), with bytes close behind
 // at K9's widest site (200 MB, 0.060 ms) and ahead at K7's (d1c1: 200 MB,
 // 0.060 ms, against 53.5 GFLOP, 0.054 ms): the pool reads four stored pixels
 // for every pixel that the GEMM reads, so K7's producers move four times the
-// bytes they write. The design:
-//
-//   * wgmma: a tile is TH rows x 64 columns of GEMM pixels and N output
-//     channels (all of a site's channels up to 128, so each halo tile is
-//     built once). Two consumer warpgroups each own MT = TH/2 rows;
-//     one row of 64 pixels is the M of one wgmma.mma_async m64nNk16 (bf16,
-//     f32 sums) or m64nNk32 (s8, s32 sums). The last k - 1 columns of a row
-//     are not stored (the next tile starts there), so the halo tile is 64
-//     columns wide. A comes from registers: ldmatrix.x4 from the halo tile,
-//     whose pixels are padded by 16 bytes so that the eight rows of a matrix
-//     fall on distinct banks; a tap shift (dy, dx) is an address offset, and
-//     one halo row loaded for (dx, k-step) feeds the wgmma of every output
-//     row it reaches (up to k dy taps), which cuts the A reads from shared
-//     memory by a third (MT = 2) or a half (MT = 4). One 32-byte k-step is
-//     16 bf16 or 32 int8 values, so both element types share the layout and
-//     the addressing. B (the weights) comes from shared memory through a
-//     descriptor, K-major, no swizzle: core matrices of 8 channels-out x 16
-//     bytes, 128 bytes apart along K (LBO) and 256 bytes apart along N (SBO).
-//   * a producer/consumer pipeline inside the block (warp specialisation):
-//     a producer warpgroup builds the next channel chunks' pooled or
-//     interpolated halo tiles (arithmetic, which a copy engine cannot do)
-//     into a ring of three buffers (two where three do not fit) while the
-//     consumers run wgmma on the current one, and one producer thread brings
-//     each chunk's weights by cp.async.bulk (one contiguous copy per dy
-//     row). A producer thread builds whole halo columns: it loads every
-//     stored pixel a column (K7: a batch of its rows) reads, all in flight at
-//     once, and writes the column's rows from registers, so each stored
-//     value is loaded once per column. Completion
-//     is on mbarriers: full[b] (128 producer arrivals plus the copy's bytes),
-//     empty[b] (one arrival per consumer warp). setmaxnreg moves registers
-//     from the producers to the consumers.
-//   * persistent blocks: one block per multiprocessor walks the tiles, so a
-//     tile's epilogue overlaps the producer's work on the next tile.
-//   * the folded kernel's edge taps: only tiles that hold half-column 0 or
-//     Ws-1 have them, and there the producers compute the edge pixel's
-//     products with taps 3 and 4 from the halo tile they built (float32
-//     sums of bf16 products, or exact int32 sums) into shared memory; the
-//     consumers add them to the accumulators of that pixel. Both edge terms
-//     share the stencil's per-channel int8 scale.
-//   * the epilogue adds the bias (int8: after the scale), applies the
-//     LeakyReLU, rounds once (bf16, or rint and a clip to the int8 grid) and
-//     stages each 64-pixel row in shared memory, from which the warpgroup
-//     stores it with 16-byte coalesced stores. Ragged edges are masked;
-//     nothing assumes W % 64, H % TH or n_out % N.
-
-// The weights arrive in the layout the descriptor reads:
-// [channel block][chunk][dy][tap][k-step][n-tile][r][g][16 bytes], with the
-// 16 bytes holding channels-in 8r .. 8r+7 (bf16) or 16r .. 16r+15 (int8) of
-// the k-step for channel-out n-tile*8 + g; the folded kernel's rows hold five
-// taps (three stencil taps, then the two edge taps), of which only the
-// stencil taps are copied. conv_up_prep_kernel writes it from the model's
-// float32 (k, k, cin, cout) weights in one launch, K9's fold included.
-//
-// Rounding points are those of the plain versions: the pooled or
-// interpolated value in float32 from separately rounded products and sums,
-// one bf16 rounding (or, int8, rint on the grid: a bf16 input is scaled by
-// 127/ax before the H-interpolation in K9 and quantised after the pool in K7
-// and the interpolation in K8, int8 codes are pooled or interpolated and
-// re-rounded).
+// bytes they write.
 //
 // Plain C entry points; each returns cudaGetLastError() after the launch,
 // runs on the given stream, allocates nothing and does not synchronise.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
-
-#include "conv_prologue.cuh"
+#include "conv_sm90.cuh"
 
 namespace {
-
-constexpr int TW = 64;           // GEMM pixels per block row = M of one wgmma
-constexpr int PAD_BYTES = 16;    // padding per halo pixel and per staged row
-constexpr int NPROD = 128;       // the producer warpgroup
-constexpr int NCONS = 2;         // consumer warpgroups
-constexpr int THREADS = NPROD + NCONS * 128;
-// setmaxnreg moves registers inside the block's allocation, which is the
-// 168 a thread (65536 / 384, rounded down to 8) that ptxas gives a 384-thread
-// block at launch: the warpgroups' new counts must sum to 3 x 168, or the
-// consumers' increase waits forever.
-constexpr int LAUNCH_REGS = 168;
-constexpr int PROD_REGS = 136;
-constexpr int CONS_REGS = 184;
-static_assert(NPROD / 128 * PROD_REGS + NCONS * CONS_REGS == THREADS / 128 * LAUNCH_REGS,
-              "setmaxnreg counts must sum to the block's allocation");
-constexpr int SMEM_MAX = 232448;
-
-enum Mode { UP = 0, UPF = 1, POOL = 2 };
-
-// Rows of GEMM pixels per consumer warpgroup: its accumulators hold MT x N/2
-// registers a thread.
-__host__ __device__ constexpr int mt_of(int n) { return n <= 64 ? 4 : 2; }
-
-// The block's shared memory: nbuf buffers (three where they fit, else two),
-// each a halo tile and, unless the weights are resident, the chunk's
-// weights; the resident weights (every chunk's, loaded once per block);
-// each consumer warpgroup's staged output row; the bias and scale of the
-// tile's output channels; the folded kernel's edge sums, two tiles' worth;
-// mbarriers full[3], empty[3], edge_empty[2], weights_resident.
-//
-// A halo row is TW = 64 columns: the wgmma rows past the tw stored columns
-// read k - 1 columns more, which come from the next halo row (or the region
-// after the last one); no stored pixel depends on them.
-struct Layout {
-  int hh, hw, pstride;   // halo rows, columns, bytes per pixel
-  int halo_bytes;        // rounded up to 128
-  int w_bytes;           // one chunk's stencil weights
-  int buf_bytes;
-  int wres;              // weights resident: every chunk's, at wres_off
-  int stage_bytes;       // one consumer warpgroup's staged row
-  int nbuf;
-  int wres_off, stage_off, bs_off, edge_off, bar_off, total;
-};
-
-constexpr int NBARS = 9;
-
-__host__ __device__ inline int up128(int b) { return (b + 127) / 128 * 128; }
-
-__host__ __device__ inline Layout make_layout_n(int k, int cchunk, int n, int q, int folded,
-                                               int nbuf, int res_chunks) {
-  Layout L;
-  const int es = q ? 1 : 2;
-  const int th = NCONS * mt_of(n);
-  L.hh = th + k - 1;
-  L.hw = TW;
-  L.pstride = cchunk * es + PAD_BYTES;
-  L.halo_bytes = up128(L.hh * L.hw * L.pstride);
-  L.w_bytes = k * k * cchunk * n * es;
-  L.wres = res_chunks > 0;
-  L.buf_bytes = L.halo_bytes + (L.wres ? 0 : L.w_bytes);
-  L.stage_bytes = up128(TW * (2 * n + PAD_BYTES));
-  L.nbuf = nbuf;
-  L.wres_off = nbuf * L.buf_bytes;
-  L.stage_off = L.wres_off + (L.wres ? res_chunks * L.w_bytes : 0);
-  L.bs_off = L.stage_off + NCONS * L.stage_bytes;
-  L.edge_off = L.bs_off + 2 * n * 4;
-  L.bar_off = L.edge_off + (folded ? 2 * 2 * th * n * 4 : 0);
-  L.total = L.bar_off + NBARS * 8;
-  return L;
-}
-
-// Three buffers that hold their chunk's weights where they fit; else, for
-// K7 where the block's tiles share one channel block (res_chunks = its
-// chunks, 0 otherwise), three halo buffers beside resident weights where
-// those fit; else two buffers with their weights.
-__host__ __device__ inline Layout make_layout(int k, int cchunk, int n, int q, int folded,
-                                              int res_chunks) {
-  const Layout L3 = make_layout_n(k, cchunk, n, q, folded, 3, 0);
-  if (L3.total <= SMEM_MAX) return L3;
-  if (res_chunks > 0) {
-    const Layout R3 = make_layout_n(k, cchunk, n, q, folded, 3, res_chunks);
-    if (R3.total <= SMEM_MAX) return R3;
-  }
-  return make_layout_n(k, cchunk, n, q, folded, 2, 0);
-}
-
-struct UpArgs {
-  const void* x;
-  int cin;
-  int in_i8;                 // int8 mode: x holds int8 codes already
-  const float* ax;           // int8 mode: x's calibrated |x| maximum
-  const unsigned char* wb;   // weights in the layout above
-  const float* bias;
-  const float* scale;        // int8 mode: per output channel
-  void* out;
-  int out_i8;
-  int H, W;                  // rows and columns of the GEMM's pixels
-  int Hs, Ws;                // rows and columns of x (K7: 2H, 2W)
-  int n_out;                 // channels per GEMM pixel of the output
-  int k;                     // taps in y and in x
-  int ntaps;                 // weight taps per dy row (k, or 5 when folded)
-  int cchunk, n_chunks, n_cb;
-  int tw;                       // GEMM columns a tile stores: TW - (k - 1)
-  int tiles_x, tiles_y, tiles;  // the tiles that the persistent blocks walk
-  int has_slope;
-  float slope;
-};
-
-// The chunks whose weights may stay resident: K7's, all of them, where the
-// block's tiles share one channel block; none else. (K8 and K9 keep the
-// per-chunk copies: at their sites resident weights do not fit, and the
-// branches cost K9 a fifth of its time at u3c1 on the H100.)
-template <int MODE>
-__host__ __device__ inline int resident_chunks(const UpArgs& a) {
-  return MODE == POOL && a.n_cb == 1 ? a.n_chunks : 0;
-}
-
-// One tile: tw columns x TH rows of GEMM pixels of batch element b, output
-// channels cb*N .. cb*N + N-1. The wgmma rows run over 64 columns, of which
-// the last k - 1 are not stored, so that the halo tile that the producers
-// build is exactly 64 columns wide.
-struct TileXY {
-  int x0, y0, cb;
-  size_t b;
-};
-
-__device__ __forceinline__ TileXY tile_of(const UpArgs& a, int t, int th) {
-  TileXY r;
-  r.x0 = (t % a.tiles_x) * a.tw;
-  t /= a.tiles_x;
-  r.y0 = (t % a.tiles_y) * th;
-  t /= a.tiles_y;
-  r.cb = t % a.n_cb;
-  r.b = t / a.n_cb;
-  return r;
-}
-
-// ------------------------------------------------------------ PTX wrappers
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// Global -> shared copy of `bytes` (a multiple of 16) completing on `bar`.
-__device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t bytes,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int PENDING>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(PENDING) : "memory");
-}
-
-// Pin a register: its value is live (and may have changed) here, so the
-// compiler neither moves its uses across this point nor reuses it before.
-// Keeps a wgmma's A registers from being reallocated while the asynchronous
-// product still reads them, and the accumulators from being read before
-// wgmma.wait_group.
-__device__ __forceinline__ void keep(float& r) { asm volatile("" : "+f"(r)::"memory"); }
-__device__ __forceinline__ void keep(int& r) { asm volatile("" : "+r"(r)::"memory"); }
-__device__ __forceinline__ void keep(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
-
-// K-major, no-swizzle shared-memory descriptor of a B tile: 16-byte-unit
-// start address, LBO 128 bytes (the two core matrices of a k-step), SBO 256
-// bytes (n-tile to n-tile).
-__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
-         (static_cast<uint64_t>(256 >> 4) << 32);
-}
-
-// wgmma.mma_async with A from registers, D += A x B over one k-step, for
-// each N this file instantiates: m64nNk16 bf16 -> f32 and m64nNk32 s8 -> s32.
-// A (per warp, rows 16w .. 16w+15 of the 64): a0 = row g, bytes 4*tig .. +3
-// of the first 16; a1 = row g+8, same; a2, a3 = the same rows, bytes 16+;
-// D: d[4j + 2h + i] = row g + 8h, column 8j + 2*tig + i.
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[4], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3"
-      "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(int (&d)[4], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
-      "%0, %1, %2, %3"
-      "}, {%4, %5, %6, %7}, %8, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(int (&d)[8], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(int (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(int (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(int (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-// clip(rint(v), +-127) as an int8 code in the low byte: clipped first (the
-// same result for finite v), then rounded half to even by adding 1.5 * 2^23,
-// whose float32 sum holds rint(v) in its low mantissa bits; full-rate float
-// and integer instructions in place of a float-to-int conversion.
-__device__ __forceinline__ uint32_t code8(float v) {
-  const float c = fminf(fmaxf(v, -127.0f), 127.0f);
-  return static_cast<uint32_t>(__float_as_int(__fadd_rn(c, 12582912.0f)) - 0x4B400000) & 0xffu;
-}
-
-// clip(rint(v * post), +-127) of eight values, packed as eight int8: the
-// function of conv_prologue.cuh's quant8.
-__device__ __forceinline__ uint2 codes8(const F8& f, float post) {
-  uint32_t w[2] = {0u, 0u};
-#pragma unroll
-  for (int i = 0; i < 8; ++i) w[i >> 2] |= code8(__fmul_rn(f.v[i], post)) << (8 * (i & 3));
-  return make_uint2(w[0], w[1]);
-}
-
-// One channel group of one halo column: the stored rows y0/2 - HP .. +NR-1
-// (edge rows repeated, which is the upsample's clamp of its far tap) at the
-// stored column(s) that the column interpolates, K9 its own, K8 the near and
-// the far one; all loads in flight at once.
-template <int MODE, int NR>
-struct Column {
-  static constexpr int NC = MODE == UPF ? 1 : 2;
-  uint4 s[NR][NC];
-};
-
-// Eight channels of halo row r of a column, as float32, from its near (jn)
-// and far (jf) stored rows: H-interpolated (K9), or H-interpolated at both
-// stored columns and then W-interpolated (K8), as the plain version rounds.
-template <int MODE, bool Q, int NR>
-__device__ __forceinline__ F8 column8(const Column<MODE, NR>& col, int jn, int jf, int i8,
-                                      float pre) {
-  const F8 h0 = lerp8(widen8<Q>(col.s[jf][0], i8, pre), widen8<Q>(col.s[jn][0], i8, pre));
-  if constexpr (MODE == UPF) {
-    return h0;
-  } else {
-    const F8 h1 = lerp8(widen8<Q>(col.s[jf][1], i8, pre), widen8<Q>(col.s[jn][1], i8, pre));
-    return lerp8(h1, h0);
-  }
-}
-
-// The halo tile of one channel chunk, a column at a time: producer thread p
-// builds channel group v = p % vpp of halo columns p / vpp, + NPROD / vpp,
-// ... below TW (the columns beyond feed only the wgmma rows that are not
-// stored), CB columns at a time with all their loads in flight. Halo row r
-// of a column is GEMM row gy = y0 - HP + r, whose near stored row is
-// y0/2 + floor((r - HP) / 2) (y0 is even) and far one a row below (gy odd)
-// or above: both are compile-time offsets into the column's rows.
-template <int N, int MODE, bool Q, int K>
-__device__ __forceinline__ void build_halo(const UpArgs& a, const Layout& L,
-                                           unsigned char* halo, const void* xb,
-                                           const TileXY& T, int c_base, int i8, float pre,
-                                           float post, int p) {
-  constexpr int ES = Q ? 1 : 2;
-  constexpr int TH = NCONS * mt_of(N);
-  constexpr int HP = (K - 1) / 2;
-  constexpr int NR = TH / 2 + 2 * HP;  // stored rows of a column
-  constexpr int HH = TH + K - 1;       // halo rows
-  constexpr int CB = (MODE == UPF || (K == 3 && TH == 4)) ? 2 : 1;  // within the registers
-  const int vpp = a.cchunk >> 3;       // a power of two <= 16
-  const int v = p % vpp;
-  const int cstep = NPROD / vpp;
-  const int c = c_base + v * 8;
-  const int sb = (T.y0 >> 1) - HP;
-  for (int hx0 = p / vpp; hx0 < TW; hx0 += CB * cstep) {
-    Column<MODE, NR> col[CB];
-    bool col_in[CB];
-#pragma unroll
-    for (int b = 0; b < CB; ++b) {
-      const int gx = T.x0 - HP + hx0 + b * cstep;
-      col_in[b] = hx0 + b * cstep < TW && gx >= 0 && gx < a.W && c < a.cin;
-      if (col_in[b]) {
-        const int x0 = MODE == UPF ? gx : gx >> 1;
-        const int x1 = MODE == UPF ? gx : far_tap(gx, a.Ws);
-#pragma unroll
-        for (int j = 0; j < NR; ++j) {
-          const int sy = min(max(sb + j, 0), a.Hs - 1);
-          col[b].s[j][0] = load8<Q>(xb, i8, a.cin, a.Ws, sy, x0, c);
-          if constexpr (MODE != UPF) col[b].s[j][1] = load8<Q>(xb, i8, a.cin, a.Ws, sy, x1, c);
-        }
-      }
-    }
-#pragma unroll
-    for (int b = 0; b < CB; ++b) {
-      if (hx0 + b * cstep >= TW) continue;
-      unsigned char* dst = halo + (hx0 + b * cstep) * L.pstride + v * 8 * ES;
-#pragma unroll
-      for (int r = 0; r < HH; ++r) {
-        const int jn = HP + ((r - HP) >> 1);
-        const int jf = jn + (((r - HP) & 1) ? 1 : -1);
-        const int gy = T.y0 - HP + r;
-        const bool in = col_in[b] && gy >= 0 && gy < a.H;
-        unsigned char* d = dst + r * L.hw * L.pstride;
-        if (Q) {
-          uint2 val = make_uint2(0u, 0u);
-          if (in) val = codes8(column8<MODE, Q, NR>(col[b], jn, jf, i8, pre), post);
-          *reinterpret_cast<uint2*>(d) = val;
-        } else {
-          uint4 val = make_uint4(0u, 0u, 0u, 0u);
-          if (in) val = pack8(column8<MODE, Q, NR>(col[b], jn, jf, i8, pre));
-          *reinterpret_cast<uint4*>(d) = val;
-        }
-      }
-    }
-  }
-}
-
-// The 2x2 mean of four stored pixels' eight bf16 channels in float32, as
-// avg_pool_2x sums them: ((p00 + p01) + p10) + p11, then times 1/4, each
-// step rounded.
-__device__ __forceinline__ F8 pool8(const uint4 (&s)[4]) {
-  return avg4_8(unpack8(s[0]), unpack8(s[1]), unpack8(s[2]), unpack8(s[3]));
-}
-
-// The pooled int8 codes of four stored pixels' eight int8 codes: rint of
-// their sum over four (half to even; |sum| <= 508, so no clip is needed),
-// which is what avg_pool_2x in float32 and a rounding to the grid give, in
-// exact integer arithmetic on 16-bit lanes: each code is biased by 128 (an
-// XOR of its sign bit) and zero-extended to a lane, the four lanes summed to
-// v = sum + 512, and (v + 1 + bit 2 of v) >> 2 = rint(sum / 4) + 128 keeps
-// the code, biased, in the lane's low byte.
-__device__ __forceinline__ uint2 pool_codes8(const uint2 (&s)[4]) {
-  uint32_t w[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    uint32_t lane[2];  // channels 4h + {0, 1} and 4h + {2, 3}
-#pragma unroll
-    for (int l = 0; l < 2; ++l) {
-      const uint32_t sel = l ? 0x4342u : 0x4140u;  // two bytes, zero-extended
-      uint32_t x[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        x[k] = __byte_perm((h ? s[k].y : s[k].x) ^ 0x80808080u, 0u, sel);
-      const uint32_t v = __vadd2(__vadd2(x[0], x[1]), __vadd2(x[2], x[3]));
-      lane[l] = __vadd2(v, 0x00010001u + ((v >> 2) & 0x00010001u)) >> 2;
-    }
-    w[h] = __byte_perm(lane[0], lane[1], 0x6420u) ^ 0x80808080u;
-  }
-  return make_uint2(w[0], w[1]);
-}
-
-// The pooled halo tile of one channel chunk (K7), a column at a time:
-// producer thread p builds channel group v = p % vpp of halo columns
-// p / vpp, + NPROD / vpp, ... below TW. Halo row r of column hx is pooled
-// pixel (gy, gx) = (y0 - HP + r, x0 - HP + hx), the mean of stored pixels
-// (2gy + i, 2gx + j). The four loads of each of RB rows are in flight at
-// once: two rows of bf16 (32 registers; more spill), three of int8 codes (24
-// registers; two or four rows ran slower at d1c1 or d2c1 on the H100). I8:
-// x holds int8 codes, which are pooled in integer arithmetic (pool_codes8).
-template <int N, bool Q, int K, bool I8>
-__device__ __forceinline__ void build_halo_pool(const UpArgs& a, const Layout& L,
-                                                unsigned char* halo, const void* xb,
-                                                const TileXY& T, int c_base, float post,
-                                                int p) {
-  using Raw = typename std::conditional<I8, uint2, uint4>::type;
-  constexpr int ES = Q ? 1 : 2;
-  constexpr int TH = NCONS * mt_of(N);
-  constexpr int HP = (K - 1) / 2;
-  constexpr int HH = TH + K - 1;  // halo rows
-  constexpr int RB = I8 ? 3 : 2;  // rows per batch
-  const int vpp = a.cchunk >> 3;  // a power of two <= 16
-  const int v = p % vpp;
-  const int cstep = NPROD / vpp;
-  const int c = c_base + v * 8;
-  const Raw* src = static_cast<const Raw*>(xb);
-  for (int hx = p / vpp; hx < TW; hx += cstep) {
-    const int gx = T.x0 - HP + hx;
-    const bool col_in = gx >= 0 && gx < a.W && c < a.cin;
-    unsigned char* dst = halo + hx * L.pstride + v * 8 * ES;
-#pragma unroll
-    for (int r0 = 0; r0 < HH; r0 += RB) {
-      Raw s[RB][4];
-      bool in[RB];
-#pragma unroll
-      for (int j = 0; j < RB; ++j) {
-        const int gy = T.y0 - HP + r0 + j;
-        in[j] = col_in && r0 + j < HH && gy >= 0 && gy < a.H;
-        if (in[j]) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)  // 8 channels: one Raw
-            s[j][i] =
-                __ldg(src + pix_off(a.cin, a.Ws, 2 * gy + (i >> 1), 2 * gx + (i & 1), c) / 8);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < RB; ++j) {
-        if (r0 + j >= HH) continue;
-        unsigned char* d = dst + (r0 + j) * L.hw * L.pstride;
-        if constexpr (I8) {
-          uint2 val = make_uint2(0u, 0u);
-          if (in[j]) val = pool_codes8(s[j]);
-          *reinterpret_cast<uint2*>(d) = val;
-        } else if (Q) {
-          uint2 val = make_uint2(0u, 0u);
-          if (in[j]) val = codes8(pool8(s[j]), post);
-          *reinterpret_cast<uint2*>(d) = val;
-        } else {
-          uint4 val = make_uint4(0u, 0u, 0u, 0u);
-          if (in[j]) val = pack8(pool8(s[j]));
-          *reinterpret_cast<uint4*>(d) = val;
-        }
-      }
-    }
-  }
-}
-
-// 16 bytes of an edge pixel against 16 bytes of an edge tap: eight bf16
-// products in float32, or sixteen int8 products in int32 (exact).
-__device__ __forceinline__ float dot16(const uint4 s, const uint4 w, float acc) {
-  const F8 a = unpack8(s), b = unpack8(w);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) acc = fmaf(a.v[i], b.v[i], acc);
-  return acc;
-}
-
-__device__ __forceinline__ int dot16(const uint4 s, const uint4 w, int acc) {
-  acc = __dp4a(static_cast<int>(s.x), static_cast<int>(w.x), acc);
-  acc = __dp4a(static_cast<int>(s.y), static_cast<int>(w.y), acc);
-  acc = __dp4a(static_cast<int>(s.z), static_cast<int>(w.z), acc);
-  return __dp4a(static_cast<int>(s.w), static_cast<int>(w.w), acc);
-}
-
-// The producer warpgroup walks the block's tiles; per channel chunk it waits
-// for a free buffer, has the chunk's weights copied in (or, resident, every
-// chunk's once before the first tile), builds the halo tile, and (K9, edge
-// tiles) adds the edge pixel's products with the edge taps to its sums,
-// which it hands over with the tile's last chunk.
-template <int N, int MODE, bool Q, int K>
-__device__ __forceinline__ void produce(const UpArgs& a, const Layout& L, unsigned char* smem,
-                                        uint64_t* bars, int p) {
-  using Acc = typename std::conditional<Q, int, float>::type;
-  constexpr int ES = Q ? 1 : 2;
-  constexpr int TH = NCONS * mt_of(N);
-  constexpr int EPT = (TH * N + NPROD - 1) / NPROD;  // edge sums per thread and side
-  const int hp = (a.k - 1) / 2;
-  const int i8 = Q ? a.in_i8 : 0;
-  // int8: a bf16 input goes to the grid by 127/ax, before the
-  // H-interpolation in K9 and after the pool (K7) or the interpolation (K8),
-  // as the reference's plain versions do; int8 codes are pooled or
-  // interpolated as they are and rounded again.
-  float pre = 1.0f, post = 1.0f;
-  if (Q && !i8) {
-    const float inv = __fdiv_rn(127.0f, fmaxf(__ldg(a.ax), 1e-12f));
-    if (MODE == UPF) pre = inv; else post = inv;
-  }
-  const uint32_t tap_bytes = static_cast<uint32_t>(a.cchunk) * N * ES;
-  const uint32_t row_bytes = a.k * tap_bytes;  // the stencil taps of one dy row
-  uint32_t cnt = 0;   // chunks produced, over the block's tiles
-  uint32_t ecnt = 0;  // edge tiles produced
-  const bool wres = MODE == POOL && L.wres;
-  if (wres && p == 0) {  // one channel block: cb 0's weights, in chunk order
-    mbar_arrive_expect_tx(&bars[8], a.n_chunks * a.k * row_bytes);
-    for (int i = 0; i < a.n_chunks * a.k; ++i)
-      bulk_g2s(smem + L.wres_off + i * row_bytes,
-               a.wb + static_cast<size_t>(i) * a.ntaps * tap_bytes, row_bytes, &bars[8]);
-  }
-  for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
-    const TileXY T = tile_of(a, t, TH);
-    const void* xb =
-        static_cast<const unsigned char*>(a.x) + T.b * a.Hs * a.Ws * a.cin * (i8 ? 1 : 2);
-    const unsigned char* wblock =
-        a.wb + static_cast<size_t>(T.cb) * a.n_chunks * a.k * a.ntaps * tap_bytes;
-    // K9: does this tile hold half-column 0 (side 0) or Ws-1 (side 1)?
-    const bool side[2] = {MODE == UPF && T.x0 == 0, MODE == UPF && a.W - 1 < T.x0 + a.tw};
-    Acc esum[2][EPT];
-#pragma unroll
-    for (int s = 0; s < 2; ++s)
-#pragma unroll
-      for (int e = 0; e < EPT; ++e) esum[s][e] = 0;
-
-    for (int gch = 0; gch < a.n_chunks; ++gch, ++cnt) {
-      const int buf = cnt % L.nbuf;
-      unsigned char* halo = smem + buf * L.buf_bytes;
-      const unsigned char* wchunk =
-          wblock + static_cast<size_t>(gch) * a.k * a.ntaps * tap_bytes;
-      mbar_wait(&bars[3 + buf], ((cnt / L.nbuf) & 1) ^ 1);
-      if (p == 0 && wres) {
-        mbar_arrive(&bars[buf]);
-      } else if (p == 0) {
-        mbar_arrive_expect_tx(&bars[buf], a.k * row_bytes);
-        for (int dy = 0; dy < a.k; ++dy)
-          bulk_g2s(halo + L.halo_bytes + dy * row_bytes,
-                   wchunk + static_cast<size_t>(dy) * a.ntaps * tap_bytes, row_bytes,
-                   &bars[buf]);
-      }
-      if constexpr (MODE == POOL) {
-        if (Q && i8)
-          build_halo_pool<N, Q, K, Q>(a, L, halo, xb, T, gch * a.cchunk, post, p);
-        else
-          build_halo_pool<N, Q, K, false>(a, L, halo, xb, T, gch * a.cchunk, post, p);
-      } else
-        build_halo<N, MODE, Q, K>(a, L, halo, xb, T, gch * a.cchunk, i8, pre, post, p);
-      if (MODE == UPF && (side[0] || side[1])) {
-        named_sync(1, NPROD);  // the whole halo tile is written
-        // Thread p's sums are channel n = p % N of tile rows o / N for
-        // o = p + NPROD * e (NPROD is a multiple of N): each weight it loads
-        // serves all of its rows.
-        const int n = p % N;
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          if (!side[s]) continue;
-          const int hx0 = (s ? a.W - 1 - T.x0 : -T.x0) + hp;  // the edge pixel's halo column
-          const unsigned char* wtap =
-              wchunk + (3 + s) * tap_bytes + (n >> 3) * 256 + (n & 7) * 16;
-#pragma unroll
-          for (int dy = 0; dy < 3; ++dy) {
-            // 16-byte units along the chunk's channels: k-step u / 2, half u % 2
-#pragma unroll 1
-            for (int u = 0; u < a.cchunk * ES / 16; ++u) {
-              const uint4 wv = __ldg(reinterpret_cast<const uint4*>(
-                  wtap + static_cast<size_t>(dy) * a.ntaps * tap_bytes + (u >> 1) * (N * 32) +
-                  (u & 1) * 128));
-#pragma unroll
-              for (int e = 0; e < EPT; ++e) {
-                const int o = p + NPROD * e;
-                if (o >= TH * N) continue;
-                const uint4 sv = *reinterpret_cast<const uint4*>(
-                    halo + ((o / N + dy) * L.hw + hx0) * L.pstride + u * 16);
-                esum[s][e] = dot16(sv, wv, esum[s][e]);
-              }
-            }
-          }
-        }
-        if (gch == a.n_chunks - 1) {  // [side][tile row][channel] of buffer ecnt % 2
-          const int eb = ecnt & 1;
-          mbar_wait(&bars[6 + eb], ((ecnt >> 1) & 1) ^ 1);
-          Acc* edge = reinterpret_cast<Acc*>(smem + L.edge_off) + eb * 2 * TH * N;
-#pragma unroll
-          for (int s = 0; s < 2; ++s)
-#pragma unroll
-            for (int e = 0; e < EPT; ++e) {
-              const int o = p + NPROD * e;
-              if (side[s] && o < TH * N) edge[s * TH * N + o] = esum[s][e];
-            }
-        }
-      }
-      mbar_arrive(&bars[buf]);  // releases the halo (and edge) writes
-    }
-    if (MODE == UPF && (side[0] || side[1])) ++ecnt;
-  }
-}
-
-// The products of one (dx, k-step) of a chunk for a consumer warpgroup, a
-// halo row at a time: halo row HR (shifted by dx) is the A operand of the
-// warpgroup's output row mt = HR - dy for every dy, so it is loaded once
-// (ldmatrix into register buffer HR % 2) for up to K wgmmas, each against
-// the B descriptor of its dy. At most two rows are in flight; the other
-// buffer's registers stay pinned until the row that read them is complete.
-template <int HR, int MT, int K, int NR, typename Acc>
-__device__ __forceinline__ void mma_rows(Acc (&acc)[MT][NR], uint32_t (&A)[2][4],
-                                         uint32_t a_addr, uint32_t row_stride, uint32_t w_addr,
-                                         uint32_t dy_stride) {
-  ldmatrix_x4(A[HR & 1], a_addr + HR * row_stride);
-  wgmma_fence();
-#pragma unroll
-  for (int dy = 0; dy < K; ++dy) {
-    const int mt = HR - dy;
-    if (mt >= 0 && mt < MT)
-      wgmma_rs(acc[mt < 0 ? 0 : (mt < MT ? mt : MT - 1)], A[HR & 1],
-               b_desc(w_addr + dy * dy_stride));
-  }
-  wgmma_commit();
-  wgmma_wait<1>();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) keep(A[(HR & 1) ^ 1][i]);
-  if constexpr (HR + 1 < MT + K - 1)
-    mma_rows<HR + 1, MT, K>(acc, A, a_addr, row_stride, w_addr, dy_stride);
-}
-
-// The epilogue of one tile, from the accumulators to device memory: (K9's
-// edge sums,) (int8: scale,) bias, LeakyReLU, one rounding into the
-// warpgroup's staged row (its pixels padded by 16 bytes, so that the eight
-// rows of a store fall on distinct banks), then 16-byte coalesced stores of
-// the row's valid pixels. bs holds the tile's bias and scale (N each, zero
-// past n_out).
-template <int N, int MODE, bool Q, int MT, int NR, typename Acc>
-__device__ __forceinline__ void epilogue(const UpArgs& a, const TileXY& T,
-                                         const Acc (&acc)[MT][NR], const float* bs,
-                                         const Acc* edge, unsigned char* stage, bool side0,
-                                         bool side1, bool has_slope, float slope, int wg,
-                                         int warp, int lane) {
-  constexpr int TH = NCONS * MT;
-  const int g = lane >> 2, tig = lane & 3;
-  const bool oq = Q && a.out_i8;
-  const int oes = oq ? 1 : 2;
-  const int sstride = N * oes + PAD_BYTES;
-  const int n0 = T.cb * N;
-  const int n_out = a.n_out;
-  const int nval = min(N, n_out - n0);
-  const int np = min(a.tw, a.W - T.x0);
-  const bool vec = (nval * oes) % 16 == 0 && (n_out * oes) % 16 == 0;
-  const int t0 = (warp << 5) | lane;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const int ty = wg * MT + mt;
-    const int oy = T.y0 + ty;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = 16 * warp + g + 8 * h;
-      const bool e0 = MODE == UPF && side0 && m == 0;
-      const bool e1 = MODE == UPF && side1 && m == a.W - 1 - T.x0;
-#pragma unroll
-      for (int j = 0; j < N / 8; ++j) {
-        const int n = 8 * j + 2 * tig;
-        Acc s0 = acc[mt][4 * j + 2 * h], s1 = acc[mt][4 * j + 2 * h + 1];
-        if (e0) {
-          s0 += edge[ty * N + n];
-          s1 += edge[ty * N + n + 1];
-        }
-        if (e1) {
-          s0 += edge[(TH + ty) * N + n];
-          s1 += edge[(TH + ty) * N + n + 1];
-        }
-        float v0 = static_cast<float>(s0), v1 = static_cast<float>(s1);
-        if (Q) {
-          const float2 sc = *reinterpret_cast<const float2*>(bs + N + n);
-          v0 *= sc.x;
-          v1 *= sc.y;
-        }
-        const float2 bb = *reinterpret_cast<const float2*>(bs + n);
-        v0 += bb.x;
-        v1 += bb.y;
-        if (has_slope) {
-          v0 = v0 >= 0.0f ? v0 : slope * v0;
-          v1 = v1 >= 0.0f ? v1 : slope * v1;
-        }
-        unsigned char* sp = stage + m * sstride + n * oes;
-        if (oq)
-          *reinterpret_cast<uint16_t*>(sp) = static_cast<uint16_t>(
-              code8(v0) | (code8(v1) << 8));
-        else
-          *reinterpret_cast<__nv_bfloat162*>(sp) = __floats2bfloat162_rn(v0, v1);
-      }
-    }
-    named_sync(3 + wg, 128);  // the row is staged
-    if (oy < a.H) {
-      unsigned char* orow = static_cast<unsigned char*>(a.out) +
-                            (((T.b * a.H + oy) * a.W + T.x0) * n_out + n0) * oes;
-      if (vec) {
-        const int cpr = nval * oes / 16;
-        for (int i = t0; i < np * cpr; i += 128) {
-          const int m = i / cpr, c = i % cpr;
-          *reinterpret_cast<uint4*>(orow + static_cast<size_t>(m) * n_out * oes + c * 16) =
-              *reinterpret_cast<const uint4*>(stage + m * sstride + c * 16);
-        }
-      } else {
-        for (int i = t0; i < np * nval; i += 128) {
-          const int m = i / nval, n = i % nval;
-          unsigned char* d = orow + (static_cast<size_t>(m) * n_out + n) * oes;
-          const unsigned char* sp = stage + m * sstride + n * oes;
-          d[0] = sp[0];
-          if (oes == 2) d[1] = sp[1];
-        }
-      }
-    }
-    named_sync(3 + wg, 128);  // the row is stored; the stage may be reused
-  }
-}
-
-// A consumer warpgroup walks the block's tiles: the K-loop over (chunk, dx,
-// k-step, halo row) into MT rows of 64 pixels x N channels, then the
-// epilogue, which overlaps the producer's next chunks.
-template <int N, int MODE, bool Q, int K>
-__device__ __forceinline__ void consume(const UpArgs& a, const Layout& L, unsigned char* smem,
-                                        uint64_t* bars, int ct) {
-  using Acc = typename std::conditional<Q, int, float>::type;
-  constexpr int KK = Q ? 32 : 16;
-  constexpr int MT = mt_of(N);
-  constexpr int TH = NCONS * MT;
-  constexpr int NR = N / 2;
-  const int wg = ct >> 7;
-  const int warp = (ct >> 5) & 3;
-  const int lane = ct & 31;
-  const int ks_n = a.cchunk / KK;
-  const uint32_t row_stride = L.hw * L.pstride;  // one halo row
-  // This lane's ldmatrix row address: pixel 16*warp + lane % 8 (+8 for
-  // matrices 1 and 3), bytes 16 .. 31 of the k-step for matrices 2 and 3.
-  const uint32_t lane_off = wg * MT * row_stride +
-                            (16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8) * L.pstride +
-                            (lane >> 4) * 16;
-  const uint32_t base = smem_u32(smem);
-  float* bs = reinterpret_cast<float*>(smem + L.bs_off);
-  unsigned char* stage = smem + L.stage_off + wg * L.stage_bytes;
-  const bool has_slope = a.has_slope;
-  const float slope = a.slope;
-  uint32_t cnt = 0, ecnt = 0;
-  int bs_cb = -1;  // the channel block whose bias and scale bs holds
-  Acc acc[MT][NR];
-  uint32_t A[2][4];
-  const bool wres = MODE == POOL && L.wres;
-  if (wres) mbar_wait(&bars[8], 0);  // the resident weights have arrived
-
-  for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
-    const TileXY T = tile_of(a, t, TH);
-    if (T.cb != bs_cb) {
-      named_sync(2, NCONS * 128);  // the last tile's epilogue is done with bs
-      for (int i = ct; i < N; i += NCONS * 128) {
-        const int co = T.cb * N + i;
-        bs[i] = co < a.n_out ? __ldg(a.bias + co) : 0.0f;
-        bs[N + i] = Q && co < a.n_out ? __ldg(a.scale + co) : 0.0f;
-      }
-      named_sync(2, NCONS * 128);
-      bs_cb = T.cb;
-    }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int i = 0; i < NR; ++i) acc[mt][i] = 0;
-    for (int gch = 0; gch < a.n_chunks; ++gch, ++cnt) {
-      const int buf = cnt % L.nbuf;
-      mbar_wait(&bars[buf], (cnt / L.nbuf) & 1);
-      const uint32_t a_s = base + buf * L.buf_bytes + lane_off;
-      const uint32_t w_s = wres ? base + L.wres_off + gch * L.w_bytes
-                                : base + buf * L.buf_bytes + L.halo_bytes;
-      // B of (dy, dx, k-step) at w_s + ((dy * K + dx) * ks_n + ks) * N * 32
-#pragma unroll 1
-      for (int dx = 0; dx < K; ++dx)
-#pragma unroll 1
-        for (int ks = 0; ks < ks_n; ++ks)
-          mma_rows<0, MT, K>(acc, A, a_s + dx * L.pstride + ks * 32, row_stride,
-                             w_s + (dx * ks_n + ks) * (N * 32), K * ks_n * (N * 32));
-      wgmma_wait<0>();
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int i = 0; i < NR; ++i) keep(acc[mt][i]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        keep(A[0][i]);
-        keep(A[1][i]);
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&bars[3 + buf]);
-    }
-
-    const bool side0 = MODE == UPF && T.x0 == 0;
-    const bool side1 = MODE == UPF && a.W - 1 < T.x0 + a.tw;
-    const Acc* edge = reinterpret_cast<const Acc*>(smem + L.edge_off) + (ecnt & 1) * 2 * TH * N;
-    epilogue<N, MODE, Q>(a, T, acc, bs, edge, stage, side0, side1, has_slope, slope, wg, warp,
-                         lane);
-    if (side0 || side1) {  // this tile's edge sums are read
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&bars[6 + (ecnt & 1)]);
-      ++ecnt;
-    }
-  }
-}
-
-// 384 threads: the producer warpgroup, then two consumer warpgroups; one
-// persistent block per multiprocessor (its shared memory and the consumers'
-// registers) walks the tiles t = blockIdx.x, + gridDim.x, ...
-template <int N, int MODE, bool Q, int K>
-__global__ void __launch_bounds__(THREADS, 1) conv_up_sm90_kernel(const UpArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = make_layout(a.k, a.cchunk, N, Q, MODE == UPF, resident_chunks<MODE>(a));
-  // full[3], empty[3], edge_empty[2], weights_resident
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bar_off);
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < 3; ++i) mbar_init(&bars[i], NPROD + 1);  // + the weights' arrival
-    for (int i = 3; i < 8; ++i) mbar_init(&bars[i], NCONS * 4);
-    mbar_init(&bars[8], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x < NPROD) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PROD_REGS));
-    produce<N, MODE, Q, K>(a, L, smem, bars, threadIdx.x);
-  } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONS_REGS));
-    consume<N, MODE, Q, K>(a, L, smem, bars, threadIdx.x - NPROD);
-  }
-}
 
 // [rho][dx+1][kx]: the coefficient of w[:, kx] in the folded weight that
 // output column 2j+rho applies to half-resolution column j+dx.
@@ -1051,17 +46,25 @@ __constant__ float kUpfA[2][3][3] = {
     {{0.75f, 0.25f, 0.0f}, {0.25f, 0.75f, 0.75f}, {0.0f, 0.0f, 0.25f}},
     {{0.25f, 0.0f, 0.0f}, {0.75f, 0.75f, 0.25f}, {0.0f, 0.25f, 0.75f}}};
 
-// One bf16 weight of the layout above per thread, from float32 (k, k, cin,
-// cout) weights: the conv's own (K8) or folded (K9: the stencil taps summed
-// in kx order from 0, then the edge taps, each product and sum rounded in
-// float32, as conv_packed._upf_fold computes them), zero where cin or the
-// output channels are padding, rounded once to bf16. Folded, the first
-// 2*cout threads also write the bias of both output parities.
+// The channel counts of the operands whose concat a weight tensor's cin
+// runs over (K5: 1..4, the others: 1).
+struct Cins {
+  int c[MAX_OPS];
+  int n;
+};
+
+// One bf16 weight of the core's layout per thread, from float32 (k, k,
+// cin, cout) weights: the conv's own (K5-K8) or folded (K9: the stencil
+// taps summed in kx order from 0, then the edge taps, each product and sum
+// rounded in float32, as conv_packed._upf_fold computes them), zero where an
+// operand's chunk or the output channels are padding, rounded once to bf16.
+// Folded, the first 2*cout threads also write the bias of both output
+// parities.
 __global__ void conv_up_prep_kernel(const float* __restrict__ w, const float* __restrict__ bias,
                                     __nv_bfloat16* __restrict__ out,
-                                    float* __restrict__ bias_out, int k, int cin, int cout,
-                                    int cchunk, int n_tiles, int n_chunks, int folded,
-                                    int total) {
+                                    float* __restrict__ bias_out, int k, const Cins cins,
+                                    int cin, int cout, int cchunk, int n_tiles, int n_chunks,
+                                    int folded, int total) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;  // total < 2^31
   if (folded && idx < 2 * cout) bias_out[idx] = bias[idx % cout];
   if (idx >= total) return;
@@ -1082,22 +85,34 @@ __global__ void conv_up_prep_kernel(const float* __restrict__ w, const float* __
   t /= k;
   const int ch = t % n_chunks;
   const int cb = t / n_chunks;
-  const int ci = ch * cchunk + ks * 16 + r * 8 + tig * 2 + p;
+  // chunk ch of the operand it falls in: its channel cl, the concat's ci
+  int chl = ch, row0 = 0, c_op = 0;
+  for (int i = 0; i < cins.n; ++i) {
+    const int nch = (cins.c[i] + cchunk - 1) / cchunk;
+    if (chl < nch) {
+      c_op = cins.c[i];
+      break;
+    }
+    chl -= nch;
+    row0 += cins.c[i];
+  }
+  const int cl = chl * cchunk + ks * 16 + r * 8 + tig * 2 + p;
+  const int ci = row0 + cl;
   const int n = (cb * n_tiles + nt) * 8 + g;
   float v = 0.0f;
-  if (ci < cin && n < (folded ? 2 * cout : cout)) {
+  if (cl < c_op && n < (folded ? 2 * cout : cout)) {
     const int co = folded ? n % cout : n;
-    auto wt = [&](int kx) {
-      return __ldg(w + ((static_cast<size_t>(dy) * k + kx) * cin + ci) * cout + co);
+    auto wt = [&](int x) {
+      return __ldg(w + ((static_cast<size_t>(dy) * k + x) * cin + ci) * cout + co);
     };
     if (!folded) {
       v = wt(tap);
     } else {
       const int rho = n / cout;
       if (tap < 3) {
-        for (int kx = 0; kx < 3; ++kx) {
-          const float c = kUpfA[rho][tap][kx];
-          if (c != 0.0f) v = __fadd_rn(v, __fmul_rn(c, wt(kx)));
+        for (int x = 0; x < 3; ++x) {
+          const float c = kUpfA[rho][tap][x];
+          if (c != 0.0f) v = __fadd_rn(v, __fmul_rn(c, wt(x)));
         }
       } else if (tap == 3) {
         v = rho == 0 ? __fmul_rn(0.25f, __fsub_rn(wt(1), wt(0))) : __fmul_rn(0.25f, wt(0));
@@ -1109,96 +124,14 @@ __global__ void conv_up_prep_kernel(const float* __restrict__ w, const float* __
   out[idx] = __float2bfloat16_rn(v);
 }
 
-constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
-
-template <int N, int MODE, bool Q, int K>
-int launch_one(UpArgs a, int B, cudaStream_t s) {
-  const Layout L = make_layout(a.k, a.cchunk, N, Q, MODE == UPF, resident_chunks<MODE>(a));
-  if (L.total > SMEM_MAX) return kInvalid;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_up_sm90_kernel<N, MODE, Q, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return static_cast<int>(err);
-  constexpr int TH = NCONS * mt_of(N);
-  a.tw = TW - (K - 1);
-  a.tiles_x = (a.W + a.tw - 1) / a.tw;
-  a.tiles_y = (a.H + TH - 1) / TH;
-  const long long tiles = static_cast<long long>(a.tiles_x) * a.tiles_y * B * a.n_cb;
-  if (tiles > 0x7fffffffLL) return kInvalid;
-  a.tiles = static_cast<int>(tiles);
-  const int grid = a.tiles < sms ? a.tiles : sms;
-  conv_up_sm90_kernel<N, MODE, Q, K><<<grid, THREADS, L.total, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int MODE, bool Q, int K>
-int launch_n(const UpArgs& a, int B, int n_tiles, cudaStream_t s) {
-  switch (n_tiles) {
-    case 1: return launch_one<8, MODE, Q, K>(a, B, s);
-    case 2: return launch_one<16, MODE, Q, K>(a, B, s);
-    case 4: return launch_one<32, MODE, Q, K>(a, B, s);
-    case 8: return launch_one<64, MODE, Q, K>(a, B, s);
-    case 16: return launch_one<128, MODE, Q, K>(a, B, s);
-    default: return kInvalid;
-  }
-}
-
-// K7 and K8 are built for k in {3, 5}, K9 for k = 3.
-template <int MODE, bool Q>
-int launch_k(const UpArgs& a, int B, int n_tiles, cudaStream_t s) {
-  if (a.k == 3) return launch_n<MODE, Q, 3>(a, B, n_tiles, s);
-  if constexpr (MODE != UPF) return launch_n<MODE, Q, 5>(a, B, n_tiles, s);
-  return kInvalid;
-}
-
-template <int MODE>
-int launch_mode(UpArgs a, int B, int n_tiles, int q, void* stream) {
-  if (B <= 0 || a.H <= 0 || a.W <= 0) return 0;
-  const int kk = q ? 32 : 16;
-  if ((MODE == UPF ? a.k != 3 : (a.k != 3 && a.k != 5)) || a.cchunk < kk || a.cchunk % kk ||
-      (a.cchunk & (a.cchunk - 1)) || a.cchunk > 128 || a.cin < 8 || a.cin % 8 || a.n_out < 1 || n_tiles < 1 ||
-      (q ? (!a.scale || !a.ax) : (a.out_i8 || a.in_i8)))
-    return kInvalid;
-  a.ntaps = MODE == UPF ? 5 : a.k;
-  a.n_chunks = (a.cin + a.cchunk - 1) / a.cchunk;
-  a.n_cb = (a.n_out + n_tiles * 8 - 1) / (n_tiles * 8);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return q ? launch_k<MODE, true>(a, B, n_tiles, s) : launch_k<MODE, false>(a, B, n_tiles, s);
-}
-
-UpArgs up_args(const void* x, int c, int in_i8, const void* ax, const void* wb,
-               const void* bias, const void* scale, void* out, int out_i8, int H, int W,
-               int Hs, int Ws, int n_out, int k, int cchunk, int has_slope, float slope) {
-  UpArgs a = {};
-  a.x = x;
-  a.cin = c;
-  a.in_i8 = in_i8;
-  a.ax = static_cast<const float*>(ax);
-  a.wb = static_cast<const unsigned char*>(wb);
-  a.bias = static_cast<const float*>(bias);
-  a.scale = static_cast<const float*>(scale);
-  a.out = out;
-  a.out_i8 = out_i8;
-  a.H = H; a.W = W; a.Hs = Hs; a.Ws = Ws;
-  a.n_out = n_out;
-  a.k = k;
-  a.cchunk = cchunk;
-  a.has_slope = has_slope;
-  a.slope = slope;
-  return a;
-}
-
 }  // namespace
 
 // Every entry point takes, beside its tensors: q (0 bfloat16, 1 int8); in
 // int8 mode in_i8 (x holds int8 codes), ax (device pointer to x's float32
 // calibrated |x| maximum), scale (n_out float32, the int32 sum's
 // dequantisation, 127/ax_out folded in when out_i8) and out_i8 (store int8
-// instead of bf16). wfrag holds bf16 or int8 weights in the layout of the
-// file head for chunks of cchunk channels and blocks of n_tiles*8 output
+// instead of bf16). wfrag holds bf16 or int8 weights in the layout of
+// conv_sm90.cuh for chunks of cchunk channels and blocks of n_tiles*8 output
 // channels (n_tiles in {1, 2, 4, 8, 16}); bias is float32.
 extern "C" {
 
@@ -1238,7 +171,7 @@ int rrin_conv_up_m_packed_launch(const void* x, int c, int in_i8, const void* ax
 // x: (B,Hs,Ws,c) half resolution; out: (B,2Hs,2Ws,cout) =
 // conv_3(upsample_2x_bilinear(x)); wfrag holds the folded weights with five
 // taps per dy row and 2*cout output channels, bias (and scale) are 2*cout
-// long (see the file head).
+// long (see conv_sm90.cuh).
 int rrin_conv_up_f_packed_launch(const void* x, int c, int in_i8, const void* ax,
                                  const void* wfrag, const void* bias, const void* scale,
                                  void* out, int out_i8, int B, int Hs, int Ws, int cout,
@@ -1249,19 +182,29 @@ int rrin_conv_up_f_packed_launch(const void* x, int c, int in_i8, const void* ax
                           B, n_tiles, q, stream);
 }
 
-// w: float32 (k, k, cin, cout), contiguous; out: bf16, the bf16 layout of
-// the file head for (cchunk, n_tiles), folded (k = 3, five taps, 2*cout
-// output channels) when `folded`, and then bias_out (2*cout float32) the
-// float32 bias (cout) repeated; bias and bias_out are unused otherwise.
+// w: float32 (k, k, cin, cout), contiguous, cin the sum of the n_ops
+// operands' channels cins[i] (n_ops > 1 only unfolded); out: bf16, the bf16
+// layout of conv_sm90.cuh for (cchunk, n_tiles), each operand's channels
+// padded to whole chunks, folded (k = 3, five taps, 2*cout output channels)
+// when `folded`, and then bias_out (2*cout float32) the float32 bias (cout)
+// repeated; bias and bias_out are unused otherwise.
 int rrin_conv_up_prep_launch(const void* w, const void* bias, void* out, void* bias_out, int k,
-                             int cin, int cout, int cchunk, int n_tiles, int folded,
-                             void* stream) {
-  if (k < 1 || cin < 1 || cout < 1 || cchunk < 16 || cchunk % 16 || n_tiles < 1 ||
-      (folded && (k != 3 || !bias || !bias_out)))
+                             const int* cins, int n_ops, int cout, int cchunk, int n_tiles,
+                             int folded, void* stream) {
+  if (k < 1 || n_ops < 1 || n_ops > MAX_OPS || cout < 1 || cchunk < 16 || cchunk % 16 ||
+      n_tiles < 1 || (folded && (k != 3 || n_ops != 1 || !bias || !bias_out)))
     return kInvalid;
+  Cins c = {};
+  c.n = n_ops;
+  int cin = 0, n_chunks = 0;
+  for (int i = 0; i < n_ops; ++i) {
+    if (cins[i] < 1) return kInvalid;
+    c.c[i] = cins[i];
+    cin += cins[i];
+    n_chunks += (cins[i] + cchunk - 1) / cchunk;
+  }
   const int n_out = folded ? 2 * cout : cout;
   const int n_cb = (n_out + n_tiles * 8 - 1) / (n_tiles * 8);
-  const int n_chunks = (cin + cchunk - 1) / cchunk;
   const long long total = static_cast<long long>(n_cb) * n_chunks * k * (folded ? 5 : k) *
                           cchunk * n_tiles * 8;  // >= 2*cout
   if (total > 0x7fffffffLL) return kInvalid;
@@ -1269,7 +212,7 @@ int rrin_conv_up_prep_launch(const void* w, const void* bias, void* out, void* b
   conv_up_prep_kernel<<<static_cast<unsigned>(blocks), 256, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(w), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(bias_out), k, cin, cout, cchunk,
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(bias_out), k, c, cin, cout, cchunk,
       n_tiles, n_chunks, folded, static_cast<int>(total));
   return static_cast<int>(cudaGetLastError());
 }

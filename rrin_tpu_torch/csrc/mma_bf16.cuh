@@ -1,4 +1,4 @@
-// Tensor-core primitive shared by the convolution kernels of this directory.
+// The tensor-core primitive of conv_phase.cu (K1).
 //
 // mma.sync.m16n8k16, bf16 in, f32 accumulate. Fragment layout, with
 // g = lane / 4 and tig = lane % 4:

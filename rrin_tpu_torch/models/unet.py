@@ -383,7 +383,7 @@ def unet_apply_packed(
     if prep is not None or collect is not None:
         raise NotImplementedError(
             "prep=/collect= (prepare-once packed params) are not ported yet: "
-            "ROADMAP.md Queue A item 3, 'Prepare-once params'")
+            "ROADMAP.md Queue A item 1, 'Prepare-once params'")
     _, h, w, _ = x.shape
     if not packed_supported(h, w, cfg):
         raise ValueError(

@@ -20,16 +20,17 @@ Replaces five Pallas kernels of the JAX package's ``ops/conv_packed.py``:
                         weights (:func:`_upf_fold`) and the clamped-edge
                         residual added exactly.
 
-K5 and K6 are ``csrc/conv_packed.cu``: one implicit-GEMM core on
-``mma.sync`` with five load prologues (K7-K9's are for float32 only). K7,
-K8 and K9 in bfloat16 and int8 are ``csrc/conv_up_sm90.cu``, a Hopper core
-on ``wgmma`` with a producer
-warpgroup that builds the pooled or interpolated halo tile of the next
-channel chunk while two consumer warpgroups contract the current one, all of
-a site's output channels (up to 128) in one block; its planner is
-:func:`_sm90_plan`, its weight layout :func:`_sm90_weights` (K7 and K8 take
-the conv's own weights in it, K9 the folded ones). **K6 and K8 compute one
-function** in NHWC. The two TPU kernels differ only in their lane geometry
+In bfloat16 and int8 all five run on one Hopper core on ``wgmma``
+(``csrc/conv_sm90.cuh``; entry points of K5 and K6 in
+``csrc/conv_packed_sm90.cu``, of K7-K9 in ``csrc/conv_up_sm90.cu``) with a
+producer warpgroup that builds the halo tile of the next channel chunk
+(copied by ``cp.async`` for K5, pooled or interpolated for K6-K9) while two
+consumer warpgroups contract the current one, all of a site's output
+channels (up to 128) in one block; its planner is :func:`_sm90_plan`, its
+weight layout :func:`_sm90_weights` (K5-K8 take the conv's own weights in
+it, K5's split per operand, K9 the folded ones). Their float32 modes are
+``csrc/conv_packed.cu``, one implicit-GEMM core on ``mma.sync`` with five
+load prologues. **K6 and K8 compute one function** in NHWC. The two TPU kernels differ only in their lane geometry
 (K6 doubles the lane groups P, K8 the sublane groups M at a level boundary),
 which is not carried over.
 Both entry points exist because each mirrors one reference kernel, with its
@@ -46,8 +47,9 @@ repeats that routing.
 float32 sum, rounded once to bfloat16.
 
 **float32** (float32 operands on the card): every kernel has a float32
-mode on the ``mma.sync`` core of ``csrc/conv_packed.cu``, K7-K9 included
-(:data:`_SM90_KERNELS` is bfloat16 and int8 only). The reference contracts
+mode on the ``mma.sync`` core of ``csrc/conv_packed.cu`` (entry points
+``rrin_<kernel>_f32_launch``; :data:`_SM90_KERNELS` is bfloat16 and int8
+only). The reference contracts
 float32 at full precision; the kernels split each operand into two TF32
 parts (``hi = rna(x)``, ``lo = rna(x - hi)``, :func:`_tf32`) and sum
 ``lo_a*hi_b + hi_a*lo_b + hi_a*hi_b`` on ``mma.m16n8k8.tf32`` in float32
@@ -63,8 +65,7 @@ Prologue values stay float32; the output is float32. Launches count under
 (:func:`_quantize_act`), weights per output channel with operand *i*
 pre-scaled by ``ax_i/ax_0`` so that one scale ``ax_0 * sw / 127^2``
 dequantises the shared int32 sum (:func:`_quantize_weights`); the kernels
-contract int8 x int8 -> int32 (``mma.sync.m16n8k32``, K7-K9
-``wgmma...m64nNk32.s32.s8.s8``). An int8-dtyped
+contract int8 x int8 -> int32 (``wgmma...m64nNk32.s32.s8.s8``). An int8-dtyped
 operand is taken as already on its grid. With ``out_absmax`` the
 ``127/ax_out`` step is folded into scale and bias and the kernel emits int8,
 otherwise ``out_dtype`` (bfloat16 on the card). The scales reach the kernel
@@ -92,11 +93,11 @@ is no gate on H, W or M. Each wrapper launches its kernel for a CUDA tensor
 or raises; it takes the plain version beside it only for a CPU tensor.
 Forward only. ``prepared=`` takes the result of the matching
 ``prep_*`` (built with the same absmax and ``dtype``) and skips the per-call
-weight re-layout, split and quantisation. Without it, K7, K8 and K9 in
-bfloat16 lay out
-(and K9 folds) their weights on the card in one launch of the core's prep
-kernel (launch count ``conv_up_prep``); the ``prep_*`` functions are its
-plain version.
+weight re-layout, split and quantisation. Without it, K5-K9 in bfloat16
+lay out (and K9 folds) their weights on the card in one launch of the
+Hopper core's prep kernel (launch count ``conv_up_prep``); the ``prep_*``
+functions are its plain version. int8 and float32 weights are prepared in
+PyTorch on every call.
 """
 
 from __future__ import annotations
@@ -128,18 +129,25 @@ F32 = 2
 # Per element type: bytes an element, channels per mma step (32 bytes), bytes
 # of one lane's B fragment (float32: the hi and the lo pair).
 _ELEM = {False: (2, 16, 8), True: (1, 32, 8), F32: (4, 8, 16)}
-# Channel chunks of the K-loop, largest first.
-_CHUNKS = {False: (64, 48, 32, 16), True: (128, 64, 32), F32: (32, 16, 8)}
-# csrc/conv_up_sm90.cu (K7, K8, K9): pixels per block row, output channels per
-# block (N of its wgmma) that it is built for, consumer warpgroups, channel
-# chunks (powers of two: its producer threads split a chunk evenly).
+# Channel chunks of the float32 K-loop of csrc/conv_packed.cu, largest first.
+_CHUNKS = {F32: (32, 16, 8)}
+# The Hopper core of csrc/conv_sm90.cuh (K5-K9 in bfloat16 and int8):
+# pixels per block row, output channels per block (N of its wgmma) that it is
+# built for, consumer warpgroups, channel chunks (powers of two: its
+# producer threads split a chunk evenly).
 _SM90_TW, _SM90_N, _SM90_CONSUMERS = 64, (8, 16, 32, 64, 128), 2
 _SM90_CHUNKS = {False: (64, 32, 16), True: (128, 64, 32)}
 # Its kernels -> (folded, resident): K9's weights are folded with its
-# W-upsample; K7 keeps every chunk's weights in shared memory where that is
-# what fits (the C side's resident_chunks<MODE>).
-_SM90_KERNELS = {"conv_pool_packed": (False, True), "conv_up_m_packed": (False, False),
+# W-upsample; K5 and K7 keep every chunk's weights in shared memory where
+# that is what fits (the C side's resident_chunks<MODE>).
+_SM90_KERNELS = {"conv_packed": (False, True), "conv_pool_packed": (False, True),
+                 "conv_up_packed": (False, False), "conv_up_m_packed": (False, False),
                  "conv_up_f_packed": (True, False)}
+# The source of each kernel's entry points (csrc/<name>.cu, one library
+# each); the weight prep of all five is in conv_up_sm90.
+_SM90_SOURCE = {"conv_packed": "conv_packed_sm90", "conv_up_packed": "conv_packed_sm90",
+                "conv_pool_packed": "conv_up_sm90", "conv_up_m_packed": "conv_up_sm90",
+                "conv_up_f_packed": "conv_up_sm90"}
 # Its weights' memory order against the fragment order of _weight_fragments:
 # (cb, chunk, dy, tap, kstep, nt, g, tig, r, p) is stored as
 # (cb, chunk, dy, tap, kstep, nt, r, g, tig, p), so that each (r, g) row of
@@ -176,11 +184,12 @@ def _smem_bytes(
 
 
 def _plan(
-    ky: int, kx: int, ntaps: int, cins: Sequence[int], n_out: int, q: int = False,
+    ky: int, kx: int, ntaps: int, cins: Sequence[int], n_out: int, q: int = F32,
 ) -> Optional[Tuple[int, int, int]]:
-    """(cchunk, n_tiles, n_cout_blocks) of the kernel for this site, or None.
-    ``n_out`` is the number of channels per GEMM pixel (2*cout when folded);
-    ``q`` plans the int8 kernel (True) or the float32 one (F32)."""
+    """(cchunk, n_tiles, n_cout_blocks) of the float32 kernel of
+    ``csrc/conv_packed.cu`` (``q`` = F32, its only element type) for this
+    site, or None. ``n_out`` is the number of channels per GEMM pixel
+    (2*cout when folded)."""
     if not cins or min(cins) < 1 or n_out < 1:
         return None
     n_tiles = _n_tiles(n_out)
@@ -194,24 +203,21 @@ def _plan(
     return None
 
 
-def _fits(ky, kx, ntaps, cins, n_out) -> bool:
-    return all(_plan(ky, kx, ntaps, cins, n_out, q) is not None for q in _ELEM)
-
-
 def _sm90_rows(n: int) -> int:
-    """Rows of GEMM pixels per block of the K7-K9 core for N = ``n``: each
+    """Rows of GEMM pixels per block of the Hopper core for N = ``n``: each
     consumer warpgroup holds 4 rows of accumulators up to N = 64, else 2."""
     return _SM90_CONSUMERS * (4 if n <= 64 else 2)
 
 
 def _sm90_smem_bytes(k: int, cchunk: int, n_tiles: int, q: bool = False,
                      folded: bool = False, res_chunks: int = 0) -> int:
-    """Shared memory of one K7-K9 block (``make_layout`` in conv_up_sm90.cu;
-    K7 has K8's layout, ``folded`` is K9's): three buffers of a halo tile
-    (64 columns) and a chunk's stencil weights where they fit; else, for K7
-    where the block's tiles share one channel block (``res_chunks``, the
-    input's chunks, is then not 0), three halo buffers beside the weights of
-    every chunk, resident; else two buffers with their weights. Besides: a
+    """Shared memory of one block of the Hopper core (``make_layout`` in
+    conv_sm90.cuh; K5-K8 share a layout, ``folded`` is K9's): three buffers
+    of a halo tile (64 columns) and a chunk's stencil weights where they fit;
+    else, for K5 and K7 where the block's tiles share one channel block
+    (``res_chunks``, the input's chunks over all operands, is then not 0),
+    three halo buffers beside the weights of every chunk, resident; else two
+    buffers with their weights (k = 5 and 7 at the wide sites). Besides: a
     staged output row per consumer warpgroup; bias and scale; K9's edge sums
     of two tiles; nine mbarriers. Regions are 128-byte aligned."""
     es, n = (1 if q else 2), n_tiles * 8
@@ -233,54 +239,70 @@ def _sm90_smem_bytes(k: int, cchunk: int, n_tiles: int, q: bool = False,
     return 2 * (halo + w) + rest
 
 
-def _sm90_res_chunks(cin: int, plan: Tuple[int, int, int], resident: bool) -> int:
+def _cins(cin: Union[int, Sequence[int]]) -> Tuple[int, ...]:
+    return (cin,) if isinstance(cin, int) else tuple(cin)
+
+
+def _sm90_chunks(cin: Union[int, Sequence[int]], cchunk: int) -> int:
+    """Channel chunks of the K-loop: operand by operand, each operand's
+    channels padded to whole chunks (no chunk straddles two operands)."""
+    return sum(-(-c // cchunk) for c in _cins(cin))
+
+
+def _sm90_res_chunks(cin: Union[int, Sequence[int]], plan: Tuple[int, int, int],
+                     resident: bool) -> int:
     """What the core's layout takes as ``res_chunks`` for ``plan``: where
-    weights may be ``resident`` (K7) and all output channels are one block,
-    the input's chunks, else 0."""
+    weights may be ``resident`` (K5, K7) and all output channels are one
+    block, the input's chunks (``cin``: one channel count or the operands'),
+    else 0."""
     cchunk, _, n_cb = plan
-    return -(-cin // cchunk) if resident and n_cb == 1 else 0
+    return _sm90_chunks(cin, cchunk) if resident and n_cb == 1 else 0
 
 
 @functools.lru_cache(maxsize=None)
 def _sm90_plan(
-    k: int, cin: int, n_out: int, q: bool = False, folded: bool = False,
-    resident: bool = False,
+    k: int, cin: Union[int, Tuple[int, ...]], n_out: int, q: bool = False,
+    folded: bool = False, resident: bool = False,
 ) -> Optional[Tuple[int, int, int]]:
-    """(cchunk, n_tiles, n_cout_blocks) of the K7-K9 core, or None: N =
+    """(cchunk, n_tiles, n_cout_blocks) of the Hopper core, or None: N =
     8*n_tiles is the narrowest width it is built for that covers ``n_out``
     (2*cout when folded), so one block holds every output channel up to 128;
-    the largest channel chunk that fits shared memory (with its weights
-    ``resident``, K7, where that is what fits), a narrower N (more channel
-    blocks) only where none does."""
-    if cin < 1 or n_out < 1:
+    the largest channel chunk (no wider than the widest operand, ``cin``
+    being one channel count or the operands') that fits shared memory (with
+    its weights ``resident``, K5 and K7, where that is what fits), a
+    narrower N (more channel blocks) only where none does."""
+    cins = _cins(cin)
+    if not cins or min(cins) < 1 or n_out < 1:
         return None
     kk = 32 if q else 16
-    cin_k = -(-cin // kk) * kk
+    cin_k = -(-max(cins) // kk) * kk
     first = next((n for n in _SM90_N if n >= n_out), _SM90_N[-1])
     for n in reversed([m for m in _SM90_N if m <= first]):
         for cchunk in _SM90_CHUNKS[q]:
             plan = (cchunk, n // 8, -(-n_out // n))
-            res = _sm90_res_chunks(cin, plan, resident)
+            res = _sm90_res_chunks(cins, plan, resident)
             if cchunk <= cin_k and _sm90_smem_bytes(k, cchunk, n // 8, q, folded,
                                                      res) <= _SMEM_MAX:
                 return plan
     return None
 
 
-def _sm90_fits(k: int, cin: int, n_out: int, folded: bool, resident: bool = False) -> bool:
-    """Whether the K7-K9 site has a plan on the Hopper core (bfloat16, int8)
-    and, for float32, on the ``mma.sync`` core (five taps a row when
-    ``folded``): the routing does not depend on the dtype."""
+def _sm90_fits(k: int, cin: Union[int, Tuple[int, ...]], n_out: int, folded: bool,
+               resident: bool = False) -> bool:
+    """Whether the site has a plan on the Hopper core (bfloat16, int8) and,
+    for float32, on the ``mma.sync`` core (five taps a row when ``folded``):
+    the routing does not depend on the dtype."""
     return all(_sm90_plan(k, cin, n_out, q, folded, resident) is not None
                for q in (False, True)) and _plan(
-                   k, k, 5 if folded else k, (cin,), n_out, F32) is not None
+                   k, k, 5 if folded else k, _cins(cin), n_out, F32) is not None
 
 
 def supports(cins: Sequence[int], k: int, cout: int) -> bool:
     """Whether ``conv_packed`` has a kernel for operands of ``cins`` channels:
     k in {3, 5, 7}, any cin >= 1 and cout >= 1 (cin 6/9/10 and cout 2/3/4
     stay on the kernel), at most four operands."""
-    return k in _K_CONV and 1 <= len(cins) <= MAX_OPS and _fits(k, k, k, cins, cout)
+    return k in _K_CONV and 1 <= len(cins) <= MAX_OPS and _sm90_fits(
+        k, tuple(cins), cout, *_SM90_KERNELS["conv_packed"])
 
 
 def supports_pool(cin: int, k: int, cout: int) -> bool:
@@ -292,7 +314,8 @@ def supports_pool(cin: int, k: int, cout: int) -> bool:
 def supports_up(cin: int, k: int, cout: int) -> bool:
     """``conv_up_packed``: what the JAX package's ``supports_up`` admits once
     its lane geometry is set aside: odd k <= 5 (1, 3, 5), cin a multiple of 8."""
-    return k in _K_UP and cin % 8 == 0 and _fits(k, k, k, (cin,), cout)
+    return k in _K_UP and cin % 8 == 0 and _sm90_fits(
+        k, cin, cout, *_SM90_KERNELS["conv_up_packed"])
 
 
 def supports_up_m(cin: int, k: int, cout: int) -> bool:
@@ -427,7 +450,7 @@ def _weight_fragments(
 def _sm90_weights(
     wt: torch.Tensor, cins: Sequence[int], cchunk: int, n_tiles: int, q: bool = False,
 ) -> torch.Tensor:
-    """(ky, ntaps, cin, n_out) weights -> the K7-K9 core's layout: the
+    """(ky, ntaps, cin, n_out) weights -> the Hopper core's layout: the
     elements of :func:`_weight_fragments`, stored in the order
     ``[cout block][chunk][dy][tap][kstep][n-tile][r][g][tig][p]`` that its
     wgmma B descriptor reads (each ``[r][g]`` row of 16 bytes a core-matrix
@@ -443,7 +466,7 @@ def _prepared(wt, bias, cins, k, cout, plan, scale=None, out_q=False,
               layout=_weight_fragments, f32=False) -> Prepared:
     """``scale`` is None for bfloat16 (``f32``: float32) weights and the
     per-channel int8 dequantisation for int8 codes ``wt``; ``layout`` lays
-    the weights out for the kernel (``_sm90_weights`` for K7-K9 in bfloat16
+    the weights out for the kernel (``_sm90_weights`` for K5-K9 in bfloat16
     and int8). The layout's dtype (``wfrag``) says which calls it serves."""
     cchunk, n_tiles, _ = plan
     q = scale is not None
@@ -501,68 +524,58 @@ def prep_conv(
     absmax: Optional[Sequence[Absmax]] = None, out_absmax: Optional[Absmax] = None,
     dtype: torch.dtype = torch.bfloat16,
 ) -> Prepared:
-    """Weight-side constants of one ``conv_packed`` site: HWIO weights in
-    fragment order, split per operand, and the float32 bias, for operands of
-    ``dtype`` (bfloat16, or float32: the weights split in two TF32 planes);
-    with ``absmax`` (one per operand) the int8 codes, the per-channel scale
-    and the bias, both folded with ``127/out_absmax`` when that is given."""
+    """Weight-side constants of one ``conv_packed`` site: HWIO weights split
+    per operand, each operand's channels padded to whole chunks, in the
+    layout of the Hopper core (:func:`_sm90_weights`), and the float32 bias,
+    for bfloat16 operands (float32 ones, ``dtype``: split in two TF32 planes
+    in the ``mma.sync`` core's layout, :func:`_weight_fragments`); with
+    ``absmax`` (one per operand) the int8 codes, the per-channel scale and
+    the bias, both folded with ``127/out_absmax`` when that is given. In
+    bfloat16 also the plain version of the core's prep kernel."""
     real_cs = tuple(int(c) for c in real_cs)
     k, cout = _check_w(w, bias, sum(real_cs))
     _need(supports(real_cs, k, cout), "conv_packed", real_cs, k, cout)
+    return _prep_sm90("conv_packed", w, bias, real_cs, absmax, out_absmax, dtype)
+
+
+def _prep_sm90(name, w, bias, cins, absmax, out_absmax, dtype) -> Prepared:
+    """The conv's own weights in the layout of the Hopper core
+    (:func:`_sm90_weights`), for operands of ``cins`` channels; int8 with
+    ``absmax`` (one per operand) as in :func:`prep_conv`; float32 in the
+    ``mma.sync`` core's layout (:func:`_weight_fragments`, two planes)."""
+    k, cout = w.shape[0], w.shape[3]
+    _, res = _SM90_KERNELS[name]
+    if absmax is None and _is_f32(dtype):
+        return _prepared(w.float(), bias, cins, k, cout, _plan(k, k, k, cins, cout, F32),
+                         f32=True)
     if absmax is None:
-        f32 = _is_f32(dtype)
-        return _prepared(w.float(), bias, real_cs, k, cout,
-                         _plan(k, k, k, real_cs, cout, F32 if f32 else False), f32=f32)
-    wqs, sw = _quantize_weights(torch.split(w.float(), real_cs, dim=2), absmax)
+        return _prepared(w.float(), bias, cins, k, cout,
+                         _sm90_plan(k, cins, cout, resident=res), layout=_sm90_weights)
+    wqs, sw = _quantize_weights(torch.split(w.float(), cins, dim=2), absmax)
     scale, b = _q_fold(absmax[0], sw, bias, out_absmax)
-    return _prepared(
-        torch.cat(wqs, dim=2).float(), b, real_cs, k, cout,
-        _plan(k, k, k, real_cs, cout, q=True), scale, out_absmax is not None)
+    return _prepared(torch.cat(wqs, dim=2).float(), b, cins, k, cout,
+                     _sm90_plan(k, cins, cout, q=True, resident=res),
+                     scale, out_absmax is not None, _sm90_weights)
 
 
 def _prep_single(name, ok, w, bias, absmax, out_absmax, dtype) -> Prepared:
+    """:func:`_prep_sm90` for the one input of a fused-resample kernel."""
     k, cout = _check_w(w, bias, w.shape[2])
     cin = w.shape[2]
     _need(ok(cin, k, cout), name, cin, k, cout)
-    if absmax is None:
-        f32 = _is_f32(dtype)
-        return _prepared(w.float(), bias, (cin,), k, cout,
-                         _plan(k, k, k, (cin,), cout, F32 if f32 else False), f32=f32)
-    (wq,), sw = _quantize_weights([w.float()], (absmax,))
-    scale, b = _q_fold(absmax, sw, bias, out_absmax)
-    return _prepared(wq.float(), b, (cin,), k, cout, _plan(k, k, k, (cin,), cout, q=True),
-                     scale, out_absmax is not None)
-
-
-def _prep_sm90(name, ok, w, bias, absmax, out_absmax, dtype) -> Prepared:
-    """The conv's own weights in the layout of the K7-K9 core
-    (:func:`_sm90_weights`); int8 as in :func:`prep_conv`; float32 in the
-    ``mma.sync`` core's layout (:func:`_weight_fragments`, two planes)."""
-    k, cout = _check_w(w, bias, w.shape[2])
-    cin = w.shape[2]
-    _need(ok(cin, k, cout), name, cin, k, cout)
-    _, res = _SM90_KERNELS[name]
-    if absmax is None and _is_f32(dtype):
-        return _prepared(w.float(), bias, (cin,), k, cout, _plan(k, k, k, (cin,), cout, F32),
-                         f32=True)
-    if absmax is None:
-        return _prepared(w.float(), bias, (cin,), k, cout,
-                         _sm90_plan(k, cin, cout, resident=res), layout=_sm90_weights)
-    (wq,), sw = _quantize_weights([w.float()], (absmax,))
-    scale, b = _q_fold(absmax, sw, bias, out_absmax)
-    return _prepared(wq.float(), b, (cin,), k, cout,
-                     _sm90_plan(k, cin, cout, q=True, resident=res),
-                     scale, out_absmax is not None, _sm90_weights)
+    return _prep_sm90(name, w, bias, (cin,), None if absmax is None else (absmax,),
+                      out_absmax, dtype)
 
 
 def prep_conv_pool(w: torch.Tensor, bias: torch.Tensor, absmax: Optional[Absmax] = None,
                    out_absmax: Optional[Absmax] = None,
                    dtype: torch.dtype = torch.bfloat16) -> Prepared:
     """Weight-side constants of one ``conv_pool_packed`` site (the conv's own
-    weights: the pool lives in the kernel's load) in the layout of the K7-K9
+    weights: the pool lives in the kernel's load) in the layout of the Hopper
     core (:func:`_sm90_weights`); int8 and ``dtype`` as in
     :func:`prep_conv`."""
-    return _prep_sm90("conv_pool_packed", supports_pool, w, bias, absmax, out_absmax, dtype)
+    return _prep_single("conv_pool_packed", supports_pool, w, bias, absmax, out_absmax,
+                        dtype)
 
 
 def prep_conv_up(w: torch.Tensor, bias: torch.Tensor, absmax: Optional[Absmax] = None,
@@ -570,7 +583,8 @@ def prep_conv_up(w: torch.Tensor, bias: torch.Tensor, absmax: Optional[Absmax] =
                  dtype: torch.dtype = torch.bfloat16) -> Prepared:
     """Weight-side constants of one ``conv_up_packed`` site (the conv's own
     weights: the upsample lives in the kernel's load; the input's absmax
-    calibrates the upsampled values, a convex combination of it)."""
+    calibrates the upsampled values, a convex combination of it), as
+    :func:`prep_conv_pool`."""
     return _prep_single("conv_up_packed", supports_up, w, bias, absmax, out_absmax, dtype)
 
 
@@ -578,9 +592,9 @@ def prep_conv_up_m(w: torch.Tensor, bias: torch.Tensor, absmax: Optional[Absmax]
                    out_absmax: Optional[Absmax] = None,
                    dtype: torch.dtype = torch.bfloat16) -> Prepared:
     """Weight-side constants of one ``conv_up_m_packed`` site, as
-    :func:`prep_conv_up`, in the layout of the K7-K9 core
-    (:func:`_sm90_weights`; float32 as :func:`prep_conv_pool`)."""
-    return _prep_sm90("conv_up_m_packed", supports_up_m, w, bias, absmax, out_absmax, dtype)
+    :func:`prep_conv_up`."""
+    return _prep_single("conv_up_m_packed", supports_up_m, w, bias, absmax, out_absmax,
+                        dtype)
 
 
 def _upf_fold(w: torch.Tensor):
@@ -633,7 +647,7 @@ def prep_conv_up_f(w: torch.Tensor, bias: torch.Tensor, absmax: Optional[Absmax]
                    dtype: torch.dtype = torch.bfloat16) -> Prepared:
     """Weight-side constants of one ``conv_up_f_packed`` site: the weights
     folded in float32, then rounded to bfloat16 (or quantised to int8 with
-    their edge taps on one per-channel grid) in the layout of the K7-K9 core
+    their edge taps on one per-channel grid) in the layout of the Hopper core
     (:func:`_sm90_weights`, five taps per dy row: the stencil, then the two
     edge taps), and the bias (and scale) repeated for both output parities.
     In bfloat16 also the plain version of the core's prep kernel. For float32
@@ -797,40 +811,49 @@ def _conv_up_f_q_plain(x, w, bias, slope, ax, out_absmax, out_dtype):
 # ------------------------------------------------------------------ launch
 
 def _lib() -> ctypes.CDLL:
+    """``csrc/conv_packed.cu``: the float32 modes of K5-K9."""
     lib = _build.library("conv_packed")
     if not getattr(lib, "_rrin_typed", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.rrin_conv_packed_smem.argtypes = [ci] * 6
+        lib.rrin_conv_packed_smem.argtypes = [ci] * 5
         lib.rrin_conv_packed_smem.restype = ctypes.c_longlong
         pv, pi = ctypes.POINTER(vp), ctypes.POINTER(ci)
-        lib.rrin_conv_packed_launch.argtypes = (
-            [pv, pi, pi, pi, pv, ci] + [vp] * 4 + [ci] * 9 + [cf, ci, vp])
-        lib.rrin_conv_up_packed_launch.argtypes = (
-            [vp, ci, ci] + [vp] * 5 + [ci] * 9 + [cf, ci, vp])
-        # the float32-only entry points: no int8 arguments, no dt
-        f32 = [vp, ci] + [vp] * 3 + [ci] * 8 + [cf, vp]
-        lib.rrin_conv_pool_packed_f32_launch.argtypes = f32
-        lib.rrin_conv_up_m_packed_f32_launch.argtypes = f32
-        lib.rrin_conv_up_f_packed_f32_launch.argtypes = f32[:5] + [ci] * 7 + [cf, vp]
-        for name in ("conv_packed", "conv_up_packed", *(f"{n}_f32" for n in _SM90_KERNELS)):
-            getattr(lib, f"rrin_{name}_launch").restype = ci
+        lib.rrin_conv_packed_f32_launch.argtypes = [pv, pi, pi, ci] + [vp] * 3 + [ci] * 8 + [
+            cf, vp]
+        one = [vp, ci] + [vp] * 3 + [ci] * 8 + [cf, vp]
+        for name in ("conv_up_packed", "conv_pool_packed", "conv_up_m_packed"):
+            getattr(lib, f"rrin_{name}_f32_launch").argtypes = one
+        lib.rrin_conv_up_f_packed_f32_launch.argtypes = one[:5] + [ci] * 7 + [cf, vp]
+        for name in _SM90_KERNELS:
+            getattr(lib, f"rrin_{name}_f32_launch").restype = ci
         lib._rrin_typed = True
     return lib
 
 
-def _lib_sm90() -> ctypes.CDLL:
-    lib = _build.library("conv_up_sm90")
+def _lib_sm90(source: str = "conv_up_sm90") -> ctypes.CDLL:
+    """A library of the Hopper core: ``csrc/conv_up_sm90.cu`` (K7-K9 and the
+    weight prep) or ``csrc/conv_packed_sm90.cu`` (K5, K6)."""
+    lib = _build.library(source)
     if not getattr(lib, "_rrin_typed", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.rrin_conv_up_sm90_smem.argtypes = [ci] * 6
-        lib.rrin_conv_up_sm90_smem.restype = ctypes.c_longlong
-        for name in ("conv_pool_packed", "conv_up_m_packed"):
-            getattr(lib, f"rrin_{name}_launch").argtypes = (
-                [vp, ci, ci] + [vp] * 5 + [ci] * 9 + [cf, ci, vp])
-        lib.rrin_conv_up_f_packed_launch.argtypes = (
-            [vp, ci, ci] + [vp] * 5 + [ci] * 8 + [cf, ci, vp])
-        lib.rrin_conv_up_prep_launch.argtypes = [vp] * 4 + [ci] * 6 + [vp]
-        for name in (*_SM90_KERNELS, "conv_up_prep"):
+        pv, pi = ctypes.POINTER(vp), ctypes.POINTER(ci)
+        one = [vp, ci, ci] + [vp] * 5 + [ci] * 9 + [cf, ci, vp]
+        if source == "conv_up_sm90":
+            lib.rrin_conv_up_sm90_smem.argtypes = [ci] * 6
+            lib.rrin_conv_up_sm90_smem.restype = ctypes.c_longlong
+            lib.rrin_conv_pool_packed_launch.argtypes = one
+            lib.rrin_conv_up_m_packed_launch.argtypes = one
+            lib.rrin_conv_up_f_packed_launch.argtypes = one[:-4] + [cf, ci, vp]
+            lib.rrin_conv_up_prep_launch.argtypes = [vp] * 4 + [ci, pi] + [ci] * 5 + [vp]
+            names = ("conv_pool_packed", "conv_up_m_packed", "conv_up_f_packed", "conv_up_prep")
+        else:
+            lib.rrin_conv_packed_sm90_smem.argtypes = [ci] * 5
+            lib.rrin_conv_packed_sm90_smem.restype = ctypes.c_longlong
+            lib.rrin_conv_packed_launch.argtypes = (
+                [pv, pi, pi, pi, pv, ci] + [vp] * 4 + [ci] * 9 + [cf, ci, vp])
+            lib.rrin_conv_up_packed_launch.argtypes = one
+            names = ("conv_packed", "conv_up_packed")
+        for name in names:
             getattr(lib, f"rrin_{name}_launch").restype = ci
         lib._rrin_typed = True
     return lib
@@ -902,39 +925,49 @@ def _check_cuda(
 
 
 @functools.lru_cache(maxsize=None)
-def _smem_agrees(lib, ky, kx, ntaps, plan, q) -> None:
+def _smem_agrees(lib, ky, kx, ntaps, plan) -> None:
     """Raise unless ``rrin_conv_packed_smem`` and :func:`_smem_bytes` agree
-    (checked once per site and element type)."""
+    on the float32 kernel's tile (checked once per site)."""
     cchunk, n_tiles, _ = plan
-    if lib.rrin_conv_packed_smem(ky, kx, ntaps, cchunk, n_tiles, int(q)) != _smem_bytes(
-            ky, kx, ntaps, cchunk, n_tiles, q):
+    if lib.rrin_conv_packed_smem(ky, kx, ntaps, cchunk, n_tiles) != _smem_bytes(
+            ky, kx, ntaps, cchunk, n_tiles, F32):
         raise RuntimeError("conv_packed.cu and conv_packed.py disagree on the tile")
 
 
 @functools.lru_cache(maxsize=None)
-def _sm90_smem_agrees(lib, k, cin, plan, q, folded, resident) -> None:
-    """Raise unless the C layout and :func:`_sm90_smem_bytes` agree (checked
-    once per site: every argument is hashable)."""
+def _sm90_smem_agrees(name, k, cins, plan, q) -> None:
+    """Raise unless the C layout of kernel ``name``'s library and
+    :func:`_sm90_smem_bytes` agree (checked once per site: every argument is
+    hashable)."""
     cchunk, n_tiles, _ = plan
-    res = _sm90_res_chunks(cin, plan, resident)
-    if lib.rrin_conv_up_sm90_smem(k, cchunk, n_tiles, int(q), int(folded),
-                                  res) != _sm90_smem_bytes(k, cchunk, n_tiles, q, folded, res):
-        raise RuntimeError("conv_up_sm90.cu and conv_packed.py disagree on the tile")
+    folded, resident = _SM90_KERNELS[name]
+    res = _sm90_res_chunks(cins, plan, resident)
+    source = _SM90_SOURCE[name]
+    lib = _lib_sm90(source)
+    if source == "conv_up_sm90":
+        got = lib.rrin_conv_up_sm90_smem(k, cchunk, n_tiles, int(q), int(folded), res)
+    else:
+        got = lib.rrin_conv_packed_sm90_smem(k, cchunk, n_tiles, int(q), res)
+    if got != _sm90_smem_bytes(k, cchunk, n_tiles, q, folded, res):
+        raise RuntimeError(f"{source}.cu and conv_packed.py disagree on the tile")
 
 
-def _prep_on_card(name: str, w: torch.Tensor, bias: torch.Tensor) -> Prepared:
-    """What ``prep_conv_pool`` / ``prep_conv_up_m`` / ``prep_conv_up_f``
-    return in bfloat16, from one launch of the K7-K9 core's prep kernel: the
-    layout of :func:`_sm90_weights` (K9: the fold of :func:`_upf_taps` before
-    the bf16 rounding) and, folded, the bias repeated for both output
-    parities."""
+def _prep_on_card(name: str, w: torch.Tensor, bias: torch.Tensor,
+                  cins: Optional[Sequence[int]] = None) -> Prepared:
+    """What ``prep_conv`` (operands of ``cins`` channels) / ``prep_conv_up``
+    / ``prep_conv_pool`` / ``prep_conv_up_m`` / ``prep_conv_up_f`` return in
+    bfloat16, from one launch of the Hopper core's prep kernel: the layout
+    of :func:`_sm90_weights` (each operand's channels padded to whole chunks;
+    K9: the fold of :func:`_upf_taps` before the bf16 rounding) and, folded,
+    the bias repeated for both output parities."""
     folded, res = _SM90_KERNELS[name]
     k, _, cin, cout = w.shape
+    cins = (cin,) if cins is None else tuple(int(c) for c in cins)
     n_out = 2 * cout if folded else cout
-    plan = _sm90_plan(k, cin, n_out, folded=folded, resident=res)
+    plan = _sm90_plan(k, cins, n_out, folded=folded, resident=res)
     cchunk, n_tiles, n_cb = plan
-    mem = torch.empty((n_cb, -(-cin // cchunk), k, 5 if folded else k, cchunk // 16, n_tiles,
-                       2, 8, 4, 2), dtype=torch.bfloat16, device=w.device)
+    mem = torch.empty((n_cb, _sm90_chunks(cins, cchunk), k, 5 if folded else k, cchunk // 16,
+                       n_tiles, 2, 8, 4, 2), dtype=torch.bfloat16, device=w.device)
     wf = w.float().contiguous()
     b = bias.float().contiguous()
     b_out = torch.empty(n_out, dtype=torch.float32, device=w.device) if folded else b
@@ -942,10 +975,16 @@ def _prep_on_card(name: str, w: torch.Tensor, bias: torch.Tensor) -> Prepared:
     with torch.cuda.device(w.device):
         _build.launch(
             "conv_up_prep", lib.rrin_conv_up_prep_launch, wf.data_ptr(), b.data_ptr(),
-            mem.data_ptr(), b_out.data_ptr() if folded else None, k, cin, cout, cchunk,
-            n_tiles, int(folded), torch.cuda.current_stream().cuda_stream)
+            mem.data_ptr(), b_out.data_ptr() if folded else None, k,
+            (ctypes.c_int * len(cins))(*cins), len(cins), cout, cchunk, n_tiles, int(folded),
+            torch.cuda.current_stream().cuda_stream)
     return {"wfrag": mem.permute(*_SM90_VIEW), "bias": b_out, "scale": None,
-            "cins": (cin,), "k": k, "cout": cout, "plan": plan, "q": False, "out_q": False}
+            "cins": cins, "k": k, "cout": cout, "plan": plan, "q": False, "out_q": False}
+
+
+def _check_sm90_layout(name: str, prepared: Prepared) -> None:
+    if not prepared["wfrag"].permute(*_SM90_ORDER).is_contiguous():
+        raise ValueError(f"{name}: prepared['wfrag'] is not in the layout of _sm90_weights")
 
 
 def _slope_args(slope: Optional[float]) -> Tuple[int, float]:
@@ -1012,28 +1051,37 @@ def conv_packed(
     f32 = xs[0].dtype == torch.float32
     et = F32 if f32 else q
     if prepared is None:
-        prepared = prep_conv(w, bias, cs, in_absmax, out_absmax,
-                             torch.float32 if f32 else torch.bfloat16)
+        prepared = (_prep_on_card("conv_packed", w, bias, cs) if not (f32 or q)
+                    else prep_conv(w, bias, cs, in_absmax, out_absmax,
+                                   torch.float32 if f32 else torch.bfloat16))
     cchunk, n_tiles, _ = prepared["plan"]
-    lib = _lib()
-    _smem_agrees(lib, k, k, k, prepared["plan"], et)
     b, h, width, _ = xs[0].shape
     dev = xs[0].device
     out = _out_tensor("conv_packed", (b, h, width, cout), dev, f32, out_absmax, out_dtype)
     n = len(xs)
-    axs, scale = _q_launch_args(prepared, in_absmax, dev) if q else ([], None)
+    ptrs = (ctypes.c_void_p * n)(*[x.data_ptr() for x in xs])
+    strides = (ctypes.c_int * n)(*[x.shape[-1] for x in xs])
+    wb = (prepared["wfrag"].data_ptr(), prepared["bias"].data_ptr())
+    tail = (cchunk, n_tiles, *_slope_args(slope))
+    if f32:  # the mma.sync core
+        lib = _lib()
+        _smem_agrees(lib, k, k, k, prepared["plan"])
+        fn = lib.rrin_conv_packed_f32_launch
+        args = (ptrs, (ctypes.c_int * n)(*cs), strides, n, *wb, out.data_ptr(), b, h, width,
+                cout, k, *tail)
+    else:  # the Hopper core
+        _check_sm90_layout("conv_packed", prepared)
+        _sm90_smem_agrees("conv_packed", k, cs, prepared["plan"], q)
+        fn = _lib_sm90("conv_packed_sm90").rrin_conv_packed_launch
+        axs, scale = _q_launch_args(prepared, in_absmax, dev) if q else ([], None)
+        args = (ptrs, (ctypes.c_int * n)(*cs), strides,
+                (ctypes.c_int * n)(*[int(x.dtype == torch.int8) for x in xs]),
+                (ctypes.c_void_p * n)(*([a.data_ptr() for a in axs] or [None] * n)), n,
+                *wb, scale, out.data_ptr(), int(out.dtype == torch.int8), b, h, width, cout,
+                k, *tail, int(q))
     with torch.cuda.device(dev):
-        _build.launch(
-            _counter("conv_packed", et), lib.rrin_conv_packed_launch,
-            (ctypes.c_void_p * n)(*[x.data_ptr() for x in xs]),
-            (ctypes.c_int * n)(*cs), (ctypes.c_int * n)(*[x.shape[-1] for x in xs]),
-            (ctypes.c_int * n)(*[int(x.dtype == torch.int8) for x in xs]),
-            (ctypes.c_void_p * n)(*([a.data_ptr() for a in axs] or [None] * n)), n,
-            prepared["wfrag"].data_ptr(), prepared["bias"].data_ptr(), scale,
-            out.data_ptr(), int(out.dtype == torch.int8), b, h, width, cout, k,
-            cchunk, n_tiles, *_slope_args(slope), int(et),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        _build.launch(_counter("conv_packed", et), fn, *args,
+                      torch.cuda.current_stream().cuda_stream)
     return out
 
 
@@ -1061,28 +1109,25 @@ def _fused(name: str, x, w, bias, slope, prepared, in_absmax, out_absmax,
                            out_absmax is not None)
     f32 = x.dtype == torch.float32
     et = F32 if f32 else q
-    # K7-K9 in bfloat16 and int8 run on the Hopper core, every float32 kernel
-    # on the mma.sync core.
-    sm90 = name in _SM90_KERNELS and not f32
-    folded, res = _SM90_KERNELS.get(name, (False, False))
+    folded, _ = _SM90_KERNELS[name]
+    # bfloat16 and int8 run on the Hopper core, float32 on the mma.sync core.
     if prepared is None:
-        prepared = (_prep_on_card(name, w, bias) if sm90 and not q
+        prepared = (_prep_on_card(name, w, bias) if not (f32 or q)
                     else prep(w, bias, in_absmax, out_absmax,
                               torch.float32 if f32 else torch.bfloat16))
     cchunk, n_tiles, _ = prepared["plan"]
-    if sm90:
-        if not prepared["wfrag"].permute(*_SM90_ORDER).is_contiguous():
-            raise ValueError(f"{name}: prepared['wfrag'] is not in the layout of _sm90_weights")
-        lib = _lib_sm90()
-        _sm90_smem_agrees(lib, k, cin, prepared["plan"], q, folded, res)
-        entry = f"rrin_{name}_launch"
-    else:
+    if f32:
         if not prepared["wfrag"].is_contiguous():
             raise ValueError(f"{name}: prepared['wfrag'] is not in the layout of "
                              "_weight_fragments")
         lib = _lib()
-        _smem_agrees(lib, k, k, 5 if folded else k, prepared["plan"], et)
-        entry = f"rrin_{name}{'_f32' if name in _SM90_KERNELS else ''}_launch"
+        _smem_agrees(lib, k, k, 5 if folded else k, prepared["plan"])
+        entry = f"rrin_{name}_f32_launch"
+    else:
+        _check_sm90_layout(name, prepared)
+        _sm90_smem_agrees(name, k, (cin,), prepared["plan"], q)
+        lib = _lib_sm90(_SM90_SOURCE[name])
+        entry = f"rrin_{name}_launch"
     oh, ow = (h // 2, width // 2) if pool else (2 * h, 2 * width)
     out = _out_tensor(name, (b, oh, ow, cout), x.device, f32, out_absmax, out_dtype)
     wb = (prepared["wfrag"].data_ptr(), prepared["bias"].data_ptr())
@@ -1090,7 +1135,7 @@ def _fused(name: str, x, w, bias, slope, prepared, in_absmax, out_absmax,
     # input's; the folded one has k = 3 built in.
     shape = (b, *((oh, ow) if pool else (h, width)), cout, *(() if folded else (k,)),
              cchunk, n_tiles, *_slope_args(slope))
-    if f32 and name in _SM90_KERNELS:  # float32 only: no int8 arguments, no dt
+    if f32:  # float32 only: no int8 arguments, no dt
         args = (x.data_ptr(), cin, *wb, out.data_ptr(), *shape)
     else:
         axs, scale = _q_launch_args(prepared, [in_absmax], x.device) if q else ([None], None)

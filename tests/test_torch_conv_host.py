@@ -91,9 +91,12 @@ class TestWeightLayout:
         b = t(rng.standard_normal(cout).astype(np.float32))
         pr = tcp.prep_conv(w, b, cins)
         cchunk, n_tiles, n_cb = pr["plan"]
-        assert (cchunk, n_tiles, n_cb) == (48, 8, 2)
-        assert pr["wfrag"].shape == (2, 2, k, k, 3, 8, 8, 4, 2, 2)
-        assert pr["wfrag"].dtype == torch.bfloat16 and pr["wfrag"].is_contiguous()
+        # the Hopper core: all 70 output channels in one block of N = 128,
+        # chunks of 16 (wider ones leave no room for two buffers at N = 128)
+        assert (cchunk, n_tiles, n_cb) == (16, 16, 1)
+        assert pr["wfrag"].shape == (1, 3 + 1, k, k, 1, 16, 8, 4, 2, 2)
+        assert pr["wfrag"].dtype == torch.bfloat16
+        assert pr["wfrag"].permute(*tcp._SM90_ORDER).is_contiguous()
         assert pr["bias"].dtype == torch.float32 and torch.equal(pr["bias"], b)
         gather(pr["wfrag"], w, cins, cchunk, n_tiles)
 

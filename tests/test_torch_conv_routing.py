@@ -49,12 +49,19 @@ class TestSupports:
         assert not tcp.supports_up_f(64, 5, 32) and not tcp.supports_up_f(10, 3, 32)
 
     def test_plans_fit_shared_memory(self):
+        """conv_packed's plans on the Hopper core, bfloat16 and int8: whole
+        k-steps a chunk, channel blocks of N <= 128 that cover cout, and a
+        block within the 227 KB of shared memory."""
         for k in tcp._K_CONV:
             for cins in ((1,), (6,), (33,), (64,), (512,), (256, 256), (64, 32, 16, 8)):
                 for cout in (1, 3, 8, 33, 64, 100, 512):
-                    cchunk, n_tiles, n_cb = tcp._plan(k, k, k, cins, cout)
-                    assert cchunk % 16 == 0 and cchunk <= 64
-                    assert n_tiles * 8 * n_cb >= cout > n_tiles * 8 * (n_cb - 1)
-                    assert tcp._smem_bytes(k, k, k, cchunk, n_tiles) <= tcp._SMEM_MAX
-        cchunk, n_tiles, n_cb = tcp._plan(3, 3, 5, (128,), 128)  # u3c1, folded
-        assert (cchunk, n_tiles, n_cb) == (64, 8, 2)
+                    for q in (False, True):
+                        plan = tcp._sm90_plan(k, cins, cout, q, resident=True)
+                        cchunk, n_tiles, n_cb = plan
+                        assert cchunk % (32 if q else 16) == 0 and cchunk <= (128 if q else 64)
+                        assert n_tiles * 8 * n_cb >= cout > n_tiles * 8 * (n_cb - 1)
+                        res = tcp._sm90_res_chunks(cins, plan, True)
+                        assert tcp._sm90_smem_bytes(k, cchunk, n_tiles, q, False,
+                                                    res) <= tcp._SMEM_MAX
+        cchunk, n_tiles, n_cb = tcp._sm90_plan(3, 128, 128, folded=True)  # u3c1, folded
+        assert (cchunk, n_tiles, n_cb) == (16, 16, 1)

@@ -81,9 +81,9 @@ class TestUnetApplyPacked:
         x = torch.zeros((1, 16, 16, 6))
         with pytest.raises(NotImplementedError, match="percentile calibration"):
             tunet.unet_apply_stats(tp["flow"], x, CFG, quantile=0.999)
-        with pytest.raises(NotImplementedError, match="Queue A item 3"):
+        with pytest.raises(NotImplementedError, match="Queue A item 1"):
             tunet.unet_apply_packed(tp["flow"], x, CFG, collect={})
-        with pytest.raises(NotImplementedError, match="Queue A item 3"):
+        with pytest.raises(NotImplementedError, match="Queue A item 1"):
             tunet.unet_apply_packed(tp["flow"], x, CFG, prep={})
         with pytest.raises(ValueError, match="packed_supported"):
             tunet.unet_apply_packed(tp["flow"], torch.zeros((1, 24, 16, 6)), CFG)

@@ -96,9 +96,10 @@ def gather(frag, wt, cins, cchunk, n_tiles, kk=16):
 
 
 def sm90_offset(ci, n, dy, tap, cchunk, n_tiles, k, ntaps, n_chunks, q):
-    """Byte offset in a weight buffer of the K7-K9 core (``csrc/conv_up_sm90.cu``)
-    at which it reads channel-in ci of channel-out n at (dy, tap): the wgmma
-    B descriptor's view of [cb][chunk][dy][tap][k-step][n-tile][r][g][16 bytes]."""
+    """Byte offset in a weight buffer of the Hopper core (``csrc/conv_sm90.cuh``)
+    at which it reads padded channel-in ci of channel-out n at (dy, tap): the
+    wgmma B descriptor's view of
+    [cb][chunk][dy][tap][k-step][n-tile][r][g][16 bytes]."""
     es, kk = (1, 32) if q else (2, 16)
     big_n = n_tiles * 8
     tap_bytes = cchunk * big_n * es
@@ -111,29 +112,45 @@ def sm90_offset(ci, n, dy, tap, cchunk, n_tiles, k, ntaps, n_chunks, q):
             + e * es)
 
 
-def check_sm90_layout(pr, ref, k, q):
-    """Every byte of ``pr["wfrag"]`` (a ``prep_*`` result in the K7-K9 core's
-    layout) that the core reads holds ``ref[dy, tap, ci, n]`` (bf16-rounded,
-    or the int8 code), zero where cin or the output channels are padding,
-    and the address formula covers the buffer once."""
+def sm90_rows(cins, cchunk):
+    """The weight row (channel of the concat) that each padded channel of the
+    Hopper core's K-loop holds, or None for padding: chunks run operand by
+    operand, each operand's channels padded to whole chunks, so no chunk
+    holds channels of two operands."""
+    rows, row = [], 0
+    for c in cins:
+        span = -(-c // cchunk) * cchunk
+        rows += [row + i if i < c else None for i in range(span)]
+        row += c
+    return rows
+
+
+def check_sm90_layout(pr, ref, k, q, cins=None):
+    """Every byte of ``pr["wfrag"]`` (a ``prep_*`` result in the Hopper
+    core's layout, for operands of ``cins`` channels, one operand by
+    default) that the core reads holds ``ref[dy, tap, ci, n]``
+    (bf16-rounded, or the int8 code), zero where an operand's chunk or the
+    output channels are padding, and the address formula covers the buffer
+    once."""
     ref = ref.numpy() if q else ref.to(torch.bfloat16).float().numpy()
-    cin, n_out, ntaps = ref.shape[2], ref.shape[3], ref.shape[1]
+    n_out, ntaps = ref.shape[3], ref.shape[1]
     cchunk, n_tiles, n_cb = pr["plan"]
+    rows = sm90_rows(cins or (ref.shape[2],), cchunk)
     assert n_cb * n_tiles * 8 >= n_out
     mem = pr["wfrag"].permute(*tcp._SM90_ORDER)
     assert mem.is_contiguous() and mem.dtype == (torch.int8 if q else torch.bfloat16)
     flat = mem.reshape(-1).float().numpy()
-    n_chunks = -(-cin // cchunk)
+    n_chunks = len(rows) // cchunk
     es = 1 if q else 2
     assert flat.size * es == n_cb * n_chunks * k * ntaps * cchunk * n_tiles * 8 * es
     seen = np.zeros(flat.size, bool)
     for dy in range(k):
         for tap in range(ntaps):
-            for ci in range(n_chunks * cchunk):
+            for ci, row in enumerate(rows):
                 for n in range(n_cb * n_tiles * 8):
                     off = sm90_offset(ci, n, dy, tap, cchunk, n_tiles, k, ntaps, n_chunks, q)
                     assert off % es == 0
-                    want = ref[dy, tap, ci, n] if ci < cin and n < n_out else 0.0
+                    want = ref[dy, tap, row, n] if row is not None and n < n_out else 0.0
                     assert flat[off // es] == want, (dy, tap, ci, n)
                     seen[off // es] = True
     assert seen.all()
