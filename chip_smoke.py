@@ -13,8 +13,10 @@ and numpy; nothing else and no network. It builds the CUDA kernels of
                the shapes of the 1080p paths (K6, K8 and K9 also at the 4K up
                sites, K7 at the 4K d1c1 site), in bfloat16, in int8 and in
                float32, with times and bounds; the weight-prep kernel of the
-               Hopper core (K5-K9 in bfloat16) bit-equal to its plain
-               version; the warps through warp_one and as one launch per pair
+               Hopper core (K5-K9 in bfloat16, K5 and K6 in float32)
+               bit-equal to its plain version; the float32 K5's promotion
+               interval against its error at d4c2 and u1c2; the warps
+               through warp_one and as one launch per pair
   serve        the main path: the default Interpolator (bfloat16, kernels,
                packed U-Net path, full model width) answering 1080p requests
   serve_4k     the same Interpolator answering 2160x3840 requests, whose up
@@ -25,8 +27,9 @@ and numpy; nothing else and no network. It builds the CUDA kernels of
   serve_fp32   the float32 plain path (float32 warp kernel) at 256x448 and the
                bf16-source warp
   serve_fp32_packed  the default float32 Interpolator (packed: the float32
-               modes of K5, K7, K8 and K9) against the float32 plain path at
-               1080p, in turns, and one float32 request at 2160x3840 (K6)
+               modes of K5, K7, K8 and K9; K5 and K6 on the Hopper core)
+               against the float32 plain path at 1080p, in turns, and one
+               float32 request at 2160x3840 (K6)
   agreement    card (kernels) against CPU (plain versions), packed against
                plain path on the card, int8 card against int8 CPU, float32
                packed card against CPU, and the K6 route at a 4K width, on
@@ -40,9 +43,9 @@ served paths, times measured in this run), and ``{"ok": true, "device":
 
 ``python3 chip_smoke.py --profile`` adds one phase after ``serve_plain``:
 ``torch.profiler`` traces of two 1080p requests on each U-Net path, of one
-int8 1080p request, of one bfloat16 4K request and of one float32 1080p
-request on each U-Net path, printed as device time by group of kernels
-(where the time of a request goes).
+int8 1080p request, of one bfloat16 4K request, of one float32 1080p
+request on each U-Net path and of one float32 4K request, printed as device
+time by group of kernels (where the time of a request goes).
 """
 
 from __future__ import annotations
@@ -268,10 +271,13 @@ PACKED_KERNELS = {
 
 # The kernels on the Hopper core (csrc/conv_sm90.cuh) in bfloat16 and int8,
 # whose bf16 wrappers lay out (and fold) their weights on the card, and the
-# source of their entry points; their float32 modes are csrc/conv_packed.cu.
+# source of their entry points; K5 and K6 run there in float32 too (and lay
+# out their float32 weights on the card), K7-K9's float32 modes are
+# csrc/conv_packed.cu.
 SM90 = {"conv_packed": "conv_packed_sm90.cu", "conv_up_packed": "conv_packed_sm90.cu",
         "conv_pool_packed": "conv_up_sm90.cu", "conv_up_m_packed": "conv_up_sm90.cu",
         "conv_up_f_packed": "conv_up_sm90.cu"}
+F32_SM90 = ("conv_packed", "conv_up_packed")
 
 
 def packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope, int8=None, f32=False):
@@ -390,20 +396,23 @@ def packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope, int8=None, f
           f"{name}: prepared= changes the result")
     out["kernel_prepared_ms"] = time_ms(
         lambda: wrapper(arg, wt, bias, slope, prepared=prep, **qkw))
-    if int8 is None and not f32 and kernel in SM90:
+    if int8 is None and (not f32 or kernel in F32_SM90):
         # The weight prep that the wrapper runs on the card without
-        # prepared=, against prep_* (its plain version): bit-equal.
-        on_card = conv_packed._prep_on_card(kernel, wt, bias, cins)
+        # prepared=, against prep_* (its plain version): bit-equal (float32:
+        # both TF32 planes, in the Hopper core's layout).
+        on_card = conv_packed._prep_on_card(kernel, wt, bias, cins, f32)
         check(torch.equal(on_card["wfrag"], prep["wfrag"])
+              and on_card["wfrag"].dtype == prep["wfrag"].dtype
               and torch.equal(on_card["bias"], prep["bias"]) and on_card["plan"] == prep["plan"],
               f"{name}: the weight-prep kernel differs from prep_*")
         prep_err = (on_card["wfrag"].float() - prep["wfrag"].float()).abs().max()
+        wf = on_card["wfrag"]
         out.update({
             "prep_bit_equal": True,
             "prep_max_abs_err": float(prep_err),
-            "prep_ms": time_ms(lambda: conv_packed._prep_on_card(kernel, wt, bias, cins)),
-            "prep_plain_ms": time_ms(lambda: prepare(wt, bias, cins)),
-            "prep_bytes": wt.numel() * 4 + bias.numel() * 4 + on_card["wfrag"].numel() * 2
+            "prep_ms": time_ms(lambda: conv_packed._prep_on_card(kernel, wt, bias, cins, f32)),
+            "prep_plain_ms": time_ms(lambda: prepare(wt, bias, cins, **pkw)),
+            "prep_bytes": wt.numel() * 4 + bias.numel() * 4 + wf.numel() * wf.element_size()
                           + on_card["bias"].numel() * 4,
         })
 
@@ -480,12 +489,55 @@ def packed_cases(rng, dev, f32=False):
         ("conv_up_f_packed", "u3c1_4k", H4K // 2, W4K // 2, (128,), 64, 3, s, 0),
         ("conv_up_f_packed", "u4c1_4k", H4K, W4K, (64,), 32, 3, s, 0),
     ]
+    if f32:
+        # K5 and K6 run on the Hopper core in float32: conv_packed.cu has no
+        # entry point of theirs any more.
+        lib = conv_packed._lib()
+        check(not any(hasattr(lib, f"rrin_{k}_f32_launch") for k in F32_SM90),
+              "conv_packed.cu still holds a float32 K5 or K6")
     cases = []
     for kernel, name, h, w, cins, cout, k, slope, mult in specs:
         c = packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope, f32=f32)
         c["per_flow_unet"] = mult
         cases.append(c)
     return cases
+
+
+def promotion_probe(rng, dev):
+    """The float32 K5 on the Hopper core at d4c2 (K = 4608, the deepest sum)
+    and u1c2 (two operands) for promotion intervals of 1 k-step (8 channels
+    of one tap), 3 (one (dx, k-step) slab at k 3), 6, 9 (a whole chunk of 8
+    channels at k 3) and the whole tile (products never leave the tensor
+    cores before the end): max abs error against the plain version (float32
+    conv without TF32) and ms, with prepared weights. The default interval
+    is put back after."""
+    s = ModelConfig().leaky_slope
+    default = conv_packed._f32_promotion(1)
+    out = []
+    try:
+        for name, h, w, cins, cout in (("d4c2", HP // 16, WP // 16, (512,), 512),
+                                       ("u1c2", HP // 8, WP // 8, (256, 256), 256)):
+            xs = [torch.from_numpy(rng.standard_normal((1, h, w, c)).astype(np.float32)).to(dev)
+                  for c in cins]
+            bound = 1.0 / np.sqrt(9 * sum(cins))
+            wt = torch.from_numpy(
+                rng.uniform(-bound, bound, (3, 3, sum(cins), cout)).astype(np.float32)).to(dev)
+            bias = torch.from_numpy(rng.uniform(-bound, bound, (cout,)).astype(np.float32)).to(dev)
+            want = conv_packed._conv_packed_plain(xs, wt, bias, s)
+            prep = conv_packed.prep_conv(wt, bias, cins, dtype=torch.float32)
+            for k_steps in (1, 3, 6, 9, 1 << 20):
+                conv_packed._f32_promotion(k_steps)
+                got = conv_packed.conv_packed(xs, wt, bias, s, prepared=prep)
+                diff = (got - want).abs()
+                bar = F32_ATOL + F32_RTOL * want.abs()
+                out.append({"site": name, "k_steps": k_steps if k_steps < 1 << 20 else "all",
+                            "max_abs_err": float(diff.max()),
+                            "max_err_over_bar": float((diff / bar).max()),
+                            "ms": time_ms(lambda: conv_packed.conv_packed(
+                                xs, wt, bias, s, prepared=prep))})
+    finally:
+        conv_packed._f32_promotion(default)
+    return {"default_k_steps": default, "runs": out}
 
 
 def int8_cases(rng, dev):
@@ -687,16 +739,17 @@ INT8_4K_PER_REQUEST = {"conv_packed_int8": 52, "conv_packed": 4, "conv_pool_pack
                        "conv_up_prep": 4, **WARP_PAIR}
 PLAIN_PER_REQUEST = {"conv_phase": 36, **WARP_PAIR}
 CALIBRATION_LAUNCHES = PLAIN_PER_REQUEST
-# float32: the float32 modes of the same kernels (weights laid out and split
-# in PyTorch, no prep launch), the float32 warp pair; on the plain path every
-# conv is F.conv2d (K1 is bfloat16 only, as in the reference).
+# float32: the float32 modes of the same kernels (K5 and K6 lay out their
+# weights on the card, one prep launch each; K7-K9's weights are laid out and
+# split in PyTorch), the float32 warp pair; on the plain path every conv is
+# F.conv2d (K1 is bfloat16 only, as in the reference).
 F32_WARP_PAIR = {"warp_f32": 1}
 FP32_PACKED_PER_REQUEST = {"conv_packed_f32": 56, "conv_pool_packed_f32": 8,
                            "conv_up_m_packed_f32": 4, "conv_up_f_packed_f32": 8,
-                           **F32_WARP_PAIR}
+                           "conv_up_prep": 56, **F32_WARP_PAIR}
 FP32_PACKED_4K_PER_REQUEST = {"conv_packed_f32": 56, "conv_pool_packed_f32": 8,
                               "conv_up_m_packed_f32": 4, "conv_up_packed_f32": 8,
-                              **F32_WARP_PAIR}
+                              "conv_up_prep": 64, **F32_WARP_PAIR}
 FP32_PLAIN_PER_REQUEST = F32_WARP_PAIR
 
 
@@ -868,9 +921,8 @@ def phase_serve_plain(params, dev):
     return counts
 
 
-_PACKED_MODES = {"0": "conv_packed (K5)", "1": "conv_up_packed (K6)",
-                 "2": "conv_pool_packed (K7)", "3": "conv_up_m_packed (K8)",
-                 "4": "conv_up_f_packed (K9)"}
+_PACKED_MODES = {"0": "conv_pool_packed (K7)", "1": "conv_up_m_packed (K8)",
+                 "2": "conv_up_f_packed (K9)"}
 _SM90_MODES = {"0": "conv_up_m_packed (K8)", "1": "conv_up_f_packed (K9)",
                "2": "conv_pool_packed (K7)", "3": "conv_up_packed (K6)",
                "4": "conv_packed (K5)"}
@@ -882,9 +934,10 @@ def _profile_group(name: str) -> str:
     if packed:  # conv_packed_kernel<NT, MODE>, float32: the mode is the entry point
         return _PACKED_MODES[packed.group(1)] + " float32"
     sm90 = re.search(
-        r"conv_up_sm90_kernel<\s*\d+,\s*(?:\(.*?\))?(\d+),\s*(true|false)", low)
-    if sm90:  # conv_up_sm90_kernel<N, MODE, Q, K>
-        return _SM90_MODES[sm90.group(1)] + (" int8" if sm90.group(2) == "true" else "")
+        r"conv_up_sm90_kernel<\s*\d+,\s*(?:\(.*?\))?(\d+),\s*(?:\(.*?\))?(\d+)", low)
+    if sm90:  # conv_up_sm90_kernel<N, MODE, ET, K>, ET: 0 bf16, 1 int8, 2 float32
+        return _SM90_MODES[sm90.group(1)] + {"0": "", "1": " int8", "2": " float32"}[
+            sm90.group(2)]
     if "conv_up_prep_kernel" in low:
         return "K5-K9 weight prep"
     if "conv_phase_kernel" in low:
@@ -1203,14 +1256,16 @@ def kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_
           "the closing line lists the nine TPU kernels")
     for name in ("conv_packed", "conv_pool_packed", "conv_up_packed", "conv_up_m_packed",
                  "conv_up_f_packed"):
-        # the float32 mode, on the mma.sync core, launches from serve_fp32_packed
+        # the float32 mode (K5, K6 on the Hopper core, K7-K9 on the mma.sync
+        # core), launches from serve_fp32_packed
         cases = [c for c in packed_f32 if c["kernel"] == name]
         k6 = name == "conv_up_packed"
         where = "2160x3840 (its 4K request)" if k6 else "1088x1920"
+        core = "wgmma" if name in F32_SM90 else "mma.sync"
         entry = _conv_entry(
-            name, "rrin_tpu_torch/csrc/conv_packed.cu", cases,
-            (f32_counts_4k if k6 else f32_counts)[f"{name}_f32"],
-            f"float32 mode (3xTF32 on mma.sync): sum over the "
+            name, "rrin_tpu_torch/csrc/" + (SM90[name] if name in F32_SM90 else "conv_packed.cu"),
+            cases, (f32_counts_4k if k6 else f32_counts)[f"{name}_f32"],
+            f"float32 mode (3xTF32 on {core}): sum over the "
             f"{sum(c['per_flow_unet'] for c in cases)} launches of one flow U-Net at "
             f"{where}; launches from serve_fp32_packed; library F.conv2d float32 without TF32",
             F32_TENSOR_FLOPS, "_f32")
@@ -1221,24 +1276,26 @@ def kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_
                                              "kernel_prepared_ms", "plain_ms", "library_ms",
                                              "bound_ms", "bound_by")} for c in cases]
         entries.append(entry)
-    entries.append(_prep_entry(packed, serve_counts))
+    entries.append(_prep_entry(packed, packed_f32, serve_counts, f32_counts))
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was never launched by the path it belongs to")
     return {"kernels": entries, "not_ported": []}
 
 
-def _prep_entry(packed, serve_counts):
+def _prep_entry(packed, packed_f32, serve_counts, f32_counts):
     """The weight prep of the Hopper core on the card: not a TPU kernel (the
     reference lays out, and for K9 folds, these weights with XLA ops in
     ``prep_conv``, ``prep_conv_up_f``, ``prep_conv_up_m`` and
     ``prep_conv_pool``); its sites as K5, K7, K8 and K9 have them in one flow
     U-Net at 1088x1920 (K6's sites are 4K ones), bytes-bound (fp32 weights
-    in, the bf16 layout out)."""
+    in, the bf16 layout out); its float32 mode (K5's sites, the two TF32
+    planes out) beside it."""
     cases = [c for c in packed
              if c["kernel"] != "conv_up_packed" and c["per_flow_unet"]]
+    f32 = [c for c in packed_f32 if c["kernel"] == "conv_packed" and c["per_flow_unet"]]
 
-    def total(key):
-        return sum(c[key] * c["per_flow_unet"] for c in cases)
+    def total(key, sites=cases):
+        return sum(c[key] * c["per_flow_unet"] for c in sites)
 
     return {
         "name": "conv_up_prep", "route": "cuda", "source": "rrin_tpu_torch/csrc/conv_up_sm90.cu",
@@ -1254,6 +1311,16 @@ def _prep_entry(packed, serve_counts):
         "what": f"sum over the {sum(c['per_flow_unet'] for c in cases)} K5, K7-K9 launches of "
                 "one flow U-Net at 1088x1920, bit-equal to prep_conv / prep_conv_pool / "
                 "prep_conv_up_m / prep_conv_up_f (and to prep_conv_up at K6's sites)",
+        "float32": {
+            "launches": f32_counts["conv_up_prep"],
+            "max_abs_err": max(c["prep_max_abs_err"] for c in f32),
+            "ms": total("prep_ms", f32), "plain_ms": total("prep_plain_ms", f32),
+            "bound_ms": total("prep_bytes", f32) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "what": f"sum over the {sum(c['per_flow_unet'] for c in f32)} K5 launches of one "
+                    "flow U-Net at 1088x1920, float32 (two TF32 planes), bit-equal to "
+                    "prep_conv(dtype=float32) (and prep_conv_up at K6's sites); launches from "
+                    "serve_fp32_packed",
+        },
     }
 
 
@@ -1282,9 +1349,10 @@ def main() -> int:
     packed = packed_cases(rng, dev)
     int8 = int8_cases(rng, dev)
     packed_f32 = packed_cases(rng, dev, f32=True)
+    promotion = promotion_probe(rng, dev)
     warps = warp_cases(rng, dev)
     emit("kernels", conv_phase=conv, conv_packed=packed, conv_packed_int8=int8,
-         conv_packed_f32=packed_f32, warp=warps,
+         conv_packed_f32=packed_f32, f32_promotion=promotion, warp=warps,
          peaks={"hbm_bytes_per_s": HBM_BYTES_PER_S, "bf16_flops": BF16_FLOPS,
                 "int8_ops": INT8_OPS, "fp32_flops": FP32_FLOPS,
                 "f32_tensor_flops_3xtf32": F32_TENSOR_FLOPS})
@@ -1305,11 +1373,14 @@ def main() -> int:
         phase_profile(params, dev, "float32 packed", compute_dtype="float32", n=1)
         phase_profile(params, dev, "float32 plain", compute_dtype="float32", n=1,
                       packed=False)
+        phase_profile(params, dev, "float32 packed 4K", compute_dtype="float32", n=1,
+                      hw=(H4K, W4K))
     phase_agreement(params, dev)
 
     summary = kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_4k,
                               int8_counts, plain_counts, fp32_counts, f32_counts,
                               f32_counts_4k)
+    next(e for e in summary["kernels"] if e["name"] == "conv_packed_f32")["promotion"] = promotion
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

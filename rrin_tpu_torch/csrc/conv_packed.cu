@@ -1,19 +1,11 @@
-// The float32 modes of the convolutions of the packed serving path on NHWC
-// tensors: one implicit-GEMM core on mma.sync with five load prologues. They
-// replace the Pallas kernels of rrin_tpu/ops/conv_packed.py named beside
-// each (K5 _kernel_body, K6 _kernel_body_up, K7 _kernel_body_pool, K8
+// The float32 modes of the fused-resample convolutions K7-K9 of the packed
+// serving path on NHWC tensors: one implicit-GEMM core on mma.sync with
+// three load prologues. They replace the Pallas kernels of
+// rrin_tpu/ops/conv_packed.py named beside each (K7 _kernel_body_pool, K8
 // _kernel_body_up_m, K9 _kernel_body_up_f) for float32 operands; their
-// bfloat16 and int8 modes run on the wgmma core of conv_sm90.cuh, where a
-// tf32 wgmma would take both operands K-major, which that core's layout is
-// not.
+// bfloat16 and int8 modes, and all three element types of K5 and K6, run on
+// the wgmma core of conv_sm90.cuh.
 //
-//   conv_packed       (K5) stride-1 SAME conv over the channel concat of 1..4
-//                     operands given separately (the concat never exists in
-//                     device memory: the K-loop walks the operands);
-//   conv_up_packed    (K6) conv(upsample_2x_bilinear(x)): the block builds
-//                     the upsampled halo tile from the half-resolution
-//                     tensor while loading, interpolating along W first and
-//                     then H, as the reference's plain version does;
 //   conv_pool_packed  (K7) conv(avg_pool_2x(x)): the block pools the 2x
 //                     footprint of its halo tile while loading;
 //   conv_up_m_packed  (K8) conv(upsample_2x_bilinear(x)), H interpolated
@@ -42,11 +34,11 @@
 //   * a block computes 8 rows x 32 columns of pixels for one block of NT*8
 //     <= 64 output channels (blockIdx.z walks batch x channel blocks); warp
 //     w owns row w as two m-tiles of 16 consecutive pixels;
-//   * input channels are walked operand by operand in chunks of at most 32;
-//     for each chunk the halo tile (8+ky-1) x (32+kx-1) x chunk is staged in
-//     shared memory (zero outside the image: SAME padding at the resolution
-//     the conv runs at), each pixel padded by 16 bytes so the eight pixel
-//     rows of an A fragment fall on distinct banks;
+//   * input channels are walked in chunks of at most 32; for each chunk the
+//     halo tile (8+ky-1) x (32+kx-1) x chunk is built in shared memory (zero
+//     outside the image: SAME padding at the resolution the conv runs at),
+//     each pixel padded by 16 bytes so the eight pixel rows of an A fragment
+//     fall on distinct banks;
 //   * the weights arrive in B-fragment order
 //     [channel block][chunk][dy][tap][k-step][n-tile][lane] (one uint4 a
 //     lane: the hi pair, then the lo pair) and are streamed into shared
@@ -78,16 +70,13 @@ constexpr int TH = 8;            // pixel rows per block = warps per block
 constexpr int TW = 32;           // pixel columns per block = 2 m-tiles
 constexpr int THREADS = TH * 32;
 constexpr int PAD_BYTES = 16;    // padding per halo pixel
-constexpr int MAX_OPS = 4;       // operands of one conv_packed call
 constexpr int KK = 8;            // channels per tf32 mma step (32 bytes)
 
-enum Mode { DIRECT = 0, UPD = 1, POOL = 2, UP_M = 3, UP_F = 4 };
+enum Mode { POOL = 0, UP_M = 1, UP_F = 2 };
 
 struct ConvArgs {
-  const void* x[MAX_OPS];
-  int c[MAX_OPS];      // channels of each operand that enter the conv
-  int cs[MAX_OPS];     // its pixel stride in elements (>= c)
-  int n_ops;
+  const float* x;
+  int c;               // channels of x (a multiple of 8)
   const void* wfrag;
   const float* bias;
   void* out;
@@ -96,7 +85,7 @@ struct ConvArgs {
   int cout;          // channels per GEMM pixel of the output
   int ky, kx;        // taps that slide in y and in x
   int ntaps;         // weight taps per dy row (kx, + 2 edge taps when folded)
-  int cchunk, total_chunks, n_cb;
+  int cchunk, n_chunks, n_cb;
   int has_slope;
   float slope;
 };
@@ -173,16 +162,13 @@ __device__ __forceinline__ void mma_tile(float (&c)[4], const AFrag& a, const ui
 }
 
 // Eight channels of the pixel (gy, gx) that the GEMM reads, inside the image:
-// as stored; pooled 2x2; upsampled in both axes, W first and then H (K6,
-// the order of the reference's upsample_2x_packed) or H first (K8, the
-// order of upsample_2x_bilinear); or interpolated along H only (K9).
+// pooled 2x2; upsampled in both axes, H first (K8, the order of
+// upsample_2x_bilinear); or interpolated along H only (K9).
 template <int MODE>
 __device__ __forceinline__ F8 construct8(const float* xb, int cs, int Hs, int Ws, int gy,
                                          int gx, int c) {
   auto t = [&](int y, int x) { return load8_f32(xb, cs, Ws, y, x, c); };
-  if constexpr (MODE == DIRECT) {
-    return t(gy, gx);
-  } else if constexpr (MODE == POOL) {
+  if constexpr (MODE == POOL) {
     return avg4_8(t(2 * gy, 2 * gx), t(2 * gy, 2 * gx + 1), t(2 * gy + 1, 2 * gx),
                   t(2 * gy + 1, 2 * gx + 1));
   } else {
@@ -191,10 +177,7 @@ __device__ __forceinline__ F8 construct8(const float* xb, int cs, int Hs, int Ws
       return lerp8(t(yf, gx), t(yn, gx));
     } else {
       const int xn = gx >> 1, xf = far_tap(gx, Ws);
-      if constexpr (MODE == UP_M)
-        return lerp8(lerp8(t(yf, xf), t(yn, xf)), lerp8(t(yf, xn), t(yn, xn)));
-      else
-        return lerp8(lerp8(t(yf, xf), t(yf, xn)), lerp8(t(yn, xf), t(yn, xn)));
+      return lerp8(lerp8(t(yf, xf), t(yn, xf)), lerp8(t(yf, xn), t(yn, xn)));
     }
   }
 }
@@ -237,89 +220,66 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
 
-  int gch = 0;  // chunk index over all operands
-  for (int op = 0; op < a.n_ops; ++op) {
-    const int cin = a.c[op];
-    const int cs = a.cs[op];
-    const float* xb = static_cast<const float*>(a.x[op]) + b * a.Hs * a.Ws * cs;
-    const int n_chunks = (cin + cchunk - 1) / cchunk;
-    for (int ch = 0; ch < n_chunks; ++ch, ++gch) {
-      const int c_base = ch * cchunk;
-      __syncthreads();  // the previous chunk's fragments are all read
-      if (MODE != DIRECT || ((cin & 7) == 0 && (cs & 7) == 0)) {
-        // 8 channels (32 bytes) at a time.
-        const int v_per_pix = cchunk >> 3;
-        const int total = hh * hw * v_per_pix;
-        for (int i = tid; i < total; i += THREADS) {
-          const int v = i % v_per_pix;
-          const int pix = i / v_per_pix;
-          const int gy = y0 + pix / hw - hpy;
-          const int gx = x0 + pix % hw - hpx;
-          const int c = c_base + v * 8;
-          const bool inside = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && c < cin;
-          F8 val = {};
-          if (inside) val = construct8<MODE>(xb, cs, a.Hs, a.Ws, gy, gx, c);
-          store8_f32(halo + pix * pstride + v * 8 * ES, val);
-        }
-      } else {
-        // cin in {6, 9, 10, ...}: element loads, zero-padded to the chunk.
-        const int total = hh * hw * cchunk;
-        for (int i = tid; i < total; i += THREADS) {
-          const int c = i % cchunk;
-          const int pix = i / cchunk;
-          const int gy = y0 + pix / hw - hpy;
-          const int gx = x0 + pix % hw - hpx;
-          const bool inside =
-              gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && c_base + c < cin;
-          float val = 0.0f;
-          if (inside) val = xb[pix_off(cs, a.Ws, gy, gx, c_base + c)];
-          reinterpret_cast<float*>(halo + pix * pstride)[c] = val;
-        }
-      }
+  const float* xb = a.x + b * a.Hs * a.Ws * a.c;
+  for (int gch = 0; gch < a.n_chunks; ++gch) {
+    const int c_base = gch * cchunk;
+    __syncthreads();  // the previous chunk's fragments are all read
+    // 8 channels (32 bytes) at a time.
+    const int v_per_pix = cchunk >> 3;
+    for (int i = tid; i < hh * hw * v_per_pix; i += THREADS) {
+      const int v = i % v_per_pix;
+      const int pix = i / v_per_pix;
+      const int gy = y0 + pix / hw - hpy;
+      const int gx = x0 + pix % hw - hpx;
+      const int c = c_base + v * 8;
+      const bool inside = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && c < a.c;
+      F8 val = {};
+      if (inside) val = construct8<MODE>(xb, a.c, a.Hs, a.Ws, gy, gx, c);
+      store8_f32(halo + pix * pstride + v * 8 * ES, val);
+    }
 
-      for (int dy = 0; dy < a.ky; ++dy) {
-        __syncthreads();  // halo tile written; previous weight row consumed
-        const uint4* wsrc =
-            wfrag + (static_cast<size_t>(cb * a.total_chunks + gch) * a.ky + dy) * wrow_elems;
-        for (int i = tid; i < wrow_elems; i += THREADS) wrow[i] = __ldg(wsrc + i);
-        __syncthreads();
+    for (int dy = 0; dy < a.ky; ++dy) {
+      __syncthreads();  // halo tile written; previous weight row consumed
+      const uint4* wsrc =
+          wfrag + (static_cast<size_t>(cb * a.n_chunks + gch) * a.ky + dy) * wrow_elems;
+      for (int i = tid; i < wrow_elems; i += THREADS) wrow[i] = __ldg(wsrc + i);
+      __syncthreads();
 
-        const unsigned char* arow = halo + (warp + dy) * hw * pstride;
-        for (int dx = 0; dx < a.kx; ++dx) {
-          for (int kc = 0; kc < kc_count; ++kc) {
-            // KK channels are 32 bytes, a register 4.
-            AFrag af[2];
+      const unsigned char* arow = halo + (warp + dy) * hw * pstride;
+      for (int dx = 0; dx < a.kx; ++dx) {
+        for (int kc = 0; kc < kc_count; ++kc) {
+          // KK channels are 32 bytes, a register 4.
+          AFrag af[2];
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt)
-              af[mt] = load_a(arow + (mt * 16 + g + dx) * pstride + kc * 32 + tig * 4, pstride);
-            const uint4* bp = wrow + dx * tap_elems + kc * NT * 32 + lane;
+          for (int mt = 0; mt < 2; ++mt)
+            af[mt] = load_a(arow + (mt * 16 + g + dx) * pstride + kc * 32 + tig * 4, pstride);
+          const uint4* bp = wrow + dx * tap_elems + kc * NT * 32 + lane;
 #pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-              const uint4 bfrag = bp[nt * 32];
-              mma_tile(acc[0][nt], af[0], bfrag);
-              mma_tile(acc[1][nt], af[1], bfrag);
-            }
-            if constexpr (MODE == UP_F) {
-              if (dx == 1) {
-                // The centre tap's fragment holds s[row][j] itself: keep only
-                // the edge pixel's row and multiply by the edge taps. The
-                // conditions are uniform over the warp.
+          for (int nt = 0; nt < NT; ++nt) {
+            const uint4 bfrag = bp[nt * 32];
+            mma_tile(acc[0][nt], af[0], bfrag);
+            mma_tile(acc[1][nt], af[1], bfrag);
+          }
+          if constexpr (MODE == UP_F) {
+            if (dx == 1) {
+              // The centre tap's fragment holds s[row][j] itself: keep only
+              // the edge pixel's row and multiply by the edge taps. The
+              // conditions are uniform over the warp.
 #pragma unroll
-                for (int mt = 0; mt < 2; ++mt) {
-                  const int xs = x0 + mt * 16;  // column of fragment row 0
-                  if (xs == 0) {
-                    const AFrag e = row_masked(af[mt], g == 0, false);
-                    const uint4* ep = wrow + 3 * tap_elems + kc * NT * 32 + lane;
+              for (int mt = 0; mt < 2; ++mt) {
+                const int xs = x0 + mt * 16;  // column of fragment row 0
+                if (xs == 0) {
+                  const AFrag e = row_masked(af[mt], g == 0, false);
+                  const uint4* ep = wrow + 3 * tap_elems + kc * NT * 32 + lane;
 #pragma unroll
-                    for (int nt = 0; nt < NT; ++nt) mma_tile(acc[mt][nt], e, ep[nt * 32]);
-                  }
-                  const int r = a.W - 1 - xs;  // fragment row of the last column
-                  if (r >= 0 && r < 16) {
-                    const AFrag e = row_masked(af[mt], g == r, g + 8 == r);
-                    const uint4* ep = wrow + 4 * tap_elems + kc * NT * 32 + lane;
+                  for (int nt = 0; nt < NT; ++nt) mma_tile(acc[mt][nt], e, ep[nt * 32]);
+                }
+                const int r = a.W - 1 - xs;  // fragment row of the last column
+                if (r >= 0 && r < 16) {
+                  const AFrag e = row_masked(af[mt], g == r, g + 8 == r);
+                  const uint4* ep = wrow + 4 * tap_elems + kc * NT * 32 + lane;
 #pragma unroll
-                    for (int nt = 0; nt < NT; ++nt) mma_tile(acc[mt][nt], e, ep[nt * 32]);
-                  }
+                  for (int nt = 0; nt < NT; ++nt) mma_tile(acc[mt][nt], e, ep[nt * 32]);
                 }
               }
             }
@@ -387,16 +347,11 @@ template <int MODE>
 int launch_mode(ConvArgs a, int B, int n_tiles, void* stream) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || a.H <= 0 || a.W <= 0) return 0;
+  // The prologues load 8 channels at once.
   if (a.ky < 1 || (a.ky & 1) == 0 || a.kx < 1 || (a.kx & 1) == 0 || a.cchunk < KK ||
-      a.cchunk % KK || a.cout < 1 || a.n_ops < 1 || a.n_ops > MAX_OPS)
+      a.cchunk % KK || a.cout < 1 || a.c < 8 || a.c % 8)
     return invalid;
-  a.total_chunks = 0;
-  for (int i = 0; i < a.n_ops; ++i) {
-    if (a.c[i] < 1 || a.cs[i] < a.c[i]) return invalid;
-    // The resampling prologues load 8 channels at once.
-    if (MODE != DIRECT && ((a.c[i] & 7) || (a.cs[i] & 7))) return invalid;
-    a.total_chunks += (a.c[i] + a.cchunk - 1) / a.cchunk;
-  }
+  a.n_chunks = (a.c + a.cchunk - 1) / a.cchunk;
   a.n_cb = (a.cout + n_tiles * 8 - 1) / (n_tiles * 8);
   if (static_cast<long long>(B) * a.n_cb > 65535 || (a.H + TH - 1) / TH > 65535)
     return invalid;
@@ -412,15 +367,13 @@ int launch_mode(ConvArgs a, int B, int n_tiles, void* stream) {
   }
 }
 
-// The arguments of the fused entry points: one operand x of c channels.
+// The arguments of an entry point: one operand x of c channels.
 ConvArgs fused_args(const void* x, int c, const void* wfrag, const void* bias, void* out,
                     int H, int W, int Hs, int Ws, int cout, int ky, int kx, int ntaps,
                     int cchunk, int has_slope, float slope) {
   ConvArgs a = {};
-  a.x[0] = x;
-  a.c[0] = c;
-  a.cs[0] = c;
-  a.n_ops = 1;
+  a.x = static_cast<const float*>(x);
+  a.c = c;
   a.wfrag = wfrag;
   a.bias = static_cast<const float*>(bias);
   a.out = out;
@@ -437,42 +390,13 @@ ConvArgs fused_args(const void* x, int c, const void* wfrag, const void* bias, v
 
 // Every entry point takes float32 tensors, their shapes, the plan and the
 // slope: wfrag holds the weights split in two TF32 planes, in fragment order
-// (see the file head), for chunks of cchunk channels per operand and blocks
-// of n_tiles*8 output channels; bias is float32; the output is float32.
+// (see the file head), for chunks of cchunk channels and blocks of n_tiles*8
+// output channels; bias is float32; the output is float32.
 extern "C" {
 
 // Shared memory one block needs, in bytes (also used by the Python planner).
 long long rrin_conv_packed_smem(int ky, int kx, int ntaps, int cchunk, int n_tiles) {
   return smem_bytes(ky, kx, ntaps, cchunk, n_tiles);
-}
-
-// xs: n_ops pointers to (B,H,W,strides[i]) NHWC tensors of which the first
-// cs[i] channels enter the conv, in order; out: (B,H,W,cout).
-int rrin_conv_packed_f32_launch(const void* const* xs, const int* cs, const int* strides,
-                                int n_ops, const void* wfrag, const void* bias, void* out,
-                                int B, int H, int W, int cout, int k, int cchunk, int n_tiles,
-                                int has_slope, float slope, void* stream) {
-  if (n_ops < 1 || n_ops > MAX_OPS) return static_cast<int>(cudaErrorInvalidValue);
-  ConvArgs a = fused_args(nullptr, 0, wfrag, bias, out, H, W, H, W, cout, k, k, k, cchunk,
-                          has_slope, slope);
-  for (int i = 0; i < n_ops; ++i) {
-    a.x[i] = xs[i];
-    a.c[i] = cs[i];
-    a.cs[i] = strides[i];
-  }
-  a.n_ops = n_ops;
-  return launch_mode<DIRECT>(a, B, n_tiles, stream);
-}
-
-// x: (B,Hs,Ws,c) half resolution; out: (B,2Hs,2Ws,cout) =
-// conv_k(upsample_2x_bilinear(x)), k in {1, 3, 5}, W interpolated first.
-int rrin_conv_up_packed_f32_launch(const void* x, int c, const void* wfrag, const void* bias,
-                                   void* out, int B, int Hs, int Ws, int cout, int k,
-                                   int cchunk, int n_tiles, int has_slope, float slope,
-                                   void* stream) {
-  return launch_mode<UPD>(fused_args(x, c, wfrag, bias, out, 2 * Hs, 2 * Ws, Hs, Ws, cout, k,
-                                     k, k, cchunk, has_slope, slope),
-                          B, n_tiles, stream);
 }
 
 // x: (B,2H,2W,c) full resolution; out: (B,H,W,cout) = conv_k(avg_pool_2x(x)).

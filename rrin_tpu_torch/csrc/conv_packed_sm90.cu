@@ -1,7 +1,6 @@
-// K5 and K6 of the packed serving path on Hopper (sm_90a), in bfloat16 or
-// int8, as the producer modes DIRECT and UPW of the wgmma core in
-// conv_sm90.cuh (its head gives the design). Their float32 modes are the
-// _f32 entry points of conv_packed.cu.
+// K5 and K6 of the packed serving path on Hopper (sm_90a), in bfloat16, int8
+// and float32 (3xTF32, the _f32 entry points), as the producer modes DIRECT
+// and UPW of the wgmma core in conv_sm90.cuh (its head gives the design).
 //
 //   conv_packed     replaces _kernel_body (rrin_tpu/ops/conv_packed.py,
 //                   pallas_call at :506): stride-1 SAME conv over the channel
@@ -27,13 +26,28 @@
 // as the tensor work; the head (cout 4), u4c2 and the cin-6 stem are
 // bytes-bound (the stems' channels are padded to a chunk of 16 or 32 in the
 // tensor work). K6 does 305 GFLOP at each of its two 4K sites (0.309 ms).
+// In float32 the same work is bound at 165 TFLOP/s (three TF32 products per
+// product at the 495 TFLOP/s TF32 peak): about 5.5 ms for K5's flow U-Net,
+// 1.85 ms at each K6 site; halo and weight bytes double (weights quadruple), so
+// the chunks are 8-16 channels and N <= 64.
 //
 // Plain C entry points; each returns cudaGetLastError() after the launch,
 // runs on the given stream, allocates nothing and does not synchronise.
 
 #include "conv_sm90.cuh"
 
-// Every entry point takes, beside its tensors: q (0 bfloat16, 1 int8); in
+namespace {
+
+// float32: the longest promotion interval, in k-steps of 8 channels of one
+// tap (consume_f32), that chip_smoke.py's probe found to hold the float32
+// bar at d4c2 (K = 4608) and u1c2 on an H100: 0.43 of it, as at 1 k-step,
+// against 5x the bar with no promotion before the end of the tile;
+// rrin_conv_f32_promotion changes it for a measurement.
+int g_f32_promote = 9;
+
+}  // namespace
+
+// Every bf16/int8 entry point takes, beside its tensors: q (0 bfloat16, 1 int8); in
 // int8 mode in_i8 (the operand holds int8 codes), ax (device pointer to the
 // operand's float32 calibrated |x| maximum), scale (cout float32, the int32
 // sum's dequantisation, 127/ax_out folded in when out_i8) and out_i8 (store
@@ -44,10 +58,11 @@
 extern "C" {
 
 // Shared memory one block needs, in bytes (also computed by the Python
-// planner, which checks that the two agree). res_chunks: K5's channel chunks
-// (over all operands) where all output channels are one block, else 0.
-long long rrin_conv_packed_sm90_smem(int k, int cchunk, int n_tiles, int q, int res_chunks) {
-  return make_layout(k, cchunk, n_tiles * 8, q, 0, res_chunks).total;
+// planner, which checks that the two agree). et: 0 bfloat16, 1 int8, 2
+// float32; res_chunks: K5's channel chunks (over all operands) where all
+// output channels are one block, else 0.
+long long rrin_conv_packed_sm90_smem(int k, int cchunk, int n_tiles, int et, int res_chunks) {
+  return make_layout(k, cchunk, n_tiles * 8, et, 0, res_chunks).total;
 }
 
 // xs: n_ops pointers to (B,H,W,strides[i]) NHWC tensors of which the first
@@ -64,6 +79,41 @@ int rrin_conv_packed_launch(const void* const* xs, const int* cs, const int* str
   for (int i = 0; i < n_ops; ++i)
     a.ops[i] = Operand{xs[i], cs[i], strides[i], in_i8[i], static_cast<const float*>(ax[i]), 0};
   return launch_mode<DIRECT>(a, B, n_tiles, q, stream);
+}
+
+// float32 operands and output: xs, cs and strides as above; wfrag holds the
+// float32 layout (two TF32 planes) for n_tiles in {1, 2, 4, 8}.
+int rrin_conv_packed_f32_launch(const void* const* xs, const int* cs, const int* strides,
+                                int n_ops, const void* wfrag, const void* bias, void* out,
+                                int B, int H, int W, int cout, int k, int cchunk, int n_tiles,
+                                int has_slope, float slope, void* stream) {
+  if (n_ops < 1 || n_ops > MAX_OPS) return kInvalid;
+  UpArgs a = up_args(nullptr, 0, 0, nullptr, wfrag, bias, nullptr, out, 0, H, W, H, W, cout, k,
+                     cchunk, has_slope, slope);
+  a.n_ops = n_ops;
+  a.promote = g_f32_promote;
+  for (int i = 0; i < n_ops; ++i) a.ops[i] = Operand{xs[i], cs[i], strides[i], 0, nullptr, 0};
+  return launch_mode<DIRECT>(a, B, n_tiles, F32, stream);
+}
+
+// float32: x (B,Hs,Ws,c), out (B,2Hs,2Ws,cout), as conv_up_packed.
+int rrin_conv_up_packed_f32_launch(const void* x, int c, const void* wfrag, const void* bias,
+                                   void* out, int B, int Hs, int Ws, int cout, int k,
+                                   int cchunk, int n_tiles, int has_slope, float slope,
+                                   void* stream) {
+  UpArgs a = up_args(x, c, 0, nullptr, wfrag, bias, nullptr, out, 0, 2 * Hs, 2 * Ws, Hs, Ws,
+                     cout, k, cchunk, has_slope, slope);
+  a.promote = g_f32_promote;
+  return launch_mode<UPW>(a, B, n_tiles, F32, stream);
+}
+
+// Set the float32 promotion interval of later launches (at most k_steps
+// k-steps, as whole slabs of k; below k: every k-step); returns the one it
+// replaces.
+int rrin_conv_f32_promotion(int k_steps) {
+  const int old = g_f32_promote;
+  g_f32_promote = k_steps;
+  return old;
 }
 
 // x: (B,Hs,Ws,c) half resolution; out: (B,2Hs,2Ws,cout) =

@@ -1,7 +1,7 @@
 // The Hopper (sm_90a) core of the packed serving path's convolutions:
 // conv(load(x)) + bias + an optional LeakyReLU on NHWC tensors, in bfloat16
-// or int8, on wgmma, with five producer modes that differ only in how they
-// build the halo tile of a channel chunk:
+// or int8, and for K5 and K6 also in float32, on wgmma, with five producer
+// modes that differ only in how they build the halo tile of a channel chunk:
 //
 //   POOL    (K7)  the 2x2 mean of the full-resolution tensor;
 //   UP      (K8)  the 2x bilinear upsample of the half-resolution tensor, H
@@ -67,20 +67,40 @@
 //     consumers add them to the accumulators of that pixel. Both edge terms
 //     share the stencil's per-channel int8 scale.
 //   * the epilogue adds the bias (int8: after the scale), applies the
-//     LeakyReLU, rounds once (bf16, or rint and a clip to the int8 grid) and
-//     stages each 64-pixel row in shared memory, from which the warpgroup
-//     stores it with 16-byte coalesced stores. Ragged edges are masked;
-//     nothing assumes W % 64, H % TH or n_out % N.
+//     LeakyReLU, rounds once (bf16, or rint and a clip to the int8 grid; a
+//     float32 output is stored as it is) and stages each 64-pixel row in
+//     shared memory, from which the warpgroup stores it with 16-byte
+//     coalesced stores. Ragged edges are masked; nothing assumes W % 64,
+//     H % TH or n_out % N.
+//   * float32 (element type F32; modes DIRECT and UPW, K5 and K6): the halo
+//     tile holds float32 values as they are (a 32-byte k-step is 8
+//     channels, so the ldmatrix addressing is the bf16 one and each 32-bit
+//     word of a matrix row one channel, which is the tf32 A fragment of
+//     wgmma m64nNk8); the weights arrive as two planes, hi = rna_tf32(w) and
+//     lo = rna_tf32(w - hi), each a whole B tile of the bf16 geometry (8
+//     channels-out x 16 bytes = 4 channels-in per core matrix). The
+//     consumers split each A fragment the same way and issue lo_a*hi_b +
+//     hi_a*lo_b + hi_a*hi_b ("3xTF32": about 2^-22 of each product is lost).
+//     Promotion rule: the tensor cores add to their accumulator by
+//     truncation, so products are summed there only over at most 9 k-steps
+//     of an output row (whole (dx, k-step) slabs), from zero, into a second
+//     set of registers, which is then added to the float32 accumulator with
+//     round to nearest (consume_f32; a whole tile was 5x the 1e-5 bar at
+//     K = 4608 on an H100, 9 k-steps as good as 1). The two sets take MT x N registers a thread, so N <= 64
+//     and MT x N <= 128 (mt_of); halo, weights and staged row take twice
+//     (weights four times) the bf16 bytes, so chunks are thinner.
 //
 // The weights arrive in the layout the descriptor reads:
 // [channel block][chunk][dy][tap][k-step][n-tile][r][g][16 bytes], with the
-// 16 bytes holding channels-in 8r .. 8r+7 (bf16) or 16r .. 16r+15 (int8) of
-// the k-step for channel-out n-tile*8 + g; chunks run operand by operand,
+// 16 bytes holding channels-in 8r .. 8r+7 (bf16), 16r .. 16r+15 (int8) or
+// 4r .. 4r+3 (float32) of the k-step for channel-out n-tile*8 + g (float32:
+// [k-step][plane][n-tile]..., the lo plane one B tile after the hi plane);
+// chunks run operand by operand,
 // each operand's channels zero-padded to a whole chunk; the folded kernel's
 // rows hold five taps (three stencil taps, then the two edge taps), of which
 // only the stencil taps are copied. conv_up_prep_kernel (conv_up_sm90.cu)
-// writes the bf16 layout from the model's float32 (k, k, cin, cout) weights
-// in one launch, K9's fold included.
+// writes the bf16 or float32 layout from the model's float32 (k, k, cin,
+// cout) weights in one launch, K9's fold included (bf16).
 //
 // Rounding points are those of the plain versions: a resampled value in
 // float32 from separately rounded products and sums, one bf16 rounding (or,
@@ -120,11 +140,20 @@ constexpr int SMEM_MAX = 232448;
 
 enum Mode { UP = 0, UPF = 1, POOL = 2, UPW = 3, DIRECT = 4 };
 
+// Element types of the operands: bfloat16 (float32 sums), int8 (int32 sums),
+// float32 (3xTF32, float32 sums; modes DIRECT and UPW only).
+enum Elem { BF16 = 0, I8 = 1, F32 = 2 };
+
 constexpr int MAX_OPS = 4;      // operands of one DIRECT conv
 
 // Rows of GEMM pixels per consumer warpgroup: its accumulators hold MT x N/2
-// registers a thread.
-__host__ __device__ constexpr int mt_of(int n) { return n <= 64 ? 4 : 2; }
+// registers a thread; in float32 as many again hold the products not yet
+// promoted (consume_f32), so MT x N <= 128 there, and at k = 7, whose
+// weights take N = 16 at most, six rows (each halo row loaded once feeds up
+// to seven output rows; eight do not fit shared memory).
+__host__ __device__ constexpr int mt_of(int n, int et, int k) {
+  return et == F32 ? (n <= 16 && k == 7 ? 6 : (n <= 32 ? 4 : 2)) : (n <= 64 ? 4 : 2);
+}
 
 // The block's shared memory: nbuf buffers (three where they fit, else two),
 // each a halo tile and, unless the weights are resident, the chunk's
@@ -151,19 +180,21 @@ constexpr int NBARS = 9;
 
 __host__ __device__ inline int up128(int b) { return (b + 127) / 128 * 128; }
 
-__host__ __device__ inline Layout make_layout_n(int k, int cchunk, int n, int q, int folded,
+__host__ __device__ inline Layout make_layout_n(int k, int cchunk, int n, int et, int folded,
                                                int nbuf, int res_chunks) {
   Layout L;
-  const int es = q ? 1 : 2;
-  const int th = NCONS * mt_of(n);
+  const int es = et == I8 ? 1 : (et == F32 ? 4 : 2);  // a halo element
+  const int wes = et == F32 ? 8 : es;                 // a weight: float32, two TF32 planes
+  const int oes = et == F32 ? 4 : 2;                  // a staged output element
+  const int th = NCONS * mt_of(n, et, k);
   L.hh = th + k - 1;
   L.hw = TW;
   L.pstride = cchunk * es + PAD_BYTES;
   L.halo_bytes = up128(L.hh * L.hw * L.pstride);
-  L.w_bytes = k * k * cchunk * n * es;
+  L.w_bytes = k * k * cchunk * n * wes;
   L.wres = res_chunks > 0;
   L.buf_bytes = L.halo_bytes + (L.wres ? 0 : L.w_bytes);
-  L.stage_bytes = up128(TW * (2 * n + PAD_BYTES));
+  L.stage_bytes = up128(TW * (oes * n + PAD_BYTES));
   L.nbuf = nbuf;
   L.wres_off = nbuf * L.buf_bytes;
   L.stage_off = L.wres_off + (L.wres ? res_chunks * L.w_bytes : 0);
@@ -178,15 +209,15 @@ __host__ __device__ inline Layout make_layout_n(int k, int cchunk, int n, int q,
 // K7 where the block's tiles share one channel block (res_chunks = its
 // chunks, 0 otherwise), three halo buffers beside resident weights where
 // those fit; else two buffers with their weights.
-__host__ __device__ inline Layout make_layout(int k, int cchunk, int n, int q, int folded,
+__host__ __device__ inline Layout make_layout(int k, int cchunk, int n, int et, int folded,
                                               int res_chunks) {
-  const Layout L3 = make_layout_n(k, cchunk, n, q, folded, 3, 0);
+  const Layout L3 = make_layout_n(k, cchunk, n, et, folded, 3, 0);
   if (L3.total <= SMEM_MAX) return L3;
   if (res_chunks > 0) {
-    const Layout R3 = make_layout_n(k, cchunk, n, q, folded, 3, res_chunks);
+    const Layout R3 = make_layout_n(k, cchunk, n, et, folded, 3, res_chunks);
     if (R3.total <= SMEM_MAX) return R3;
   }
-  return make_layout_n(k, cchunk, n, q, folded, 2, 0);
+  return make_layout_n(k, cchunk, n, et, folded, 2, 0);
 }
 
 // One operand of a DIRECT conv: its first c channels enter the conv, cs
@@ -221,6 +252,7 @@ struct UpArgs {
   int tiles_x, tiles_y, tiles;  // the tiles that the persistent blocks walk
   int has_slope;
   float slope;
+  int promote;               // float32: k-steps per promotion interval (consume_f32)
 };
 
 // The chunks whose weights may stay resident: K7's and K5's, all of them,
@@ -504,6 +536,73 @@ __device__ __forceinline__ void wgmma_rs(int (&d)[64], const uint32_t (&a)[4], u
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
+// wgmma.mma_async with tf32 A from registers, D = A x B (+ D unless
+// scale_d is 0) over one k-step of 8 channels, m64nNk8 tf32 -> f32. The tf32
+// form takes no transpose operands: B must be K-major, which b_desc's layout
+// is (a core-matrix row is 16 bytes along K). A per warp: a0 = A[g][tig],
+// a1 = A[g+8][tig], a2 = A[g][tig+4], a3 = A[g+8][tig+4], which is what
+// ldmatrix.x4 gives from the halo tile's float32 pixels (each 32-bit word of
+// a 16-byte matrix row one channel). D as the bf16 form.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[4], const uint32_t (&a)[4], uint64_t desc,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8], const uint32_t (&a)[4], uint64_t desc,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// x rounded to tf32 (nearest, ties away from zero), as a float32 bit pattern.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
 // clip(rint(v), +-127) as an int8 code in the low byte: clipped first (the
 // same result for finite v), then rounded half to even by adding 1.5 * 2^23,
 // whose float32 sum holds rint(v) in its low mantissa bits; full-rate float
@@ -566,7 +665,7 @@ __device__ __forceinline__ void build_halo(const UpArgs& a, const Layout& L,
                                            const TileXY& T, int c_base, int i8, float pre,
                                            float post, int p) {
   constexpr int ES = Q ? 1 : 2;
-  constexpr int TH = NCONS * mt_of(N);
+  constexpr int TH = NCONS * mt_of(N, Q ? I8 : BF16, K);
   constexpr int HP = (K - 1) / 2;
   constexpr int HB = HP > 0 ? HP : 1;
   constexpr int NR = TH / 2 + 2 * HB;  // stored rows of a column
@@ -640,6 +739,51 @@ __device__ __forceinline__ void build_halo(const UpArgs& a, const Layout& L,
   }
 }
 
+// The float32 halo tile of one channel chunk (K6 in float32), a column at a
+// time as build_halo does: each stored row that the column reads is
+// W-interpolated once as it is loaded (its two stored columns), and halo row
+// r is the H-interpolation of its far and near rows, every product and sum
+// rounded in float32 as the plain version rounds; stored as float32.
+template <int N, int K>
+__device__ __forceinline__ void build_halo_upw_f32(const UpArgs& a, const Layout& L,
+                                                   unsigned char* halo, const float* xb,
+                                                   const TileXY& T, int c_base, int p) {
+  constexpr int TH = NCONS * mt_of(N, F32, K);
+  constexpr int HP = (K - 1) / 2;
+  constexpr int HB = HP > 0 ? HP : 1;
+  constexpr int NR = TH / 2 + 2 * HB;  // stored rows of a column
+  constexpr int HH = TH + K - 1;       // halo rows
+  const int vpp = a.cchunk >> 3;       // a power of two <= 16
+  const int v = p % vpp;
+  const int cstep = NPROD / vpp;
+  const int c = c_base + v * 8;
+  const int sb = (T.y0 >> 1) - HB;
+  for (int hx = p / vpp; hx < TW; hx += cstep) {
+    const int gx = T.x0 - HP + hx;
+    const bool col_in = gx >= 0 && gx < a.W && c < a.cin;
+    F8 wrow[NR];
+    if (col_in) {
+      const int x0 = gx >> 1, x1 = far_tap(gx, a.Ws);
+#pragma unroll
+      for (int j = 0; j < NR; ++j) {
+        const int sy = min(max(sb + j, 0), a.Hs - 1);
+        wrow[j] = lerp8(load8_f32(xb, a.cin, a.Ws, sy, x1, c),
+                        load8_f32(xb, a.cin, a.Ws, sy, x0, c));
+      }
+    }
+    unsigned char* dst = halo + hx * L.pstride + v * 8 * 4;
+#pragma unroll
+    for (int r = 0; r < HH; ++r) {
+      const int jn = HB + ((r - HP) >> 1);
+      const int jf = jn + (((r - HP) & 1) ? 1 : -1);
+      const int gy = T.y0 - HP + r;
+      F8 f = {};
+      if (col_in && gy >= 0 && gy < a.H) f = lerp8(wrow[jf], wrow[jn]);
+      store8_f32(dst + r * L.hw * L.pstride, f);
+    }
+  }
+}
+
 // The 2x2 mean of four stored pixels' eight bf16 channels in float32, as
 // avg_pool_2x sums them: ((p00 + p01) + p10) + p11, then times 1/4, each
 // step rounded.
@@ -689,7 +833,7 @@ __device__ __forceinline__ void build_halo_pool(const UpArgs& a, const Layout& L
                                                 int p) {
   using Raw = typename std::conditional<I8, uint2, uint4>::type;
   constexpr int ES = Q ? 1 : 2;
-  constexpr int TH = NCONS * mt_of(N);
+  constexpr int TH = NCONS * mt_of(N, Q ? Elem::I8 : BF16, K);
   constexpr int HP = (K - 1) / 2;
   constexpr int HH = TH + K - 1;  // halo rows
   constexpr int RB = I8 ? 3 : 2;  // rows per batch
@@ -739,12 +883,20 @@ __device__ __forceinline__ void build_halo_pool(const UpArgs& a, const Layout& L
   }
 }
 
-// Eight gathered elements (raw: an int8 code or bf16 bits each, 0 outside
-// the image) stored as one channel group of a halo pixel: bf16 as they are,
-// or int8 codes (a bf16 element quantised by `post`; zero stays zero).
-template <bool Q>
+// Eight gathered elements (raw: an int8 code, bf16 or float32 bits each, 0
+// outside the image) stored as one channel group of a halo pixel: bf16 and
+// float32 as they are, or int8 codes (a bf16 element quantised by `post`;
+// zero stays zero).
+template <int ET>
 __device__ __forceinline__ void store_raw8(unsigned char* dst, const uint32_t (&raw)[8], int i8,
                                            float post) {
+  constexpr bool Q = ET == I8;
+  if constexpr (ET == F32) {
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    d[0] = make_uint4(raw[0], raw[1], raw[2], raw[3]);
+    d[1] = make_uint4(raw[4], raw[5], raw[6], raw[7]);
+    return;
+  }
   uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
@@ -762,7 +914,9 @@ __device__ __forceinline__ void store_raw8(unsigned char* dst, const uint32_t (&
 }
 
 // One element of operand o as store_raw8 takes it.
+template <int ET>
 __device__ __forceinline__ uint32_t raw1(const unsigned char* xb, size_t off, int i8) {
+  if constexpr (ET == F32) return reinterpret_cast<const uint32_t*>(xb)[off];
   return i8 ? static_cast<uint32_t>(xb[off])
             : static_cast<uint32_t>(reinterpret_cast<const uint16_t*>(xb)[off]);
 }
@@ -772,25 +926,27 @@ __device__ __forceinline__ uint32_t raw1(const unsigned char* xb, size_t off, in
 // ..., below HH x TW, zero outside the image and past the operand's
 // channels, and arrives on the chunk's full barrier `bar` (DIRECT arrives
 // itself: a copy arrives when its bytes have landed).
-//   * copy: bf16 values, or int8 codes in int8 mode, whose channels and
-//     pixel stride are multiples of 8: one cp.async of 8 channels per item;
+//   * copy: bf16 or float32 values, or int8 codes in int8 mode, whose
+//     channels and pixel stride are multiples of 8: one cp.async of 8
+//     channels per item (float32: two of 4, 16 bytes each);
 //   * quantise: a bf16 operand of an int8 conv, 8 channels a load, RB loads
 //     in flight, clip(rint(v * 127/ax)) stored as 8 codes;
 //   * gather: any other operand (the stems, cin 6/9/10): channel by
 //     channel, the loads of RB items in flight at once (one item at a
 //     time, the int8 stem's producers held the block).
-template <int N, bool Q, int K>
+template <int N, int ET, int K>
 __device__ __forceinline__ void build_halo_direct(const UpArgs& a, const Layout& L,
                                                   unsigned char* halo, const Operand& o,
                                                   const TileXY& T, int c_base, uint64_t* bar,
                                                   int p) {
-  constexpr int ES = Q ? 1 : 2;
-  constexpr int TH = NCONS * mt_of(N);
+  constexpr bool Q = ET == I8;
+  constexpr int ES = Q ? 1 : (ET == F32 ? 4 : 2);
+  constexpr int TH = NCONS * mt_of(N, ET, K);
   constexpr int HP = (K - 1) / 2;
   constexpr int HH = TH + K - 1;
   constexpr int RB = 4;
   const int i8 = Q ? o.in_i8 : 0;
-  const int xes = i8 ? 1 : 2;  // bytes per element of the operand
+  const int xes = ET == F32 ? 4 : (i8 ? 1 : 2);  // bytes per element of the operand
   const unsigned char* xb =
       static_cast<const unsigned char*>(o.x) + T.b * a.H * a.W * o.cs * xes;
   const int vshift = 31 - __clz(a.cchunk >> 3);  // vpp = cchunk / 8, a power of two
@@ -814,7 +970,12 @@ __device__ __forceinline__ void build_halo_direct(const UpArgs& a, const Layout&
       int c;
       bool in;
       const size_t off = item(i, c, in);
-      cp_async_zfill<8 * ES>(dst_of(i), xb + off * ES, in ? 8 * ES : 0);
+      if constexpr (ET == F32) {
+        cp_async_zfill<16>(dst_of(i), xb + off * ES, in ? 16 : 0);
+        cp_async_zfill<16>(dst_of(i) + 16, xb + off * ES + 16, in ? 16 : 0);
+      } else {
+        cp_async_zfill<8 * ES>(dst_of(i), xb + off * ES, in ? 8 * ES : 0);
+      }
     }
     cp_async_arrive(bar);
     return;
@@ -843,7 +1004,7 @@ __device__ __forceinline__ void build_halo_direct(const UpArgs& a, const Layout&
     }
   } else {
     for (int i0 = p; i0 < items; i0 += RB * NPROD) {
-      uint32_t raw[RB][8];  // an element each: int8 code or bf16 bits, 0 outside
+      uint32_t raw[RB][8];  // an element each: int8 code, bf16 or float32 bits, 0 outside
 #pragma unroll
       for (int j = 0; j < RB; ++j) {
         int c;
@@ -852,11 +1013,11 @@ __device__ __forceinline__ void build_halo_direct(const UpArgs& a, const Layout&
         in = in && i0 + j * NPROD < items;
 #pragma unroll
         for (int e = 0; e < 8; ++e)
-          raw[j][e] = in && c + e < o.c ? raw1(xb, off + e, i8) : 0u;
+          raw[j][e] = in && c + e < o.c ? raw1<ET>(xb, off + e, i8) : 0u;
       }
 #pragma unroll
       for (int j = 0; j < RB; ++j)
-        if (i0 + j * NPROD < items) store_raw8<Q>(dst_of(i0 + j * NPROD), raw[j], i8, post);
+        if (i0 + j * NPROD < items) store_raw8<ET>(dst_of(i0 + j * NPROD), raw[j], i8, post);
     }
   }
   mbar_arrive(bar);  // releases the halo writes
@@ -883,12 +1044,13 @@ __device__ __forceinline__ int dot16(const uint4 s, const uint4 w, int acc) {
 // chunk's once before the first tile), builds the halo tile, and (K9, edge
 // tiles) adds the edge pixel's products with the edge taps to its sums,
 // which it hands over with the tile's last chunk.
-template <int N, int MODE, bool Q, int K>
+template <int N, int MODE, int ET, int K>
 __device__ __forceinline__ void produce(const UpArgs& a, const Layout& L, unsigned char* smem,
                                         uint64_t* bars, int p) {
+  constexpr bool Q = ET == I8;
   using Acc = typename std::conditional<Q, int, float>::type;
-  constexpr int ES = Q ? 1 : 2;
-  constexpr int TH = NCONS * mt_of(N);
+  constexpr int ES = Q ? 1 : (ET == F32 ? 8 : 2);  // bytes of a weight
+  constexpr int TH = NCONS * mt_of(N, ET, K);
   constexpr int EPT = (TH * N + NPROD - 1) / NPROD;  // edge sums per thread and side
   const int hp = (a.k - 1) / 2;
   const int i8 = Q ? a.in_i8 : 0;
@@ -917,8 +1079,8 @@ __device__ __forceinline__ void produce(const UpArgs& a, const Layout& L, unsign
   }
   for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
     const TileXY T = tile_of(a, t, TH);
-    const void* xb =
-        static_cast<const unsigned char*>(a.x) + T.b * a.Hs * a.Ws * a.cin * (i8 ? 1 : 2);
+    const void* xb = static_cast<const unsigned char*>(a.x) +
+                     T.b * a.Hs * a.Ws * a.cin * (ET == F32 ? 4 : (i8 ? 1 : 2));
     const unsigned char* wblock =
         a.wb + static_cast<size_t>(T.cb) * a.n_chunks * a.k * a.ntaps * tap_bytes;
     // K9: does this tile hold half-column 0 (side 0) or Ws-1 (side 1)?
@@ -950,8 +1112,11 @@ __device__ __forceinline__ void produce(const UpArgs& a, const Layout& L, unsign
 #pragma unroll
         for (int i = 1; i < MAX_OPS; ++i) op += i < a.n_ops && gch >= a.ops[i].chunk0;
         const Operand o = a.ops[op];
-        build_halo_direct<N, Q, K>(a, L, halo, o, T, (gch - o.chunk0) * a.cchunk, &bars[buf], p);
+        build_halo_direct<N, ET, K>(a, L, halo, o, T, (gch - o.chunk0) * a.cchunk, &bars[buf], p);
         continue;  // it has arrived on full[buf]
+      } else if constexpr (ET == F32) {  // UPW
+        build_halo_upw_f32<N, K>(a, L, halo, static_cast<const float*>(xb), T,
+                                 gch * a.cchunk, p);
       } else if constexpr (MODE == POOL) {
         if (Q && i8)
           build_halo_pool<N, Q, K, Q>(a, L, halo, xb, T, gch * a.cchunk, post, p);
@@ -1042,16 +1207,17 @@ __device__ __forceinline__ void mma_rows(Acc (&acc)[MT][NR], uint32_t (&A)[2][4]
 // rows of a store fall on distinct banks), then 16-byte coalesced stores of
 // the row's valid pixels. bs holds the tile's bias and scale (N each, zero
 // past n_out).
-template <int N, int MODE, bool Q, int MT, int NR, typename Acc>
+template <int N, int MODE, int ET, int MT, int NR, typename Acc>
 __device__ __forceinline__ void epilogue(const UpArgs& a, const TileXY& T,
                                          const Acc (&acc)[MT][NR], const float* bs,
                                          const Acc* edge, unsigned char* stage, bool side0,
                                          bool side1, bool has_slope, float slope, int wg,
                                          int warp, int lane) {
+  constexpr bool Q = ET == I8;
   constexpr int TH = NCONS * MT;
   const int g = lane >> 2, tig = lane & 3;
   const bool oq = Q && a.out_i8;
-  const int oes = oq ? 1 : 2;
+  const int oes = ET == F32 ? 4 : (oq ? 1 : 2);
   const int sstride = N * oes + PAD_BYTES;
   const int n0 = T.cb * N;
   const int n_out = a.n_out;
@@ -1094,7 +1260,9 @@ __device__ __forceinline__ void epilogue(const UpArgs& a, const TileXY& T,
           v1 = v1 >= 0.0f ? v1 : slope * v1;
         }
         unsigned char* sp = stage + m * sstride + n * oes;
-        if (oq)
+        if constexpr (ET == F32)
+          *reinterpret_cast<float2*>(sp) = make_float2(v0, v1);
+        else if (oq)
           *reinterpret_cast<uint16_t*>(sp) = static_cast<uint16_t>(
               code8(v0) | (code8(v1) << 8));
         else
@@ -1117,8 +1285,12 @@ __device__ __forceinline__ void epilogue(const UpArgs& a, const TileXY& T,
           const int m = i / nval, n = i % nval;
           unsigned char* d = orow + (static_cast<size_t>(m) * n_out + n) * oes;
           const unsigned char* sp = stage + m * sstride + n * oes;
-          d[0] = sp[0];
-          if (oes == 2) d[1] = sp[1];
+          if constexpr (ET == F32) {
+            *reinterpret_cast<float*>(d) = *reinterpret_cast<const float*>(sp);
+          } else {
+            d[0] = sp[0];
+            if (oes == 2) d[1] = sp[1];
+          }
         }
       }
     }
@@ -1129,12 +1301,13 @@ __device__ __forceinline__ void epilogue(const UpArgs& a, const TileXY& T,
 // A consumer warpgroup walks the block's tiles: the K-loop over (chunk, dx,
 // k-step, halo row) into MT rows of 64 pixels x N channels, then the
 // epilogue, which overlaps the producer's next chunks.
-template <int N, int MODE, bool Q, int K>
+template <int N, int MODE, int ET, int K>
 __device__ __forceinline__ void consume(const UpArgs& a, const Layout& L, unsigned char* smem,
                                         uint64_t* bars, int ct) {
+  constexpr bool Q = ET == I8;
   using Acc = typename std::conditional<Q, int, float>::type;
   constexpr int KK = Q ? 32 : 16;
-  constexpr int MT = mt_of(N);
+  constexpr int MT = mt_of(N, ET, K);
   constexpr int TH = NCONS * MT;
   constexpr int NR = N / 2;
   const int wg = ct >> 7;
@@ -1205,8 +1378,8 @@ __device__ __forceinline__ void consume(const UpArgs& a, const Layout& L, unsign
     const bool side0 = MODE == UPF && T.x0 == 0;
     const bool side1 = MODE == UPF && a.W - 1 < T.x0 + a.tw;
     const Acc* edge = reinterpret_cast<const Acc*>(smem + L.edge_off) + (ecnt & 1) * 2 * TH * N;
-    epilogue<N, MODE, Q>(a, T, acc, bs, edge, stage, side0, side1, has_slope, slope, wg, warp,
-                         lane);
+    epilogue<N, MODE, ET>(a, T, acc, bs, edge, stage, side0, side1, has_slope, slope, wg, warp,
+                          lane);
     if (side0 || side1) {  // this tile's edge sums are read
       __syncwarp();
       if (lane == 0) mbar_arrive(&bars[6 + (ecnt & 1)]);
@@ -1215,13 +1388,193 @@ __device__ __forceinline__ void consume(const UpArgs& a, const Layout& L, unsign
   }
 }
 
+// float32: halo row `addr` (ldmatrix) split into tf32 parts, hi = rna(x) in
+// hl[0] and lo = rna(x - hi) in hl[1].
+__device__ __forceinline__ void split_a(uint32_t (&hl)[2][4], uint32_t addr) {
+  ldmatrix_x4(hl[0], addr);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float x = __uint_as_float(hl[0][i]);
+    hl[0][i] = tf32_rna(x);
+    hl[1][i] = tf32_rna(__fsub_rn(x, __uint_as_float(hl[0][i])));
+  }
+}
+
+// float32 (3xTF32): the products of one (dx, k-step) of a chunk, a halo row
+// at a time as mma_rows issues them. Halo row HR, split into its tf32 parts
+// in register buffer HR % 4 (row 0 by the caller, row HR + 1 here while row
+// HR's products run: the ring of four keeps it clear of the two groups in
+// flight, and of the last group of the slab before), is the A operand of
+// output row mt = HR - dy for each dy: lo_a*hi_b + hi_a*lo_b + hi_a*hi_b
+// (the small products first, B's hi and lo planes one B tile apart) into
+// its promotion sum P[mt], issued product by product over the rows (up to
+// 6 % faster at k 7 than three in a row on one P[mt], the same sums). The
+// first product of a promotion interval starts
+// P[mt] from zero (scale-d = 0): `fresh` (the interval starts with this (dx,
+// k-step), whose first product for row mt is at dy = 0) or `each` (every
+// k-step is an interval: P[mt] is added to the accumulator as soon as the
+// row's group completes).
+template <int HR, int MT, int K, int N, int NR>
+__device__ __forceinline__ void mma_rows_f32(float (&acc)[MT][NR], float (&P)[MT][NR],
+                                             uint32_t (&A)[4][2][4], uint32_t a_addr,
+                                             uint32_t row_stride, uint32_t w_addr,
+                                             uint32_t dy_stride, bool fresh, bool each) {
+  static_assert((MT + K - 2) % 4 != 0, "the next slab's row 0 would reuse a buffer in flight");
+  uint32_t(&hl)[2][4] = A[HR % 4];
+  wgmma_fence();
+  // product j of every row in turn: no two consecutive wgmmas share P[r]
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int dy = 0; dy < K; ++dy) {
+      const int mt = HR - dy;
+      if (mt >= 0 && mt < MT) {
+        const int r = mt < 0 ? 0 : (mt < MT ? mt : MT - 1);
+        const uint32_t hi_b = w_addr + dy * dy_stride;
+        if (j == 0) wgmma_tf32(P[r], hl[1], b_desc(hi_b), !(each || (fresh && dy == 0)));
+        if (j == 1) wgmma_tf32(P[r], hl[0], b_desc(hi_b + N * 32), 1);
+        if (j == 2) wgmma_tf32(P[r], hl[0], b_desc(hi_b), 1);
+      }
+    }
+  wgmma_commit();
+  if constexpr (HR + 1 < MT + K - 1) split_a(A[(HR + 1) % 4], a_addr + (HR + 1) * row_stride);
+  if (each) {
+    wgmma_wait<0>();
+#pragma unroll
+    for (int dy = 0; dy < K; ++dy) {
+      const int mt = HR - dy;
+      if (mt >= 0 && mt < MT) {
+        const int r = mt < 0 ? 0 : (mt < MT ? mt : MT - 1);
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          keep(P[r][i]);
+          acc[r][i] = __fadd_rn(acc[r][i], P[r][i]);
+        }
+      }
+    }
+  } else {
+    wgmma_wait<1>();
+  }
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      keep(A[b][0][i]);
+      keep(A[b][1][i]);
+    }
+  if constexpr (HR + 1 < MT + K - 1)
+    mma_rows_f32<HR + 1, MT, K, N>(acc, P, A, a_addr, row_stride, w_addr, dy_stride, fresh,
+                                   each);
+}
+
+// The float32 consumer warpgroup: consume's walk with 3xTF32 products. The
+// tensor cores add to their accumulator by truncation, which over the
+// thousands of products of a wide conv sums to a bias (1e-4 at K = 4608 in a
+// first mma.sync version that accumulated on them, against a 1e-5 bar), so
+// products are summed on the tensor cores only over a promotion interval of
+// at most a.promote k-steps of an output row, as whole (dx, k-step) slabs of
+// a tile (each holds K k-steps; fewer than K: every k-step), in P, from zero;
+// then P is added to the float32 accumulator on the CUDA cores with round to
+// nearest.
+template <int N, int MODE, int K>
+__device__ __forceinline__ void consume_f32(const UpArgs& a, const Layout& L,
+                                            unsigned char* smem, uint64_t* bars, int ct) {
+  constexpr int MT = mt_of(N, F32, K);
+  constexpr int NR = N / 2;
+  constexpr uint32_t KSTEP = N * 64;  // the B tiles of one k-step: hi plane, lo plane
+  const int wg = ct >> 7;
+  const int warp = (ct >> 5) & 3;
+  const int lane = ct & 31;
+  const int ks_n = a.cchunk / 8;
+  const uint32_t row_stride = L.hw * L.pstride;
+  const uint32_t lane_off = wg * MT * row_stride +
+                            (16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8) * L.pstride +
+                            (lane >> 4) * 16;
+  const uint32_t base = smem_u32(smem);
+  float* bs = reinterpret_cast<float*>(smem + L.bs_off);
+  unsigned char* stage = smem + L.stage_off + wg * L.stage_bytes;
+  const bool has_slope = a.has_slope;
+  const float slope = a.slope;
+  const int promote = a.promote / K;  // whole slabs of at most a.promote k-steps
+  const bool each = promote <= 0;
+  const int slabs = a.n_chunks * K * ks_n;  // of one tile
+  uint32_t cnt = 0;
+  int bs_cb = -1;
+  float acc[MT][NR], P[MT][NR];
+  uint32_t A[4][2][4];
+  const bool wres = MODE == DIRECT && L.wres;
+  if (wres) mbar_wait(&bars[8], 0);
+
+  for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+    const TileXY T = tile_of(a, t, NCONS * MT);
+    if (T.cb != bs_cb) {
+      named_sync(2, NCONS * 128);
+      for (int i = ct; i < N; i += NCONS * 128) {
+        const int co = T.cb * N + i;
+        bs[i] = co < a.n_out ? __ldg(a.bias + co) : 0.0f;
+        bs[N + i] = 0.0f;
+      }
+      named_sync(2, NCONS * 128);
+      bs_cb = T.cb;
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < NR; ++i) acc[mt][i] = 0.0f;
+    int slab = 0;
+    for (int gch = 0; gch < a.n_chunks; ++gch, ++cnt) {
+      const int buf = cnt % L.nbuf;
+      mbar_wait(&bars[buf], (cnt / L.nbuf) & 1);
+      const uint32_t a_s = base + buf * L.buf_bytes + lane_off;
+      const uint32_t w_s = wres ? base + L.wres_off + gch * L.w_bytes
+                                : base + buf * L.buf_bytes + L.halo_bytes;
+#pragma unroll 1
+      for (int dx = 0; dx < K; ++dx)
+#pragma unroll 1
+        for (int ks = 0; ks < ks_n; ++ks) {
+          const uint32_t a_dk = a_s + dx * L.pstride + ks * 32;
+          split_a(A[0], a_dk);
+          mma_rows_f32<0, MT, K, N>(acc, P, A, a_dk, row_stride, w_s + (dx * ks_n + ks) * KSTEP,
+                                    K * ks_n * KSTEP, !each && slab % promote == 0, each);
+          ++slab;
+          if (!each && (slab % promote == 0 || slab == slabs)) {
+            wgmma_wait<0>();
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+              for (int i = 0; i < NR; ++i) {
+                keep(P[mt][i]);
+                acc[mt][i] = __fadd_rn(acc[mt][i], P[mt][i]);
+              }
+          }
+        }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < NR; ++i) keep(P[mt][i]);
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          keep(A[b][0][i]);
+          keep(A[b][1][i]);
+        }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bars[3 + buf]);
+    }
+    epilogue<N, MODE, F32>(a, T, acc, bs, static_cast<const float*>(nullptr), stage, false,
+                           false, has_slope, slope, wg, warp, lane);
+  }
+}
+
 // 384 threads: the producer warpgroup, then two consumer warpgroups; one
 // persistent block per multiprocessor (its shared memory and the consumers'
 // registers) walks the tiles t = blockIdx.x, + gridDim.x, ...
-template <int N, int MODE, bool Q, int K>
+template <int N, int MODE, int ET, int K>
 __global__ void __launch_bounds__(THREADS, 1) conv_up_sm90_kernel(const UpArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = make_layout(a.k, a.cchunk, N, Q, MODE == UPF, resident_chunks<MODE>(a));
+  const Layout L = make_layout(a.k, a.cchunk, N, ET, MODE == UPF, resident_chunks<MODE>(a));
   // full[3], empty[3], edge_empty[2], weights_resident
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bar_off);
   if (threadIdx.x == 0) {
@@ -1233,27 +1586,30 @@ __global__ void __launch_bounds__(THREADS, 1) conv_up_sm90_kernel(const UpArgs a
   __syncthreads();
   if (threadIdx.x < NPROD) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PROD_REGS));
-    produce<N, MODE, Q, K>(a, L, smem, bars, threadIdx.x);
+    produce<N, MODE, ET, K>(a, L, smem, bars, threadIdx.x);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONS_REGS));
-    consume<N, MODE, Q, K>(a, L, smem, bars, threadIdx.x - NPROD);
+    if constexpr (ET == F32)
+      consume_f32<N, MODE, K>(a, L, smem, bars, threadIdx.x - NPROD);
+    else
+      consume<N, MODE, ET, K>(a, L, smem, bars, threadIdx.x - NPROD);
   }
 }
 
 constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
 
-template <int N, int MODE, bool Q, int K>
+template <int N, int MODE, int ET, int K>
 int launch_one(UpArgs a, int B, cudaStream_t s) {
-  const Layout L = make_layout(a.k, a.cchunk, N, Q, MODE == UPF, resident_chunks<MODE>(a));
+  const Layout L = make_layout(a.k, a.cchunk, N, ET, MODE == UPF, resident_chunks<MODE>(a));
   if (L.total > SMEM_MAX) return kInvalid;
   cudaError_t err = cudaFuncSetAttribute(
-      conv_up_sm90_kernel<N, MODE, Q, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+      conv_up_sm90_kernel<N, MODE, ET, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0, sms = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return static_cast<int>(err);
-  constexpr int TH = NCONS * mt_of(N);
+  constexpr int TH = NCONS * mt_of(N, ET, K);
   a.tw = TW - (K - 1);
   a.tiles_x = (a.W + a.tw - 1) / a.tw;
   a.tiles_y = (a.H + TH - 1) / TH;
@@ -1261,24 +1617,27 @@ int launch_one(UpArgs a, int B, cudaStream_t s) {
   if (tiles > 0x7fffffffLL) return kInvalid;
   a.tiles = static_cast<int>(tiles);
   const int grid = a.tiles < sms ? a.tiles : sms;
-  conv_up_sm90_kernel<N, MODE, Q, K><<<grid, THREADS, L.total, s>>>(a);
+  conv_up_sm90_kernel<N, MODE, ET, K><<<grid, THREADS, L.total, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MODE, bool Q, int K>
+// N = 8 * n_tiles; float32 up to 64 (mt_of).
+template <int MODE, int ET, int K>
 int launch_n(const UpArgs& a, int B, int n_tiles, cudaStream_t s) {
   switch (n_tiles) {
-    case 1: return launch_one<8, MODE, Q, K>(a, B, s);
-    case 2: return launch_one<16, MODE, Q, K>(a, B, s);
-    case 4: return launch_one<32, MODE, Q, K>(a, B, s);
-    case 8: return launch_one<64, MODE, Q, K>(a, B, s);
-    case 16: return launch_one<128, MODE, Q, K>(a, B, s);
-    default: return kInvalid;
+    case 1: return launch_one<8, MODE, ET, K>(a, B, s);
+    case 2: return launch_one<16, MODE, ET, K>(a, B, s);
+    case 4: return launch_one<32, MODE, ET, K>(a, B, s);
+    case 8: return launch_one<64, MODE, ET, K>(a, B, s);
+    case 16:
+      if constexpr (ET != F32) return launch_one<128, MODE, ET, K>(a, B, s);
+      break;
   }
+  return kInvalid;
 }
 
 // The kernel sizes each mode is built for: K7 and K8 k in {3, 5}, K9 k = 3,
-// K6 k in {1, 3, 5}, K5 k in {3, 5, 7}.
+// K6 k in {1, 3, 5}, K5 k in {3, 5, 7}; float32 only K5 and K6.
 constexpr bool built_for(int mode, int k) {
   return mode == UPF      ? k == 3
          : mode == UPW    ? (k == 1 || k == 3 || k == 5)
@@ -1286,31 +1645,35 @@ constexpr bool built_for(int mode, int k) {
                           : (k == 3 || k == 5);
 }
 
-template <int MODE, bool Q>
+template <int MODE, int ET>
 int launch_k(const UpArgs& a, int B, int n_tiles, cudaStream_t s) {
   switch (a.k) {
     case 1:
-      if constexpr (built_for(MODE, 1)) return launch_n<MODE, Q, 1>(a, B, n_tiles, s);
+      if constexpr (built_for(MODE, 1)) return launch_n<MODE, ET, 1>(a, B, n_tiles, s);
       break;
     case 3:
-      if constexpr (built_for(MODE, 3)) return launch_n<MODE, Q, 3>(a, B, n_tiles, s);
+      if constexpr (built_for(MODE, 3)) return launch_n<MODE, ET, 3>(a, B, n_tiles, s);
       break;
     case 5:
-      if constexpr (built_for(MODE, 5)) return launch_n<MODE, Q, 5>(a, B, n_tiles, s);
+      if constexpr (built_for(MODE, 5)) return launch_n<MODE, ET, 5>(a, B, n_tiles, s);
       break;
     case 7:
-      if constexpr (built_for(MODE, 7)) return launch_n<MODE, Q, 7>(a, B, n_tiles, s);
+      if constexpr (built_for(MODE, 7)) return launch_n<MODE, ET, 7>(a, B, n_tiles, s);
       break;
   }
   return kInvalid;
 }
 
+// et: the element type (Elem); float32 (modes DIRECT and UPW) takes no
+// int8 arguments and a.promote.
 template <int MODE>
-int launch_mode(UpArgs a, int B, int n_tiles, int q, void* stream) {
+int launch_mode(UpArgs a, int B, int n_tiles, int et, void* stream) {
   if (B <= 0 || a.H <= 0 || a.W <= 0) return 0;
-  const int kk = q ? 32 : 16;
+  const bool q = et == I8;
+  const int kk = q ? 32 : (et == F32 ? 8 : 16);
   if (!built_for(MODE, a.k) || a.cchunk < kk || a.cchunk % kk || (a.cchunk & (a.cchunk - 1)) ||
-      a.cchunk > 128 || a.n_out < 1 || n_tiles < 1 || (q ? !a.scale : a.out_i8))
+      a.cchunk > 128 || a.n_out < 1 || n_tiles < 1 || (q ? !a.scale : a.out_i8) ||
+      et < BF16 || et > F32)
     return kInvalid;
   if (MODE == DIRECT) {  // chunks run operand by operand
     if (a.n_ops < 1 || a.n_ops > MAX_OPS) return kInvalid;
@@ -1328,7 +1691,11 @@ int launch_mode(UpArgs a, int B, int n_tiles, int q, void* stream) {
   a.ntaps = MODE == UPF ? 5 : a.k;
   a.n_cb = (a.n_out + n_tiles * 8 - 1) / (n_tiles * 8);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return q ? launch_k<MODE, true>(a, B, n_tiles, s) : launch_k<MODE, false>(a, B, n_tiles, s);
+  if (et == F32) {
+    if constexpr (MODE == DIRECT || MODE == UPW) return launch_k<MODE, F32>(a, B, n_tiles, s);
+    return kInvalid;
+  }
+  return q ? launch_k<MODE, I8>(a, B, n_tiles, s) : launch_k<MODE, BF16>(a, B, n_tiles, s);
 }
 
 UpArgs up_args(const void* x, int c, int in_i8, const void* ax, const void* wb,

@@ -2,7 +2,8 @@
 // resample+conv sites of the U-Net, conv(resample(x)) + bias + an optional
 // LeakyReLU on NHWC tensors, in bfloat16 or int8, as the producer modes
 // POOL, UP and UPF of the wgmma core in conv_sm90.cuh (its head gives the
-// design); and the bf16 weight prep of every kernel on that core.
+// design); and the weight prep of every kernel on that core (bf16, and
+// float32 for K5 and K6).
 //
 //   conv_pool_packed  replaces _kernel_body_pool (rrin_tpu/ops/conv_packed.py,
 //                     pallas_call at :1115): conv(avg_pool_2x(x)). The block
@@ -53,31 +54,55 @@ struct Cins {
   int n;
 };
 
-// One bf16 weight of the core's layout per thread, from float32 (k, k,
-// cin, cout) weights: the conv's own (K5-K8) or folded (K9: the stencil
-// taps summed in kx order from 0, then the edge taps, each product and sum
+// x rounded to tf32 as the host's conv_packed._tf32 rounds it: the low 13
+// bits of the magnitude rounded off, to nearest, ties away from zero, on the
+// bits (so that the planes are bit-equal to their plain version).
+__device__ __forceinline__ float tf32_bits(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+// One weight of the core's layout per thread, from float32 (k, k, cin, cout)
+// weights: the conv's own (K5-K8) or folded (K9, bf16 only: the stencil taps
+// summed in kx order from 0, then the edge taps, each product and sum
 // rounded in float32, as conv_packed._upf_fold computes them), zero where an
-// operand's chunk or the output channels are padding, rounded once to bf16.
-// Folded, the first 2*cout threads also write the bias of both output
-// parities.
+// operand's chunk or the output channels are padding; rounded once to bf16,
+// or (F32) split into its hi (plane 0) or lo (plane 1) TF32 part. Folded,
+// the first 2*cout threads also write the bias of both output parities.
+template <bool F32>
 __global__ void conv_up_prep_kernel(const float* __restrict__ w, const float* __restrict__ bias,
-                                    __nv_bfloat16* __restrict__ out,
-                                    float* __restrict__ bias_out, int k, const Cins cins,
-                                    int cin, int cout, int cchunk, int n_tiles, int n_chunks,
-                                    int folded, int total) {
+                                    void* __restrict__ out, float* __restrict__ bias_out, int k,
+                                    const Cins cins, int cin, int cout, int cchunk, int n_tiles,
+                                    int n_chunks, int folded, int total) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;  // total < 2^31
   if (folded && idx < 2 * cout) bias_out[idx] = bias[idx % cout];
   if (idx >= total) return;
-  // [cb][chunk][dy][tap][k-step][n-tile][r][g][tig][p], innermost last
-  const int p = idx & 1;
-  const int tig = (idx >> 1) & 3;
-  const int g = (idx >> 3) & 7;
-  const int r = (idx >> 6) & 1;
-  int t = idx >> 7;
-  const int nt = t % n_tiles;
-  t /= n_tiles;
-  const int ks = t % (cchunk / 16);
-  t /= cchunk / 16;
+  // bf16: [cb][chunk][dy][tap][k-step][n-tile][r][g][tig][p], innermost last;
+  // F32: [cb][chunk][dy][tap][k-step][plane][n-tile][r][g][e]
+  int t, nt, ks, cl_ks, plane = 0, g;
+  if constexpr (F32) {
+    const int e = idx & 3;
+    g = (idx >> 2) & 7;
+    const int r = (idx >> 5) & 1;
+    t = idx >> 6;
+    nt = t % n_tiles;
+    t /= n_tiles;
+    plane = t & 1;
+    t >>= 1;
+    ks = t % (cchunk / 8);
+    t /= cchunk / 8;
+    cl_ks = ks * 8 + r * 4 + e;
+  } else {
+    const int p = idx & 1;
+    const int tig = (idx >> 1) & 3;
+    g = (idx >> 3) & 7;
+    const int r = (idx >> 6) & 1;
+    t = idx >> 7;
+    nt = t % n_tiles;
+    t /= n_tiles;
+    ks = t % (cchunk / 16);
+    t /= cchunk / 16;
+    cl_ks = ks * 16 + r * 8 + tig * 2 + p;
+  }
   const int ntaps = folded ? 5 : k;
   const int tap = t % ntaps;
   t /= ntaps;
@@ -96,7 +121,7 @@ __global__ void conv_up_prep_kernel(const float* __restrict__ w, const float* __
     chl -= nch;
     row0 += cins.c[i];
   }
-  const int cl = chl * cchunk + ks * 16 + r * 8 + tig * 2 + p;
+  const int cl = chl * cchunk + cl_ks;
   const int ci = row0 + cl;
   const int n = (cb * n_tiles + nt) * 8 + g;
   float v = 0.0f;
@@ -121,7 +146,12 @@ __global__ void conv_up_prep_kernel(const float* __restrict__ w, const float* __
       }
     }
   }
-  out[idx] = __float2bfloat16_rn(v);
+  if constexpr (F32) {
+    const float hi = tf32_bits(v);
+    static_cast<float*>(out)[idx] = plane ? tf32_bits(__fsub_rn(v, hi)) : hi;
+  } else {
+    static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16_rn(v);
+  }
 }
 
 }  // namespace
@@ -183,16 +213,18 @@ int rrin_conv_up_f_packed_launch(const void* x, int c, int in_i8, const void* ax
 }
 
 // w: float32 (k, k, cin, cout), contiguous, cin the sum of the n_ops
-// operands' channels cins[i] (n_ops > 1 only unfolded); out: bf16, the bf16
-// layout of conv_sm90.cuh for (cchunk, n_tiles), each operand's channels
-// padded to whole chunks, folded (k = 3, five taps, 2*cout output channels)
-// when `folded`, and then bias_out (2*cout float32) the float32 bias (cout)
+// operands' channels cins[i] (n_ops > 1 only unfolded); out: the bf16
+// layout of conv_sm90.cuh for (cchunk, n_tiles), or with f32 its float32
+// layout (two TF32 planes; not folded), each operand's channels padded to
+// whole chunks, folded (k = 3, five taps, 2*cout output channels) when
+// `folded`, and then bias_out (2*cout float32) the float32 bias (cout)
 // repeated; bias and bias_out are unused otherwise.
 int rrin_conv_up_prep_launch(const void* w, const void* bias, void* out, void* bias_out, int k,
                              const int* cins, int n_ops, int cout, int cchunk, int n_tiles,
-                             int folded, void* stream) {
-  if (k < 1 || n_ops < 1 || n_ops > MAX_OPS || cout < 1 || cchunk < 16 || cchunk % 16 ||
-      n_tiles < 1 || (folded && (k != 3 || n_ops != 1 || !bias || !bias_out)))
+                             int folded, int f32, void* stream) {
+  const int kk = f32 ? 8 : 16;
+  if (k < 1 || n_ops < 1 || n_ops > MAX_OPS || cout < 1 || cchunk < kk || cchunk % kk ||
+      n_tiles < 1 || (folded && (f32 || k != 3 || n_ops != 1 || !bias || !bias_out)))
     return kInvalid;
   Cins c = {};
   c.n = n_ops;
@@ -206,14 +238,21 @@ int rrin_conv_up_prep_launch(const void* w, const void* bias, void* out, void* b
   const int n_out = folded ? 2 * cout : cout;
   const int n_cb = (n_out + n_tiles * 8 - 1) / (n_tiles * 8);
   const long long total = static_cast<long long>(n_cb) * n_chunks * k * (folded ? 5 : k) *
-                          cchunk * n_tiles * 8;  // >= 2*cout
+                          cchunk * n_tiles * 8 * (f32 ? 2 : 1);  // >= 2*cout
   if (total > 0x7fffffffLL) return kInvalid;
-  const long long blocks = (total + 255) / 256;
-  conv_up_prep_kernel<<<static_cast<unsigned>(blocks), 256, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(w), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(bias_out), k, c, cin, cout, cchunk,
-      n_tiles, n_chunks, folded, static_cast<int>(total));
+  const unsigned blocks = static_cast<unsigned>((total + 255) / 256);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* wf = static_cast<const float*>(w);
+  const float* b = static_cast<const float*>(bias);
+  float* bo = static_cast<float*>(bias_out);
+  if (f32)
+    conv_up_prep_kernel<true><<<blocks, 256, 0, s>>>(wf, b, out, bo, k, c, cin, cout, cchunk,
+                                                     n_tiles, n_chunks, folded,
+                                                     static_cast<int>(total));
+  else
+    conv_up_prep_kernel<false><<<blocks, 256, 0, s>>>(wf, b, out, bo, k, c, cin, cout, cchunk,
+                                                      n_tiles, n_chunks, folded,
+                                                      static_cast<int>(total));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,10 +26,11 @@ In bfloat16 and int8 all five run on one Hopper core on ``wgmma``
 producer warpgroup that builds the halo tile of the next channel chunk
 (copied by ``cp.async`` for K5, pooled or interpolated for K6-K9) while two
 consumer warpgroups contract the current one, all of a site's output
-channels (up to 128) in one block; its planner is :func:`_sm90_plan`, its
-weight layout :func:`_sm90_weights` (K5-K8 take the conv's own weights in
-it, K5's split per operand, K9 the folded ones). Their float32 modes are
-``csrc/conv_packed.cu``, one implicit-GEMM core on ``mma.sync`` with five
+channels (up to 128; float32 64) in one block; its planner is
+:func:`_sm90_plan`, its weight layout :func:`_sm90_weights` (K5-K8 take the
+conv's own weights in it, K5's split per operand, K9 the folded ones). K5
+and K6 run on it in float32 too; the float32 modes of K7-K9 are
+``csrc/conv_packed.cu``, one implicit-GEMM core on ``mma.sync`` with three
 load prologues. **K6 and K8 compute one function** in NHWC. The two TPU kernels differ only in their lane geometry
 (K6 doubles the lane groups P, K8 the sublane groups M at a level boundary),
 which is not carried over.
@@ -46,18 +47,23 @@ repeats that routing.
 **bfloat16.** A float32 bias and an optional LeakyReLU are added to a
 float32 sum, rounded once to bfloat16.
 
-**float32** (float32 operands on the card): every kernel has a float32
-mode on the ``mma.sync`` core of ``csrc/conv_packed.cu`` (entry points
-``rrin_<kernel>_f32_launch``; :data:`_SM90_KERNELS` is bfloat16 and int8
-only). The reference contracts
-float32 at full precision; the kernels split each operand into two TF32
-parts (``hi = rna(x)``, ``lo = rna(x - hi)``, :func:`_tf32`) and sum
-``lo_a*hi_b + hi_a*lo_b + hi_a*hi_b`` on ``mma.m16n8k8.tf32`` in float32
-("3xTF32"): about 2^-22 of each product is lost, against 2^-11 for one
-TF32 product. The weights are split on the host (:func:`_weight_fragments`
-with ``q=F32``: a hi and a lo plane), the activations in the kernel.
-Prologue values stay float32; the output is float32. Launches count under
-``"<kernel>_f32"``.
+**float32** (float32 operands on the card; entry points
+``rrin_<kernel>_f32_launch``, launches counted under ``"<kernel>_f32"``):
+K5 and K6 on the Hopper core (``wgmma.m64nNk8.tf32``, element type F32 of
+``csrc/conv_sm90.cuh``, entry points in ``csrc/conv_packed_sm90.cu``), K7-K9
+on the ``mma.sync`` core of ``csrc/conv_packed.cu``
+(``mma.m16n8k8.tf32``); :data:`_SM90_KERNELS` says which. The reference
+contracts float32 at full precision; the kernels split each operand into two
+TF32 parts (``hi = rna(x)``, ``lo = rna(x - hi)``, :func:`_tf32`) and sum
+``lo_a*hi_b + hi_a*lo_b + hi_a*hi_b`` ("3xTF32"): about 2^-22 of each
+product is lost, against 2^-11 for one TF32 product. The tensor cores add
+by truncation, so the products are summed there only over a short interval
+and then added to a float32 accumulator with round to nearest (every k-step
+on ``mma.sync``; on the Hopper core a promotion interval of (dx, k-step)
+slabs, ``rrin_conv_f32_promotion``). The weights are split once (a hi and a
+lo plane: :func:`_sm90_weights` with ``q=F32``, on the card by the prep
+kernel; :func:`_weight_fragments` for ``mma.sync``), the activations in the
+kernel. Prologue values stay float32; the output is float32.
 
 **int8** (``in_absmax`` given, one calibrated |x| maximum per operand, from
 ``models.unet.unet_apply_stats``): activations are quantised per tensor,
@@ -95,9 +101,9 @@ Forward only. ``prepared=`` takes the result of the matching
 ``prep_*`` (built with the same absmax and ``dtype``) and skips the per-call
 weight re-layout, split and quantisation. Without it, K5-K9 in bfloat16
 lay out (and K9 folds) their weights on the card in one launch of the
-Hopper core's prep kernel (launch count ``conv_up_prep``); the ``prep_*``
-functions are its plain version. int8 and float32 weights are prepared in
-PyTorch on every call.
+Hopper core's prep kernel (launch count ``conv_up_prep``), and so do K5 and
+K6 in float32; the ``prep_*`` functions are its plain version. int8 weights,
+and the float32 ones of K7-K9, are prepared in PyTorch on every call.
 """
 
 from __future__ import annotations
@@ -117,13 +123,14 @@ from rrin_tpu_torch.ops.resize import (
     upsample_2x_bilinear,
 )
 
-# Tile constants of csrc/conv_packed.cu (kept equal to the kernel's).
+# Tile constants of csrc/conv_packed.cu (kept equal to the kernel's); the
+# operands of one conv_packed call.
 _TH, _TW, _PAD_BYTES, MAX_OPS = 8, 32, 16, 4
 # Dynamic shared memory a block may use on sm_90 (227 KB).
 _SMEM_MAX = 232448
 # Kernel sizes each kernel is built for.
 _K_CONV, _K_POOL, _K_UP, _K_UP_M, _K_UP_F = (3, 5, 7), (3, 5), (1, 3, 5), (3, 5), (3,)
-# Element types of csrc/conv_packed.cu, as its entry points number them: a
+# Element types, as the Hopper core numbers them (conv_sm90.cuh's Elem): a
 # ``q`` argument below is False (bfloat16), True (int8) or F32.
 F32 = 2
 # Per element type: bytes an element, channels per mma step (32 bytes), bytes
@@ -131,18 +138,23 @@ F32 = 2
 _ELEM = {False: (2, 16, 8), True: (1, 32, 8), F32: (4, 8, 16)}
 # Channel chunks of the float32 K-loop of csrc/conv_packed.cu, largest first.
 _CHUNKS = {F32: (32, 16, 8)}
-# The Hopper core of csrc/conv_sm90.cuh (K5-K9 in bfloat16 and int8):
-# pixels per block row, output channels per block (N of its wgmma) that it is
-# built for, consumer warpgroups, channel chunks (powers of two: its
-# producer threads split a chunk evenly).
+# The Hopper core of csrc/conv_sm90.cuh (K5-K9 in bfloat16 and int8, K5 and
+# K6 in float32): pixels per block row, output channels per block (N of its
+# wgmma) that it is built for (float32 up to 64: its promotion sums take as
+# many registers as its accumulators), consumer warpgroups, channel chunks
+# (powers of two: its producer threads split a chunk evenly; float32 ones
+# take twice the halo bytes of bf16 and four times the weight bytes).
 _SM90_TW, _SM90_N, _SM90_CONSUMERS = 64, (8, 16, 32, 64, 128), 2
-_SM90_CHUNKS = {False: (64, 32, 16), True: (128, 64, 32)}
-# Its kernels -> (folded, resident): K9's weights are folded with its
-# W-upsample; K5 and K7 keep every chunk's weights in shared memory where
-# that is what fits (the C side's resident_chunks<MODE>).
-_SM90_KERNELS = {"conv_packed": (False, True), "conv_pool_packed": (False, True),
-                 "conv_up_packed": (False, False), "conv_up_m_packed": (False, False),
-                 "conv_up_f_packed": (True, False)}
+_SM90_N_MAX = {False: 128, True: 128, F32: 64}
+_SM90_CHUNKS = {False: (64, 32, 16), True: (128, 64, 32), F32: (32, 16, 8)}
+# Its kernels -> (folded, resident, float32): K9's weights are folded with
+# its W-upsample; K5 and K7 keep every chunk's weights in shared memory where
+# that is what fits (the C side's resident_chunks<MODE>); K5 and K6 run on it
+# in float32 as well (the others' float32 modes are csrc/conv_packed.cu).
+_SM90_KERNELS = {"conv_packed": (False, True, True), "conv_pool_packed": (False, True, False),
+                 "conv_up_packed": (False, False, True),
+                 "conv_up_m_packed": (False, False, False),
+                 "conv_up_f_packed": (True, False, False)}
 # The source of each kernel's entry points (csrc/<name>.cu, one library
 # each); the weight prep of all five is in conv_up_sm90.
 _SM90_SOURCE = {"conv_packed": "conv_packed_sm90", "conv_up_packed": "conv_packed_sm90",
@@ -154,6 +166,11 @@ _SM90_SOURCE = {"conv_packed": "conv_packed_sm90", "conv_up_packed": "conv_packe
 # 16 bytes is a row of a wgmma core matrix.
 _SM90_ORDER = (0, 1, 2, 3, 4, 5, 8, 6, 7, 9)
 _SM90_VIEW = (0, 1, 2, 3, 4, 5, 7, 8, 6, 9)
+# float32: (cb, chunk, dy, tap, kstep, nt, g, tig, plane, r, p) is stored as
+# (cb, chunk, dy, tap, kstep, plane, nt, r, g, tig, p): each plane of a
+# k-step a whole B tile (n-tiles 256 bytes apart), the lo plane after the hi.
+_SM90_F32_ORDER = (0, 1, 2, 3, 4, 8, 5, 9, 6, 7, 10)
+_SM90_F32_VIEW = (0, 1, 2, 3, 4, 6, 8, 9, 5, 7, 10)
 
 Part = Union[torch.Tensor, Tuple[torch.Tensor, int]]
 Prepared = Dict[str, object]
@@ -203,13 +220,17 @@ def _plan(
     return None
 
 
-def _sm90_rows(n: int) -> int:
+def _sm90_rows(n: int, q: int = False, k: int = 3) -> int:
     """Rows of GEMM pixels per block of the Hopper core for N = ``n``: each
-    consumer warpgroup holds 4 rows of accumulators up to N = 64, else 2."""
+    consumer warpgroup holds 4 rows of accumulators up to N = 64, else 2;
+    float32, whose promotion sums double them, 4 up to N = 32 (6 at k = 7,
+    N <= 16), else 2 (``mt_of``)."""
+    if q == F32:
+        return _SM90_CONSUMERS * (6 if n <= 16 and k == 7 else (4 if n <= 32 else 2))
     return _SM90_CONSUMERS * (4 if n <= 64 else 2)
 
 
-def _sm90_smem_bytes(k: int, cchunk: int, n_tiles: int, q: bool = False,
+def _sm90_smem_bytes(k: int, cchunk: int, n_tiles: int, q: int = False,
                      folded: bool = False, res_chunks: int = 0) -> int:
     """Shared memory of one block of the Hopper core (``make_layout`` in
     conv_sm90.cuh; K5-K8 share a layout, ``folded`` is K9's): three buffers
@@ -219,16 +240,19 @@ def _sm90_smem_bytes(k: int, cchunk: int, n_tiles: int, q: bool = False,
     three halo buffers beside the weights of every chunk, resident; else two
     buffers with their weights (k = 5 and 7 at the wide sites). Besides: a
     staged output row per consumer warpgroup; bias and scale; K9's edge sums
-    of two tiles; nine mbarriers. Regions are 128-byte aligned."""
-    es, n = (1 if q else 2), n_tiles * 8
-    th = _sm90_rows(n)
+    of two tiles; nine mbarriers. Regions are 128-byte aligned. ``q``:
+    False (bfloat16), True (int8) or F32 (a float32 halo, weights in two
+    TF32 planes, a float32 staged row)."""
+    es, n = _ELEM[q][0], n_tiles * 8
+    wes, oes = (8, 4) if q == F32 else (es, 2)
+    th = _sm90_rows(n, q, k)
 
     def up128(b):
         return -(-b // 128) * 128
 
     halo = up128((th + k - 1) * _SM90_TW * (cchunk * es + _PAD_BYTES))
-    w = k * k * cchunk * n * es
-    rest = (_SM90_CONSUMERS * up128(_SM90_TW * (2 * n + _PAD_BYTES)) + 2 * n * 4
+    w = k * k * cchunk * n * wes
+    rest = (_SM90_CONSUMERS * up128(_SM90_TW * (oes * n + _PAD_BYTES)) + 2 * n * 4
             + (2 * 2 * th * n * 4 if folded else 0) + 9 * 8)
     three = 3 * (halo + w) + rest
     if three <= _SMEM_MAX:
@@ -261,22 +285,23 @@ def _sm90_res_chunks(cin: Union[int, Sequence[int]], plan: Tuple[int, int, int],
 
 @functools.lru_cache(maxsize=None)
 def _sm90_plan(
-    k: int, cin: Union[int, Tuple[int, ...]], n_out: int, q: bool = False,
+    k: int, cin: Union[int, Tuple[int, ...]], n_out: int, q: int = False,
     folded: bool = False, resident: bool = False,
 ) -> Optional[Tuple[int, int, int]]:
     """(cchunk, n_tiles, n_cout_blocks) of the Hopper core, or None: N =
     8*n_tiles is the narrowest width it is built for that covers ``n_out``
-    (2*cout when folded), so one block holds every output channel up to 128;
-    the largest channel chunk (no wider than the widest operand, ``cin``
-    being one channel count or the operands') that fits shared memory (with
-    its weights ``resident``, K5 and K7, where that is what fits), a
-    narrower N (more channel blocks) only where none does."""
+    (2*cout when folded), so one block holds every output channel up to 128
+    (float32, ``q=F32``: 64); the largest channel chunk (no wider than the
+    widest operand, ``cin`` being one channel count or the operands') that
+    fits shared memory (with its weights ``resident``, K5 and K7, where that
+    is what fits), a narrower N (more channel blocks) only where none does."""
     cins = _cins(cin)
     if not cins or min(cins) < 1 or n_out < 1:
         return None
-    kk = 32 if q else 16
+    kk = _ELEM[q][1]
     cin_k = -(-max(cins) // kk) * kk
-    first = next((n for n in _SM90_N if n >= n_out), _SM90_N[-1])
+    widths = [n for n in _SM90_N if n <= _SM90_N_MAX[q]]
+    first = next((n for n in widths if n >= n_out), widths[-1])
     for n in reversed([m for m in _SM90_N if m <= first]):
         for cchunk in _SM90_CHUNKS[q]:
             plan = (cchunk, n // 8, -(-n_out // n))
@@ -288,13 +313,15 @@ def _sm90_plan(
 
 
 def _sm90_fits(k: int, cin: Union[int, Tuple[int, ...]], n_out: int, folded: bool,
-               resident: bool = False) -> bool:
-    """Whether the site has a plan on the Hopper core (bfloat16, int8) and,
-    for float32, on the ``mma.sync`` core (five taps a row when ``folded``):
-    the routing does not depend on the dtype."""
+               resident: bool = False, f32: bool = False) -> bool:
+    """Whether the site has a plan on the Hopper core (bfloat16, int8; with
+    ``f32``, K5 and K6, float32 too) and, for the others' float32, on the
+    ``mma.sync`` core (five taps a row when ``folded``): the routing does not
+    depend on the dtype."""
+    ets = (False, True, F32) if f32 else (False, True)
     return all(_sm90_plan(k, cin, n_out, q, folded, resident) is not None
-               for q in (False, True)) and _plan(
-                   k, k, 5 if folded else k, _cins(cin), n_out, F32) is not None
+               for q in ets) and (f32 or _plan(
+                   k, k, 5 if folded else k, _cins(cin), n_out, F32) is not None)
 
 
 def supports(cins: Sequence[int], k: int, cout: int) -> bool:
@@ -447,19 +474,27 @@ def _weight_fragments(
     return torch.stack([hi, _tf32(frag - hi)], dim=-3).contiguous()
 
 
+def _sm90_order(q: int) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """(storage order, view order) of the Hopper core's weights for ``q``."""
+    return (_SM90_F32_ORDER, _SM90_F32_VIEW) if q == F32 else (_SM90_ORDER, _SM90_VIEW)
+
+
 def _sm90_weights(
-    wt: torch.Tensor, cins: Sequence[int], cchunk: int, n_tiles: int, q: bool = False,
+    wt: torch.Tensor, cins: Sequence[int], cchunk: int, n_tiles: int, q: int = False,
 ) -> torch.Tensor:
     """(ky, ntaps, cin, n_out) weights -> the Hopper core's layout: the
     elements of :func:`_weight_fragments`, stored in the order
     ``[cout block][chunk][dy][tap][kstep][n-tile][r][g][tig][p]`` that its
     wgmma B descriptor reads (each ``[r][g]`` row of 16 bytes a core-matrix
     row: channels-in ``kstep*KK + r*KK/2 ..`` of channel-out ``n-tile*8 +
-    g``). Returned as a view whose dimensions are in fragment order, so that
-    it is indexed as ``_weight_fragments``' result; the kernel reads the
-    storage behind it. Also the plain version of the core's prep kernel."""
+    g``); float32 (``q=F32``) ``[...][kstep][plane][n-tile][r][g][tig][p]``,
+    the hi and the lo TF32 plane each a whole B tile. Returned as a view
+    whose dimensions are in fragment order, so that it is indexed as
+    ``_weight_fragments``' result; the kernel reads the storage behind it.
+    Also the plain version of the core's prep kernel."""
+    order, view = _sm90_order(q)
     frag = _weight_fragments(wt, cins, cchunk, n_tiles, q)
-    return frag.permute(*_SM90_ORDER).contiguous().permute(*_SM90_VIEW)
+    return frag.permute(*order).contiguous().permute(*view)
 
 
 def _prepared(wt, bias, cins, k, cout, plan, scale=None, out_q=False,
@@ -467,7 +502,8 @@ def _prepared(wt, bias, cins, k, cout, plan, scale=None, out_q=False,
     """``scale`` is None for bfloat16 (``f32``: float32) weights and the
     per-channel int8 dequantisation for int8 codes ``wt``; ``layout`` lays
     the weights out for the kernel (``_sm90_weights`` for K5-K9 in bfloat16
-    and int8). The layout's dtype (``wfrag``) says which calls it serves."""
+    and int8, K5 and K6 in float32). The layout's dtype (``wfrag``) says
+    which calls it serves."""
     cchunk, n_tiles, _ = plan
     q = scale is not None
     return {
@@ -527,11 +563,11 @@ def prep_conv(
     """Weight-side constants of one ``conv_packed`` site: HWIO weights split
     per operand, each operand's channels padded to whole chunks, in the
     layout of the Hopper core (:func:`_sm90_weights`), and the float32 bias,
-    for bfloat16 operands (float32 ones, ``dtype``: split in two TF32 planes
-    in the ``mma.sync`` core's layout, :func:`_weight_fragments`); with
-    ``absmax`` (one per operand) the int8 codes, the per-channel scale and
-    the bias, both folded with ``127/out_absmax`` when that is given. In
-    bfloat16 also the plain version of the core's prep kernel."""
+    for bfloat16 operands (float32 ones, ``dtype``: split in two TF32 planes,
+    ``q=F32``); with ``absmax`` (one per operand) the int8 codes, the
+    per-channel scale and the bias, both folded with ``127/out_absmax`` when
+    that is given. In bfloat16 and float32 also the plain version of the
+    core's prep kernel."""
     real_cs = tuple(int(c) for c in real_cs)
     k, cout = _check_w(w, bias, sum(real_cs))
     _need(supports(real_cs, k, cout), "conv_packed", real_cs, k, cout)
@@ -541,11 +577,16 @@ def prep_conv(
 def _prep_sm90(name, w, bias, cins, absmax, out_absmax, dtype) -> Prepared:
     """The conv's own weights in the layout of the Hopper core
     (:func:`_sm90_weights`), for operands of ``cins`` channels; int8 with
-    ``absmax`` (one per operand) as in :func:`prep_conv`; float32 in the
-    ``mma.sync`` core's layout (:func:`_weight_fragments`, two planes)."""
+    ``absmax`` (one per operand) as in :func:`prep_conv`; float32 in two
+    TF32 planes, on the Hopper core (K5, K6) or in the ``mma.sync`` core's
+    layout (:func:`_weight_fragments`; K7, K8)."""
     k, cout = w.shape[0], w.shape[3]
-    _, res = _SM90_KERNELS[name]
+    _, res, f32_sm90 = _SM90_KERNELS[name]
     if absmax is None and _is_f32(dtype):
+        if f32_sm90:
+            return _prepared(w.float(), bias, cins, k, cout,
+                             _sm90_plan(k, cins, cout, F32, resident=res),
+                             layout=_sm90_weights, f32=True)
         return _prepared(w.float(), bias, cins, k, cout, _plan(k, k, k, cins, cout, F32),
                          f32=True)
     if absmax is None:
@@ -810,21 +851,24 @@ def _conv_up_f_q_plain(x, w, bias, slope, ax, out_absmax, out_dtype):
 
 # ------------------------------------------------------------------ launch
 
+# The float32 entry points of one input (conv_up_packed on the Hopper core,
+# K7 and K8 on mma.sync): x, c, wfrag, bias, out, B, 2 sizes, cout, k, cchunk,
+# n_tiles, has_slope, slope, stream.
+_F32_ONE = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.c_void_p]
+
+
 def _lib() -> ctypes.CDLL:
-    """``csrc/conv_packed.cu``: the float32 modes of K5-K9."""
+    """``csrc/conv_packed.cu``: the float32 modes of K7-K9."""
     lib = _build.library("conv_packed")
     if not getattr(lib, "_rrin_typed", False):
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        ci = ctypes.c_int
         lib.rrin_conv_packed_smem.argtypes = [ci] * 5
         lib.rrin_conv_packed_smem.restype = ctypes.c_longlong
-        pv, pi = ctypes.POINTER(vp), ctypes.POINTER(ci)
-        lib.rrin_conv_packed_f32_launch.argtypes = [pv, pi, pi, ci] + [vp] * 3 + [ci] * 8 + [
-            cf, vp]
-        one = [vp, ci] + [vp] * 3 + [ci] * 8 + [cf, vp]
-        for name in ("conv_up_packed", "conv_pool_packed", "conv_up_m_packed"):
-            getattr(lib, f"rrin_{name}_f32_launch").argtypes = one
-        lib.rrin_conv_up_f_packed_f32_launch.argtypes = one[:5] + [ci] * 7 + [cf, vp]
-        for name in _SM90_KERNELS:
+        for name in ("conv_pool_packed", "conv_up_m_packed"):
+            getattr(lib, f"rrin_{name}_f32_launch").argtypes = _F32_ONE
+        lib.rrin_conv_up_f_packed_f32_launch.argtypes = _F32_ONE[:5] + [ci] * 7 + _F32_ONE[-2:]
+        for name in ("conv_pool_packed", "conv_up_m_packed", "conv_up_f_packed"):
             getattr(lib, f"rrin_{name}_f32_launch").restype = ci
         lib._rrin_typed = True
     return lib
@@ -844,7 +888,7 @@ def _lib_sm90(source: str = "conv_up_sm90") -> ctypes.CDLL:
             lib.rrin_conv_pool_packed_launch.argtypes = one
             lib.rrin_conv_up_m_packed_launch.argtypes = one
             lib.rrin_conv_up_f_packed_launch.argtypes = one[:-4] + [cf, ci, vp]
-            lib.rrin_conv_up_prep_launch.argtypes = [vp] * 4 + [ci, pi] + [ci] * 5 + [vp]
+            lib.rrin_conv_up_prep_launch.argtypes = [vp] * 4 + [ci, pi] + [ci] * 6 + [vp]
             names = ("conv_pool_packed", "conv_up_m_packed", "conv_up_f_packed", "conv_up_prep")
         else:
             lib.rrin_conv_packed_sm90_smem.argtypes = [ci] * 5
@@ -852,7 +896,12 @@ def _lib_sm90(source: str = "conv_up_sm90") -> ctypes.CDLL:
             lib.rrin_conv_packed_launch.argtypes = (
                 [pv, pi, pi, pi, pv, ci] + [vp] * 4 + [ci] * 9 + [cf, ci, vp])
             lib.rrin_conv_up_packed_launch.argtypes = one
-            names = ("conv_packed", "conv_up_packed")
+            lib.rrin_conv_packed_f32_launch.argtypes = [pv, pi, pi, ci] + [vp] * 3 + [
+                ci] * 8 + [cf, vp]
+            lib.rrin_conv_up_packed_f32_launch.argtypes = _F32_ONE
+            lib.rrin_conv_f32_promotion.argtypes = [ci]
+            lib.rrin_conv_f32_promotion.restype = ci
+            names = ("conv_packed", "conv_up_packed", "conv_packed_f32", "conv_up_packed_f32")
         for name in names:
             getattr(lib, f"rrin_{name}_launch").restype = ci
         lib._rrin_typed = True
@@ -940,7 +989,7 @@ def _sm90_smem_agrees(name, k, cins, plan, q) -> None:
     :func:`_sm90_smem_bytes` agree (checked once per site: every argument is
     hashable)."""
     cchunk, n_tiles, _ = plan
-    folded, resident = _SM90_KERNELS[name]
+    folded, resident, _ = _SM90_KERNELS[name]
     res = _sm90_res_chunks(cins, plan, resident)
     source = _SM90_SOURCE[name]
     lib = _lib_sm90(source)
@@ -953,21 +1002,29 @@ def _sm90_smem_agrees(name, k, cins, plan, q) -> None:
 
 
 def _prep_on_card(name: str, w: torch.Tensor, bias: torch.Tensor,
-                  cins: Optional[Sequence[int]] = None) -> Prepared:
+                  cins: Optional[Sequence[int]] = None, f32: bool = False) -> Prepared:
     """What ``prep_conv`` (operands of ``cins`` channels) / ``prep_conv_up``
     / ``prep_conv_pool`` / ``prep_conv_up_m`` / ``prep_conv_up_f`` return in
-    bfloat16, from one launch of the Hopper core's prep kernel: the layout
-    of :func:`_sm90_weights` (each operand's channels padded to whole chunks;
-    K9: the fold of :func:`_upf_taps` before the bf16 rounding) and, folded,
-    the bias repeated for both output parities."""
-    folded, res = _SM90_KERNELS[name]
+    bfloat16 (``f32``: ``prep_conv`` / ``prep_conv_up`` with
+    ``dtype=torch.float32``), from one launch of the Hopper core's prep
+    kernel: the layout of :func:`_sm90_weights` (each operand's channels
+    padded to whole chunks; K9: the fold of :func:`_upf_taps` before the
+    bf16 rounding; float32: the hi and the lo TF32 plane) and, folded, the
+    bias repeated for both output parities."""
+    folded, res, _ = _SM90_KERNELS[name]
+    q = F32 if f32 else False
     k, _, cin, cout = w.shape
     cins = (cin,) if cins is None else tuple(int(c) for c in cins)
     n_out = 2 * cout if folded else cout
-    plan = _sm90_plan(k, cins, n_out, folded=folded, resident=res)
+    plan = _sm90_plan(k, cins, n_out, q, folded=folded, resident=res)
     cchunk, n_tiles, n_cb = plan
-    mem = torch.empty((n_cb, _sm90_chunks(cins, cchunk), k, 5 if folded else k, cchunk // 16,
-                       n_tiles, 2, 8, 4, 2), dtype=torch.bfloat16, device=w.device)
+    lead = (n_cb, _sm90_chunks(cins, cchunk), k, 5 if folded else k)
+    if f32:  # [kstep][plane][n-tile][r][g][tig][p]
+        mem = torch.empty((*lead, cchunk // 8, 2, n_tiles, 2, 8, 4, 1), dtype=torch.float32,
+                          device=w.device)
+    else:  # [kstep][n-tile][r][g][tig][p]
+        mem = torch.empty((*lead, cchunk // 16, n_tiles, 2, 8, 4, 2), dtype=torch.bfloat16,
+                          device=w.device)
     wf = w.float().contiguous()
     b = bias.float().contiguous()
     b_out = torch.empty(n_out, dtype=torch.float32, device=w.device) if folded else b
@@ -977,14 +1034,27 @@ def _prep_on_card(name: str, w: torch.Tensor, bias: torch.Tensor,
             "conv_up_prep", lib.rrin_conv_up_prep_launch, wf.data_ptr(), b.data_ptr(),
             mem.data_ptr(), b_out.data_ptr() if folded else None, k,
             (ctypes.c_int * len(cins))(*cins), len(cins), cout, cchunk, n_tiles, int(folded),
-            torch.cuda.current_stream().cuda_stream)
-    return {"wfrag": mem.permute(*_SM90_VIEW), "bias": b_out, "scale": None,
+            int(f32), torch.cuda.current_stream().cuda_stream)
+    return {"wfrag": mem.permute(*_sm90_order(q)[1]), "bias": b_out, "scale": None,
             "cins": cins, "k": k, "cout": cout, "plan": plan, "q": False, "out_q": False}
 
 
 def _check_sm90_layout(name: str, prepared: Prepared) -> None:
-    if not prepared["wfrag"].permute(*_SM90_ORDER).is_contiguous():
+    wfrag = prepared["wfrag"]
+    order = _sm90_order(F32 if wfrag.dtype == torch.float32 else False)[0]
+    if wfrag.ndim != len(order) or not wfrag.permute(*order).is_contiguous():
         raise ValueError(f"{name}: prepared['wfrag'] is not in the layout of _sm90_weights")
+
+
+def _f32_promotion(k_steps: int) -> int:
+    """Set the float32 promotion interval of the Hopper core's later launches
+    (``csrc/conv_packed_sm90.cu``'s ``rrin_conv_f32_promotion``): at most
+    ``k_steps`` k-steps (8 channels of one tap) of an output row, as whole
+    (dx, k-step) slabs of k, are summed on the tensor cores before one
+    addition with round to nearest (below k: every k-step); returns the one
+    it replaces. A measurement's knob: the default (9) is what the float32
+    bar allows."""
+    return _lib_sm90("conv_packed_sm90").rrin_conv_f32_promotion(k_steps)
 
 
 def _slope_args(slope: Optional[float]) -> Tuple[int, float]:
@@ -1051,9 +1121,11 @@ def conv_packed(
     f32 = xs[0].dtype == torch.float32
     et = F32 if f32 else q
     if prepared is None:
-        prepared = (_prep_on_card("conv_packed", w, bias, cs) if not (f32 or q)
-                    else prep_conv(w, bias, cs, in_absmax, out_absmax,
-                                   torch.float32 if f32 else torch.bfloat16))
+        prepared = (prep_conv(w, bias, cs, in_absmax, out_absmax) if q
+                    else _prep_on_card("conv_packed", w, bias, cs, f32))
+    _check_sm90_layout("conv_packed", prepared)
+    _sm90_smem_agrees("conv_packed", k, cs, prepared["plan"], et)
+    lib = _lib_sm90("conv_packed_sm90")
     cchunk, n_tiles, _ = prepared["plan"]
     b, h, width, _ = xs[0].shape
     dev = xs[0].device
@@ -1063,16 +1135,12 @@ def conv_packed(
     strides = (ctypes.c_int * n)(*[x.shape[-1] for x in xs])
     wb = (prepared["wfrag"].data_ptr(), prepared["bias"].data_ptr())
     tail = (cchunk, n_tiles, *_slope_args(slope))
-    if f32:  # the mma.sync core
-        lib = _lib()
-        _smem_agrees(lib, k, k, k, prepared["plan"])
+    if f32:
         fn = lib.rrin_conv_packed_f32_launch
         args = (ptrs, (ctypes.c_int * n)(*cs), strides, n, *wb, out.data_ptr(), b, h, width,
                 cout, k, *tail)
-    else:  # the Hopper core
-        _check_sm90_layout("conv_packed", prepared)
-        _sm90_smem_agrees("conv_packed", k, cs, prepared["plan"], q)
-        fn = _lib_sm90("conv_packed_sm90").rrin_conv_packed_launch
+    else:
+        fn = lib.rrin_conv_packed_launch
         axs, scale = _q_launch_args(prepared, in_absmax, dev) if q else ([], None)
         args = (ptrs, (ctypes.c_int * n)(*cs), strides,
                 (ctypes.c_int * n)(*[int(x.dtype == torch.int8) for x in xs]),
@@ -1109,25 +1177,28 @@ def _fused(name: str, x, w, bias, slope, prepared, in_absmax, out_absmax,
                            out_absmax is not None)
     f32 = x.dtype == torch.float32
     et = F32 if f32 else q
-    folded, _ = _SM90_KERNELS[name]
-    # bfloat16 and int8 run on the Hopper core, float32 on the mma.sync core.
+    folded, _, f32_sm90 = _SM90_KERNELS[name]
+    # bfloat16 and int8 run on the Hopper core, float32 there too (K6) or on
+    # the mma.sync core (K7-K9).
+    sm90 = f32_sm90 or not f32
     if prepared is None:
-        prepared = (_prep_on_card(name, w, bias) if not (f32 or q)
-                    else prep(w, bias, in_absmax, out_absmax,
-                              torch.float32 if f32 else torch.bfloat16))
+        if q or not sm90:
+            prepared = prep(w, bias, in_absmax, out_absmax,
+                            torch.float32 if f32 else torch.bfloat16)
+        else:
+            prepared = _prep_on_card(name, w, bias, f32=f32)
     cchunk, n_tiles, _ = prepared["plan"]
-    if f32:
+    if sm90:
+        _check_sm90_layout(name, prepared)
+        _sm90_smem_agrees(name, k, (cin,), prepared["plan"], et)
+        lib = _lib_sm90(_SM90_SOURCE[name])
+    else:
         if not prepared["wfrag"].is_contiguous():
             raise ValueError(f"{name}: prepared['wfrag'] is not in the layout of "
                              "_weight_fragments")
         lib = _lib()
         _smem_agrees(lib, k, k, 5 if folded else k, prepared["plan"])
-        entry = f"rrin_{name}_f32_launch"
-    else:
-        _check_sm90_layout(name, prepared)
-        _sm90_smem_agrees(name, k, (cin,), prepared["plan"], q)
-        lib = _lib_sm90(_SM90_SOURCE[name])
-        entry = f"rrin_{name}_launch"
+    entry = f"rrin_{name}{'_f32' if f32 else ''}_launch"
     oh, ow = (h // 2, width // 2) if pool else (2 * h, 2 * width)
     out = _out_tensor(name, (b, oh, ow, cout), x.device, f32, out_absmax, out_dtype)
     wb = (prepared["wfrag"].data_ptr(), prepared["bias"].data_ptr())

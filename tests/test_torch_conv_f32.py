@@ -47,8 +47,9 @@ def _sites(cfg):
 
 def test_float32_plans_fit_every_site():
     """Every site that the bfloat16 and int8 plans accept has a float32 plan
-    on the mma.sync core that fits shared memory, so that routing does not
-    depend on the dtype; 1080p and 4K take the packed path at every site."""
+    that fits shared memory, so that routing does not depend on the dtype:
+    K5 and K6 on the Hopper core, K7-K9 on the mma.sync core; 1080p and 4K
+    take the packed path at every site."""
     supports = {"conv_packed": lambda k, cins, cout: tcp.supports(cins, k, cout),
                 "conv_pool_packed": lambda k, cins, cout: tcp.supports_pool(cins[0], k, cout),
                 "conv_up_m_packed": lambda k, cins, cout: tcp.supports_up_m(cins[0], k, cout),
@@ -56,6 +57,16 @@ def test_float32_plans_fit_every_site():
                 "conv_up_packed": lambda k, cins, cout: tcp.supports_up(cins[0], k, cout)}
     for name, k, cins, cout in _sites(CFG):
         assert supports[name](k, cins, cout), (name, cins)
+        if name in ("conv_packed", "conv_up_packed"):
+            resident = name == "conv_packed"
+            plan = tcp._sm90_plan(k, cins, cout, tcp.F32, resident=resident)
+            assert plan is not None, (name, cins)
+            cchunk, n_tiles, n_cb = plan
+            assert cchunk % 8 == 0 and n_cb * n_tiles * 8 >= cout and n_tiles <= 8
+            res = tcp._sm90_res_chunks(cins, plan, resident)
+            assert tcp._sm90_smem_bytes(k, cchunk, n_tiles, tcp.F32, False,
+                                        res) <= tcp._SMEM_MAX
+            continue
         folded = name == "conv_up_f_packed"
         ntaps, n_out = (5, 2 * cout) if folded else (k, cout)
         plan = tcp._plan(k, k, ntaps, cins, n_out, tcp.F32)
@@ -103,22 +114,28 @@ def _gather_f32(frag, wt, cins, cchunk, n_tiles):
 
 @pytest.mark.parametrize("kind", ["conv", "up_f"])
 def test_float32_weight_layout(rng, kind):
+    """The two TF32 planes of a float32 prep: K5's in the Hopper core's
+    layout (read in fragment order), K9's folded taps in the mma.sync
+    core's."""
     if kind == "conv":
         cins, k, cout = (40, 12), 3, 70
         w = t(rng.standard_normal((k, k, sum(cins), cout)).astype(np.float32))
         b = t(rng.standard_normal(cout).astype(np.float32))
         pr = tcp.prep_conv(w, b, cins, dtype=torch.float32)
-        ref = w
+        ref, plan = w, tcp._sm90_plan(k, cins, cout, tcp.F32, resident=True)
+        tcp._check_sm90_layout("conv_packed", pr)
     else:
         cins, k, cout = (24,), 3, 12
         w = t(rng.standard_normal((k, k, 24, cout)).astype(np.float32))
         b = t(rng.standard_normal(cout).astype(np.float32))
         pr = tcp.prep_conv_up_f(w, b, dtype=torch.float32)
         ref = tcp._upf_taps(w)
+        plan = tcp._plan(k, k, ref.shape[1], cins, ref.shape[3], tcp.F32)
         assert torch.equal(pr["bias"], torch.cat([b, b]))
+        assert pr["wfrag"].is_contiguous()
     cchunk, n_tiles, _ = pr["plan"]
-    assert pr["plan"] == tcp._plan(k, k, ref.shape[1], cins, ref.shape[3], tcp.F32)
-    assert pr["wfrag"].dtype == torch.float32 and pr["wfrag"].is_contiguous()
+    assert pr["plan"] == plan
+    assert pr["wfrag"].dtype == torch.float32
     assert not pr["q"] and pr["scale"] is None
     _gather_f32(pr["wfrag"], ref, cins, cchunk, n_tiles)
 

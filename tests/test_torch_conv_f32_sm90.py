@@ -1,0 +1,165 @@
+"""The host side of K5 (``conv_packed``) and K6 (``conv_up_packed``) in float32
+on the Hopper core (``csrc/conv_sm90.cuh``, element type F32, entry points in
+``csrc/conv_packed_sm90.cu``): the two TF32 weight planes that its wgmma B
+descriptor reads, located element by element through its address formula;
+the tile and shared-memory planner at every K5/K6 site of the 1080p and 4K
+cascades and of ``chip_smoke.py``; and that a float32 operand without a
+kernel raises instead of falling back (to the plain version or to the
+``mma.sync`` core of ``csrc/conv_packed.cu``, which no longer holds K5/K6)."""
+
+import numpy as np
+import pytest
+import torch
+
+from rrin_tpu_torch import _build
+from rrin_tpu_torch.ops import conv_packed as tcp
+from torch_packed_util import (  # noqa: F401
+    check_sm90_layout,
+    fresh_rng,
+    one_torch_thread,
+    sm90_rows,
+    t,
+)
+
+F32 = tcp.F32
+
+
+@pytest.fixture
+def rng():
+    return fresh_rng()
+
+
+# (name, kernel, k, operands' channels, cout)
+LAYOUTS = [
+    ("two_operands", "conv_packed", 3, (24, 16), 20),
+    ("stem_cin6", "conv_packed", 7, (6,), 12),
+    ("k6_k1", "conv_up_packed", 1, (24,), 12),
+    ("k6_k3", "conv_up_packed", 3, (40,), 20),
+]
+
+
+@pytest.mark.parametrize("site", LAYOUTS, ids=[s[0] for s in LAYOUTS])
+def test_weight_layout_read_by_the_core(rng, site):
+    """q = "f32": every float32 that the core reads holds the hi TF32 part
+    (plane 0) or the lo part (plane 1, one B tile later) of the weight of its
+    (dy, tap, channel-in, channel-out), zero where an operand's chunk or the
+    output channels are padding; indexed in fragment order, the layout holds
+    the elements of ``_weight_fragments(q=F32)``."""
+    _, kernel, k, cins, cout = site
+    w = t(rng.standard_normal((k, k, sum(cins), cout)).astype(np.float32))
+    b = t(rng.standard_normal(cout).astype(np.float32))
+    if kernel == "conv_packed":
+        pr = tcp.prep_conv(w, b, cins, dtype=torch.float32)
+    else:
+        pr = tcp.prep_conv_up(w, b, dtype=torch.float32)
+    assert pr["plan"] == tcp._sm90_plan(k, cins, cout, F32, resident=kernel == "conv_packed")
+    assert pr["cins"] == cins and not pr["q"] and pr["scale"] is None
+    check_sm90_layout(pr, w, k, F32, cins)
+    cchunk, n_tiles, _ = pr["plan"]
+    frag = tcp._weight_fragments(w, cins, cchunk, n_tiles, F32)
+    assert torch.equal(pr["wfrag"], frag)
+    tcp._check_sm90_layout(kernel, pr)
+    with pytest.raises(ValueError, match="not in the layout of _sm90_weights"):
+        tcp._check_sm90_layout(kernel, dict(pr, wfrag=frag))
+
+
+S = 0.1
+# (name, kernel, k, operands' channels, cout): every K5 and K6 site of the
+# U-Net (the planner has no spatial input, so one plan serves 1080p and 4K)
+# and chip_smoke.py's other cases.
+SITES = [
+    *((f"c1_cin{c}", "conv_packed", 7, (c,), 32) for c in (6, 9, 10, 16)),
+    ("c2", "conv_packed", 7, (32,), 32),
+    ("d1c2", "conv_packed", 5, (64,), 64),
+    ("d2c2", "conv_packed", 3, (128,), 128),
+    ("d3c1", "conv_packed", 3, (128,), 256),
+    ("d3c2", "conv_packed", 3, (256,), 256),
+    ("d4c1", "conv_packed", 3, (256,), 512),
+    ("d4c2", "conv_packed", 3, (512,), 512),
+    ("u1c1", "conv_packed", 3, (512,), 256),
+    ("u1c2", "conv_packed", 3, (256, 256), 256),
+    ("u2c2", "conv_packed", 3, (128, 128), 128),
+    ("u3c2", "conv_packed", 3, (64, 64), 64),
+    ("u4c2", "conv_packed", 3, (32, 32), 32),
+    *((f"head_cout{c}", "conv_packed", 3, (32,), c) for c in (4, 2, 3)),
+    ("k7_ragged", "conv_packed", 7, (32,), 32),
+    ("four_operands", "conv_packed", 3, (64, 24, 16, 10), 48),
+    ("u3c1_4k", "conv_up_packed", 3, (128,), 64),
+    ("u4c1_4k", "conv_up_packed", 3, (64,), 32),
+    ("k6_k5", "conv_up_packed", 5, (64,), 32),
+    ("k6_k1", "conv_up_packed", 1, (32,), 16),
+]
+
+
+def test_planner_fits_every_site():
+    """float32: each plan takes chunks that the producers split evenly
+    (powers of two, whole k-steps of 8 channels), none of which holds
+    channels of two operands, N <= 64 (the promotion sums double the
+    accumulators: 4 rows a consumer up to N = 32, 2 at N = 64, 6 at k 7 and
+    N <= 16), and fits the 227 KB of shared memory; the support gates agree,
+    so routing does not depend on the dtype. Where a site's weights alone
+    fill a buffer (k 7: a
+    chunk of 8 channels at N = 32 is 100,352 bytes), N narrows; chunks of 16
+    or 32 are left only where N is small (u4c2, the heads)."""
+    for name, kernel, k, cins, cout in SITES:
+        resident = kernel == "conv_packed"
+        plan = tcp._sm90_plan(k, cins, cout, F32, resident=resident)
+        assert plan is not None, name
+        cchunk, n_tiles, n_cb = plan
+        assert cchunk % 8 == 0 and cchunk & (cchunk - 1) == 0, name
+        assert n_tiles * 8 in tcp._SM90_N and n_tiles * 8 <= 64, name
+        assert n_tiles * 8 * n_cb >= cout > n_tiles * 8 * (n_cb - 1), name
+        res = tcp._sm90_res_chunks(cins, plan, resident)
+        assert tcp._sm90_smem_bytes(k, cchunk, n_tiles, F32, False, res) <= tcp._SMEM_MAX, name
+        rows = sm90_rows(cins, cchunk)
+        owner = np.repeat(np.arange(len(cins)), cins)
+        for ch in range(len(rows) // cchunk):
+            ops = {owner[r] for r in rows[ch * cchunk:(ch + 1) * cchunk] if r is not None}
+            assert len(ops) == 1, (name, ch)
+        if kernel == "conv_packed":
+            assert tcp.supports(cins, k, cout), name
+        else:
+            assert tcp.supports_up(cins[0], k, cout), name
+    assert [tcp._sm90_rows(n, F32) for n in (8, 16, 32, 64)] == [8, 8, 8, 4]
+    assert [tcp._sm90_rows(n, F32, 7) for n in (8, 16, 32)] == [12, 12, 8]
+    assert tcp._sm90_plan(7, (32,), 32, F32, resident=True) == (8, 2, 2)
+    assert tcp._sm90_smem_bytes(7, 8, 4, F32) > tcp._SMEM_MAX
+    assert tcp._sm90_plan(3, (512,), 512, F32, resident=True) == (8, 8, 8)
+    assert tcp._sm90_plan(3, (32, 32), 32, F32, resident=True) == (16, 4, 1)
+    assert tcp._sm90_plan(3, (32,), 4, F32, resident=True) == (32, 1, 1)
+    # float32 halo, weights (two planes) and staged row against bfloat16
+    assert tcp._sm90_smem_bytes(3, 8, 4, F32) == tcp._sm90_smem_bytes(3, 16, 4) + 3 * (
+        9 * 8 * 32 * 8 - 9 * 16 * 32 * 2) + 2 * 64 * 32 * 2
+
+
+def test_no_fallback_for_float32(rng, monkeypatch, tmp_path):
+    """A float32 tensor on a device without a kernel raises (no plain
+    version), and without a CUDA compiler the Hopper core's library does not
+    build: its float32 weight prep and library raise, as does the mma.sync
+    library, and no launch is counted. K5 and K6 route float32 to the Hopper
+    core, K7-K9 to the mma.sync core."""
+    assert [n for n, (_, _, f32) in tcp._SM90_KERNELS.items() if f32] == [
+        "conv_packed", "conv_up_packed"]
+    x = t(rng.standard_normal((1, 4, 6, 16)).astype(np.float32))
+    w = t(rng.standard_normal((3, 3, 16, 8)).astype(np.float32))
+    b = t(rng.standard_normal(8).astype(np.float32))
+    xm, wm, bm = x.to("meta"), w.to("meta"), b.to("meta")
+    with pytest.raises(RuntimeError, match="no conv_packed kernel for device meta"):
+        tcp.conv_packed([xm[..., :8], xm[..., 8:]], wm, bm, S)
+    with pytest.raises(RuntimeError, match="no conv_up_packed kernel for device meta"):
+        tcp.conv_up_packed(xm, wm, bm, S)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    before = _build.launch_counts()
+    for call in (lambda: tcp._prep_on_card("conv_packed", wm, bm, (8, 8), f32=True),
+                 lambda: tcp._prep_on_card("conv_up_packed", wm, bm, f32=True),
+                 lambda: tcp._f32_promotion(1), lambda: tcp._lib_sm90("conv_packed_sm90"),
+                 tcp._lib):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call()
+    assert _build.launch_counts() == before

@@ -95,21 +95,25 @@ def gather(frag, wt, cins, cchunk, n_tiles, kk=16):
         assert f[idx] == want, idx
 
 
-def sm90_offset(ci, n, dy, tap, cchunk, n_tiles, k, ntaps, n_chunks, q):
+def sm90_offset(ci, n, dy, tap, cchunk, n_tiles, k, ntaps, n_chunks, q, plane=0):
     """Byte offset in a weight buffer of the Hopper core (``csrc/conv_sm90.cuh``)
     at which it reads padded channel-in ci of channel-out n at (dy, tap): the
     wgmma B descriptor's view of
-    [cb][chunk][dy][tap][k-step][n-tile][r][g][16 bytes]."""
-    es, kk = (1, 32) if q else (2, 16)
+    [cb][chunk][dy][tap][k-step][n-tile][r][g][16 bytes]; float32 (``q`` =
+    F32) [...][k-step][plane][n-tile][r][g][16 bytes], the lo plane one B
+    tile (8 channels x n_tiles*8) after the hi plane."""
+    f32 = q == tcp.F32
+    es, kk = (4, 8) if f32 else ((1, 32) if q else (2, 16))
+    planes = 2 if f32 else 1
     big_n = n_tiles * 8
-    tap_bytes = cchunk * big_n * es
+    tap_bytes = cchunk * big_n * es * planes
     cb, nn = divmod(n, big_n)
     ch, cc = divmod(ci, cchunk)
     ks, kin = divmod(cc, kk)
     r, e = divmod(kin, kk // 2)
     stage = ((cb * n_chunks + ch) * k + dy) * ntaps + tap
-    return (stage * tap_bytes + ks * big_n * 32 + (nn // 8) * 256 + r * 128 + (nn % 8) * 16
-            + e * es)
+    return (stage * tap_bytes + (ks * planes + plane) * big_n * 32 + (nn // 8) * 256 + r * 128
+            + (nn % 8) * 16 + e * es)
 
 
 def sm90_rows(cins, cchunk):
@@ -129,28 +133,38 @@ def check_sm90_layout(pr, ref, k, q, cins=None):
     """Every byte of ``pr["wfrag"]`` (a ``prep_*`` result in the Hopper
     core's layout, for operands of ``cins`` channels, one operand by
     default) that the core reads holds ``ref[dy, tap, ci, n]``
-    (bf16-rounded, or the int8 code), zero where an operand's chunk or the
-    output channels are padding, and the address formula covers the buffer
-    once."""
-    ref = ref.numpy() if q else ref.to(torch.bfloat16).float().numpy()
+    (bf16-rounded, the int8 code, or in float32, ``q`` = F32, its hi TF32
+    part in one plane and its lo part in the other), zero where an operand's
+    chunk or the output channels are padding, and the address formula covers
+    the buffer once."""
+    f32 = q == tcp.F32
+    if f32:
+        hi = tcp._tf32(ref)
+        planes = [hi.numpy(), tcp._tf32(ref - hi).numpy()]
+        dtype, order, es = torch.float32, tcp._SM90_F32_ORDER, 4
+    else:
+        planes = [ref.numpy() if q else ref.to(torch.bfloat16).float().numpy()]
+        dtype, order, es = (torch.int8, tcp._SM90_ORDER, 1) if q else (
+            torch.bfloat16, tcp._SM90_ORDER, 2)
     n_out, ntaps = ref.shape[3], ref.shape[1]
     cchunk, n_tiles, n_cb = pr["plan"]
     rows = sm90_rows(cins or (ref.shape[2],), cchunk)
     assert n_cb * n_tiles * 8 >= n_out
-    mem = pr["wfrag"].permute(*tcp._SM90_ORDER)
-    assert mem.is_contiguous() and mem.dtype == (torch.int8 if q else torch.bfloat16)
+    mem = pr["wfrag"].permute(*order)
+    assert mem.is_contiguous() and mem.dtype == dtype
     flat = mem.reshape(-1).float().numpy()
     n_chunks = len(rows) // cchunk
-    es = 1 if q else 2
-    assert flat.size * es == n_cb * n_chunks * k * ntaps * cchunk * n_tiles * 8 * es
+    assert flat.size == n_cb * n_chunks * k * ntaps * cchunk * n_tiles * 8 * len(planes)
     seen = np.zeros(flat.size, bool)
-    for dy in range(k):
-        for tap in range(ntaps):
-            for ci, row in enumerate(rows):
-                for n in range(n_cb * n_tiles * 8):
-                    off = sm90_offset(ci, n, dy, tap, cchunk, n_tiles, k, ntaps, n_chunks, q)
-                    assert off % es == 0
-                    want = ref[dy, tap, row, n] if row is not None and n < n_out else 0.0
-                    assert flat[off // es] == want, (dy, tap, ci, n)
-                    seen[off // es] = True
+    for plane, vals in enumerate(planes):
+        for dy in range(k):
+            for tap in range(ntaps):
+                for ci, row in enumerate(rows):
+                    for n in range(n_cb * n_tiles * 8):
+                        off = sm90_offset(ci, n, dy, tap, cchunk, n_tiles, k, ntaps, n_chunks,
+                                          q, plane)
+                        assert off % es == 0
+                        want = vals[dy, tap, row, n] if row is not None and n < n_out else 0.0
+                        assert flat[off // es] == want, (plane, dy, tap, ci, n)
+                        seen[off // es] = True
     assert seen.all()
