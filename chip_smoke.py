@@ -12,22 +12,25 @@ and numpy; nothing else and no network. It builds the CUDA kernels of
   kernels      every kernel against its plain PyTorch version on the card at
                the shapes of the 1080p paths (K6, K8 and K9 also at the 4K up
                sites, K7 at the 4K d1c1 site), in bfloat16, in int8 and in
-               float32, with times and bounds; the weight-prep kernel of the
-               Hopper core (K5-K9 in bfloat16, K5 and K6 in float32)
-               bit-equal to its plain version; the float32 K5's promotion
-               interval against its error at d4c2 and u1c2; the warps
-               through warp_one and as one launch per pair
+               float32, with times and bounds; K1 on the Hopper core beside
+               its mma.sync kernel, which keeps the other odd k; the
+               weight-prep kernel of the Hopper core (K5-K9 in bfloat16, K5,
+               K6 and K9 in float32) bit-equal to its plain version; the
+               float32 promotion interval against its error at d4c2, u1c2
+               (K5) and u3c1 (K9); the warps through warp_one and as one
+               launch per pair
   serve        the main path: the default Interpolator (bfloat16, kernels,
                packed U-Net path, full model width) answering 1080p requests
   serve_4k     the same Interpolator answering 2160x3840 requests, whose up
                sites u3c1 and u4c1 take K6 (conv_up_packed)
   serve_int8   ``Interpolator(int8=True)``: calibration, then int8 requests
                at 1080p (beside bfloat16 ones) and one at 2160x3840
-  serve_plain  one 1080p request on the plain U-Net path (``packed=False``)
+  serve_plain  one 1080p request on the plain U-Net path (``packed=False``:
+               K1 on the Hopper core, its weights prepared on the card)
   serve_fp32   the float32 plain path (float32 warp kernel) at 256x448 and the
                bf16-source warp
   serve_fp32_packed  the default float32 Interpolator (packed: the float32
-               modes of K5, K7, K8 and K9; K5 and K6 on the Hopper core)
+               modes of K5, K7, K8 and K9; K5, K6 and K9 on the Hopper core)
                against the float32 plain path at 1080p, in turns, and one
                float32 request at 2160x3840 (K6)
   agreement    card (kernels) against CPU (plain versions), packed against
@@ -83,7 +86,7 @@ F32_TENSOR_FLOPS = 495e12 / 3
 NO_INT8_LIBRARY = "no PyTorch call computes an int8 conv on CUDA"
 
 # Tolerances, fixed before any run.
-# K1: kernel rounds once to bf16 from a float32 sum; the plain version is a
+# K1 (on either kernel): rounds once to bf16 from a float32 sum; the plain version is a
 # bf16 library conv plus a bf16 bias add (two roundings, another summation
 # order): they may differ by one bf16 step (2^-8 relative) of the larger value.
 CONV_ATOL = CONV_RTOL = 2e-2
@@ -163,25 +166,38 @@ def smi_line() -> str:
 # --------------------------------------------------------------- kernels: K1
 
 def conv_case(rng, dev, name, h, w, cin, cout, k, slope):
+    """One K1 site through ``conv2d_fused``: on the Hopper core (k 3/5/7, one
+    weight-prep launch beside it), else on the mma.sync kernel; the core's
+    sites also through the mma.sync kernel, held to the same plain version
+    and timed beside it."""
     x = torch.from_numpy(
         rng.standard_normal((1, h, w, cin)).astype(np.float32)).to(dev).to(torch.bfloat16)
     bound = 1.0 / np.sqrt(k * k * cin)  # the init bound of the model's convs
     wt = torch.from_numpy(
         rng.uniform(-bound, bound, (k, k, cin, cout)).astype(np.float32)).to(dev)
     bias = torch.from_numpy(rng.uniform(-bound, bound, (cout,)).astype(np.float32)).to(dev)
+    sm90 = k in conv_phase.SM90_K
 
-    before = _build.launch_counts()["conv_phase"]
+    before = _build.launch_counts()
     got = conv_phase.conv2d_fused(x, wt, bias, slope)
     torch.cuda.synchronize()
-    check(_build.launch_counts()["conv_phase"] == before + 1,
+    after = _build.launch_counts()
+    check(after["conv_phase"] == before["conv_phase"] + 1,
           f"{name}: conv2d_fused did not launch the kernel")
+    check(after["conv_up_prep"] - before["conv_up_prep"] == int(sm90),
+          f"{name}: conv2d_fused did not take the {'Hopper core' if sm90 else 'mma.sync'} route")
     want = conv_phase._conv_plain(x, wt, bias, slope)
-    check(got.shape == want.shape and got.dtype == torch.bfloat16, f"{name}: shape/dtype")
-    diff = (got.float() - want.float()).abs()
-    err = float(diff.max())
-    ok = bool((diff <= CONV_ATOL + CONV_RTOL * want.float().abs()).all())
-    check(ok and bool(torch.isfinite(got.float()).all()),
-          f"{name}: kernel disagrees with plain version, max abs err {err}")
+
+    def held(y, route):
+        check(y.shape == want.shape and y.dtype == torch.bfloat16, f"{name} {route}: shape/dtype")
+        diff = (y.float() - want.float()).abs()
+        ok = bool((diff <= CONV_ATOL + CONV_RTOL * want.float().abs()).all())
+        check(ok and bool(torch.isfinite(y.float()).all()),
+              f"{name} {route}: kernel disagrees with plain version, max abs err "
+              f"{float(diff.max())}")
+        return float(diff.max())
+
+    err = held(got, "wgmma" if sm90 else "mma.sync")
 
     # The library yardstick: one F.conv2d call, bf16 channels-last with bias
     # (no activation); timed here and used nowhere in the port.
@@ -196,13 +212,28 @@ def conv_case(rng, dev, name, h, w, cin, cout, k, slope):
     flops = 2.0 * h * w * k * k * cin * cout
     nbytes = x.numel() * 2 + wt.numel() * 4 + bias.numel() * 4 + got.numel() * 2
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return {
+    out = {
         "site": name, "shape": [1, h, w, cin], "cout": cout, "k": k,
+        "route": "wgmma" if sm90 else "mma.sync",
         "slope": slope, "max_abs_err": err, "atol": CONV_ATOL, "rtol": CONV_RTOL,
         "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "flops": flops, "bytes": nbytes,
     }
+    if sm90:
+        # the mma.sync kernel (csrc/conv_phase.cu) at the same site, in the
+        # same run, and the core's weight prep alone (part of kernel_ms)
+        plan = conv_phase._plan(k, cin, cout)
+        mma = conv_phase._conv_kernel(x, wt, bias, slope, plan)
+        torch.cuda.synchronize()
+        out.update({
+            "mma_sync_max_abs_err": held(mma, "mma.sync"),
+            "mma_sync_ms": time_ms(lambda: conv_phase._conv_kernel(x, wt, bias, slope, plan)),
+            "plan": list(conv_phase._sm90_plan(k, cin, cout)),
+            "prep_ms": time_ms(lambda: conv_packed._prep_on_card("conv_packed", wt, bias,
+                                                                  (cin,))),
+        })
+    return out
 
 
 def conv_cases(rng, dev):
@@ -223,6 +254,8 @@ def conv_cases(rng, dev):
         ("down1_conv2", h2, w2, 64, 64, 5, s, 1),
         ("up3_conv", h2, w2, 128, 64, 3, s, 2),
         ("ragged_width_485", 270, 485, 32, 32, 7, s, 0),
+        # a k that the Hopper core is not built for: the mma.sync kernel
+        ("k9_mma_sync_272x480", 272, 480, 32, 32, 9, s, 0),
     ]
     cases = []
     for name, h, w, cin, cout, k, slope, mult in specs:
@@ -271,13 +304,15 @@ PACKED_KERNELS = {
 
 # The kernels on the Hopper core (csrc/conv_sm90.cuh) in bfloat16 and int8,
 # whose bf16 wrappers lay out (and fold) their weights on the card, and the
-# source of their entry points; K5 and K6 run there in float32 too (and lay
-# out their float32 weights on the card), K7-K9's float32 modes are
-# csrc/conv_packed.cu.
+# source of their entry points; K5, K6 and K9 run there in float32 too (and
+# lay out, K9 fold, their float32 weights on the card), K7's and K8's
+# float32 modes are csrc/conv_packed.cu.
 SM90 = {"conv_packed": "conv_packed_sm90.cu", "conv_up_packed": "conv_packed_sm90.cu",
         "conv_pool_packed": "conv_up_sm90.cu", "conv_up_m_packed": "conv_up_sm90.cu",
         "conv_up_f_packed": "conv_up_sm90.cu"}
-F32_SM90 = ("conv_packed", "conv_up_packed")
+F32_SM90 = ("conv_packed", "conv_up_packed", "conv_up_f_packed")
+SM90_MODE = {"conv_packed": "DIRECT", "conv_up_packed": "UPW", "conv_pool_packed": "POOL",
+             "conv_up_m_packed": "UP", "conv_up_f_packed": "UPF"}
 
 
 def packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope, int8=None, f32=False):
@@ -490,11 +525,11 @@ def packed_cases(rng, dev, f32=False):
         ("conv_up_f_packed", "u4c1_4k", H4K, W4K, (64,), 32, 3, s, 0),
     ]
     if f32:
-        # K5 and K6 run on the Hopper core in float32: conv_packed.cu has no
-        # entry point of theirs any more.
+        # K5, K6 and K9 run on the Hopper core in float32: conv_packed.cu has
+        # no entry point of theirs any more.
         lib = conv_packed._lib()
         check(not any(hasattr(lib, f"rrin_{k}_f32_launch") for k in F32_SM90),
-              "conv_packed.cu still holds a float32 K5 or K6")
+              "conv_packed.cu still holds a float32 K5, K6 or K9")
     cases = []
     for kernel, name, h, w, cins, cout, k, slope, mult in specs:
         c = packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope, f32=f32)
@@ -505,36 +540,43 @@ def packed_cases(rng, dev, f32=False):
 
 def promotion_probe(rng, dev):
     """The float32 K5 on the Hopper core at d4c2 (K = 4608, the deepest sum)
-    and u1c2 (two operands) for promotion intervals of 1 k-step (8 channels
-    of one tap), 3 (one (dx, k-step) slab at k 3), 6, 9 (a whole chunk of 8
-    channels at k 3) and the whole tile (products never leave the tensor
-    cores before the end): max abs error against the plain version (float32
-    conv without TF32) and ms, with prepared weights. The default interval
-    is put back after."""
+    and u1c2 (two operands), and the float32 K9 at u3c1 (K = 1152 of folded
+    taps, the edge sums beside), for promotion intervals of 1 k-step (8
+    channels of one tap), 3 (one (dx, k-step) slab at k 3), 6, 9 (a whole
+    chunk of 8 channels at k 3) and the whole tile (products never leave
+    the tensor cores before the end): max abs error against the plain
+    version (float32 conv without TF32) and ms, with prepared weights. The
+    default interval is put back after."""
     s = ModelConfig().leaky_slope
     default = conv_packed._f32_promotion(1)
     out = []
     try:
-        for name, h, w, cins, cout in (("d4c2", HP // 16, WP // 16, (512,), 512),
-                                       ("u1c2", HP // 8, WP // 8, (256, 256), 256)):
-            xs = [torch.from_numpy(rng.standard_normal((1, h, w, c)).astype(np.float32)).to(dev)
+        for name, hs, ws, cins, cout in (("d4c2", HP // 16, WP // 16, (512,), 512),
+                                         ("u1c2", HP // 8, WP // 8, (256, 256), 256),
+                                         ("k9_u3c1", HP // 4, WP // 4, (128,), 64)):
+            xs = [torch.from_numpy(rng.standard_normal((1, hs, ws, c)).astype(np.float32)).to(dev)
                   for c in cins]
             bound = 1.0 / np.sqrt(9 * sum(cins))
             wt = torch.from_numpy(
                 rng.uniform(-bound, bound, (3, 3, sum(cins), cout)).astype(np.float32)).to(dev)
             bias = torch.from_numpy(rng.uniform(-bound, bound, (cout,)).astype(np.float32)).to(dev)
-            want = conv_packed._conv_packed_plain(xs, wt, bias, s)
-            prep = conv_packed.prep_conv(wt, bias, cins, dtype=torch.float32)
+            if name.startswith("k9"):
+                want = conv_packed._conv_up_plain(xs[0], wt, bias, s)
+                prep = conv_packed.prep_conv_up_f(wt, bias, dtype=torch.float32)
+                run = lambda: conv_packed.conv_up_f_packed(  # noqa: E731
+                    xs[0], wt, bias, s, prepared=prep)
+            else:
+                want = conv_packed._conv_packed_plain(xs, wt, bias, s)
+                prep = conv_packed.prep_conv(wt, bias, cins, dtype=torch.float32)
+                run = lambda: conv_packed.conv_packed(xs, wt, bias, s, prepared=prep)  # noqa: E731
             for k_steps in (1, 3, 6, 9, 1 << 20):
                 conv_packed._f32_promotion(k_steps)
-                got = conv_packed.conv_packed(xs, wt, bias, s, prepared=prep)
-                diff = (got - want).abs()
+                diff = (run() - want).abs()
                 bar = F32_ATOL + F32_RTOL * want.abs()
                 out.append({"site": name, "k_steps": k_steps if k_steps < 1 << 20 else "all",
                             "max_abs_err": float(diff.max()),
                             "max_err_over_bar": float((diff / bar).max()),
-                            "ms": time_ms(lambda: conv_packed.conv_packed(
-                                xs, wt, bias, s, prepared=prep))})
+                            "ms": time_ms(run)})
     finally:
         conv_packed._f32_promotion(default)
     return {"default_k_steps": default, "runs": out}
@@ -724,8 +766,9 @@ def serve_request(interp, pairs):
 # there on); every bf16 K5-K9 launch comes with one launch of the weight
 # prep; in int8 every conv but the four heads is int8 (weights quantised in
 # PyTorch), the bf16 heads prepare theirs on the card; both warps of a pair
-# are one launch, with no packing pass; the int8 calibration pass runs the
-# plain path.
+# are one launch, with no packing pass; the plain path's K1 (on the Hopper
+# core at its k 3/5/7) prepares its weights on the card too, one launch
+# each; the int8 calibration pass runs the plain path.
 WARP_PAIR = {"warp_u8": 1}
 PACKED_PER_REQUEST = {"conv_packed": 56, "conv_pool_packed": 8, "conv_up_m_packed": 4,
                       "conv_up_f_packed": 8, "conv_up_prep": 76, **WARP_PAIR}
@@ -737,16 +780,17 @@ INT8_PER_REQUEST = {"conv_packed_int8": 52, "conv_packed": 4, "conv_pool_packed_
 INT8_4K_PER_REQUEST = {"conv_packed_int8": 52, "conv_packed": 4, "conv_pool_packed_int8": 8,
                        "conv_up_m_packed_int8": 4, "conv_up_packed_int8": 8,
                        "conv_up_prep": 4, **WARP_PAIR}
-PLAIN_PER_REQUEST = {"conv_phase": 36, **WARP_PAIR}
+PLAIN_PER_REQUEST = {"conv_phase": 36, "conv_up_prep": 36, **WARP_PAIR}
 CALIBRATION_LAUNCHES = PLAIN_PER_REQUEST
-# float32: the float32 modes of the same kernels (K5 and K6 lay out their
-# weights on the card, one prep launch each; K7-K9's weights are laid out and
-# split in PyTorch), the float32 warp pair; on the plain path every conv is
-# F.conv2d (K1 is bfloat16 only, as in the reference).
+# float32: the float32 modes of the same kernels (K5, K6 and K9 lay out, K9
+# fold, their weights on the card, one prep launch each; K7's and K8's
+# weights are laid out and split in PyTorch), the float32 warp pair; on the
+# plain path every conv is F.conv2d (K1 is bfloat16 only, as in the
+# reference).
 F32_WARP_PAIR = {"warp_f32": 1}
 FP32_PACKED_PER_REQUEST = {"conv_packed_f32": 56, "conv_pool_packed_f32": 8,
                            "conv_up_m_packed_f32": 4, "conv_up_f_packed_f32": 8,
-                           "conv_up_prep": 56, **F32_WARP_PAIR}
+                           "conv_up_prep": 64, **F32_WARP_PAIR}
 FP32_PACKED_4K_PER_REQUEST = {"conv_packed_f32": 56, "conv_pool_packed_f32": 8,
                               "conv_up_m_packed_f32": 4, "conv_up_packed_f32": 8,
                               "conv_up_prep": 64, **F32_WARP_PAIR}
@@ -921,14 +965,15 @@ def phase_serve_plain(params, dev):
     return counts
 
 
-_PACKED_MODES = {"0": "conv_pool_packed (K7)", "1": "conv_up_m_packed (K8)",
-                 "2": "conv_up_f_packed (K9)"}
+_PACKED_MODES = {"0": "conv_pool_packed (K7)", "1": "conv_up_m_packed (K8)"}
 _SM90_MODES = {"0": "conv_up_m_packed (K8)", "1": "conv_up_f_packed (K9)",
                "2": "conv_pool_packed (K7)", "3": "conv_up_packed (K6)",
                "4": "conv_packed (K5)"}
 
 
-def _profile_group(name: str) -> str:
+def _profile_group(name: str, plain: bool = False) -> str:
+    """The group of a kernel's name; on the plain path (``plain``) the Hopper
+    core's bf16 DIRECT mode is K1."""
     low = name.lower()
     packed = re.search(r"conv_packed_kernel<\s*\d+,\s*(?:\(.*?\))?(\d+)\s*>", low)
     if packed:  # conv_packed_kernel<NT, MODE>, float32: the mode is the entry point
@@ -936,12 +981,14 @@ def _profile_group(name: str) -> str:
     sm90 = re.search(
         r"conv_up_sm90_kernel<\s*\d+,\s*(?:\(.*?\))?(\d+),\s*(?:\(.*?\))?(\d+)", low)
     if sm90:  # conv_up_sm90_kernel<N, MODE, ET, K>, ET: 0 bf16, 1 int8, 2 float32
+        if plain and sm90.group(1) == "4" and sm90.group(2) == "0":
+            return "conv_phase (K1, Hopper core)"
         return _SM90_MODES[sm90.group(1)] + {"0": "", "1": " int8", "2": " float32"}[
             sm90.group(2)]
     if "conv_up_prep_kernel" in low:
         return "K5-K9 weight prep"
     if "conv_phase_kernel" in low:
-        return "conv_phase (K1)"
+        return "conv_phase (K1, mma.sync)"
     if "warp_kernel" in low:
         return "warp (K2-K4)"
     if "memcpy" in low or "memset" in low:
@@ -974,8 +1021,10 @@ def phase_profile(params, dev, path, top: int = 12, hw=(H1080, W1080), n=2,
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     groups: dict = {}
+    plain = kw.get("packed") is False
     for key, ms, _ in rows:
-        groups[_profile_group(key)] = groups.get(_profile_group(key), 0.0) + ms
+        group = _profile_group(key, plain)
+        groups[group] = groups.get(group, 0.0) + ms
     torch.cuda.reset_peak_memory_stats()
     serve_request(interp, pairs)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1210,16 +1259,37 @@ def kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_
                     int8_counts, plain_counts, fp32_counts, f32_counts, f32_counts_4k):
     """The per-kernel closing object: launches from the served paths (each
     kernel from the path it belongs to, counted from 0 over that path's
-    requests alone), every other number measured above in this run."""
-    entries = [_conv_entry(
-        "conv_phase", "rrin_tpu_torch/csrc/conv_phase.cu", conv,
+    requests alone), every other number measured above in this run; each
+    entry names its core and the source of its entry point."""
+    on_core = [c for c in conv if c["route"] == "wgmma"]
+    k1 = _conv_entry(
+        "conv_phase", "rrin_tpu_torch/csrc/conv_packed_sm90.cu", on_core,
         plain_counts["conv_phase"],
-        "sum over the 9 launches of one flow U-Net at 1088x1920 (plain path)")]
+        "sum over the 9 launches of one flow U-Net at 1088x1920 (plain path), each with its "
+        "weight prep on the card; launches from serve_plain")
+    mma = [c for c in conv if c["route"] == "mma.sync"]
+    k1.update({
+        "core": "wgmma, mode DIRECT of conv_sm90.cuh with one bf16 operand "
+                "(rrin_conv_phase_sm90_launch), k 3/5/7",
+        "prep_ms": sum(c["prep_ms"] * c["per_flow_unet"] for c in on_core),
+        "mma_sync_same_sites_ms": sum(c["mma_sync_ms"] * c["per_flow_unet"] for c in on_core),
+        "sites": [{k: c[k] for k in ("site", "shape", "cout", "k", "plan", "max_abs_err",
+                                     "kernel_ms", "prep_ms", "mma_sync_ms", "plain_ms",
+                                     "library_ms", "bound_ms", "bound_by", "per_flow_unet")}
+                  for c in on_core],
+        "other_odd_k": {
+            "core": "mma.sync m16n8k16", "source": "rrin_tpu_torch/csrc/conv_phase.cu",
+            "sites": [{k: c[k] for k in ("site", "shape", "cout", "k", "max_abs_err",
+                                         "kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+                      for c in mma]},
+    })
+    entries = [k1]
     for name in ("warp_u8", "warp_f32", "warp_bf16"):
         timed = next(c for c in warps if c["kernel"] == name and "kernel_ms" in c)
         counts = {"warp_u8": serve_counts, "warp_f32": f32_counts}.get(name, fp32_counts)
         entries.append({
             "name": name, "route": "cuda", "source": "rrin_tpu_torch/csrc/warp.cu",
+            "core": "CUDA cores, one launch a pair",
             "replaces": TPU_KERNEL_LINES[name],
             "launches": counts[name],
             "max_abs_err": max(c["max_abs_err"] for c in warps if c["kernel"] == name),
@@ -1248,6 +1318,7 @@ def kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_
                 f"sum over the {n} launches of one flow U-Net at 1088x1920 (packed path)")
         entry["prepared_ms"] = sum(c["kernel_prepared_ms"] * c["per_flow_unet"]
                                    for c in cases if c["per_flow_unet"])
+        entry["core"] = f"wgmma, mode {SM90_MODE[name]} of conv_sm90.cuh"
         entry["int8"] = _int8_entry([c for c in int8 if c["kernel"] == name],
                                     int8_counts[f"{name}_int8"])
         check(entry["int8"]["launches"] > 0, f"{name}: no int8 launch on the int8 path")
@@ -1256,8 +1327,8 @@ def kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_
           "the closing line lists the nine TPU kernels")
     for name in ("conv_packed", "conv_pool_packed", "conv_up_packed", "conv_up_m_packed",
                  "conv_up_f_packed"):
-        # the float32 mode (K5, K6 on the Hopper core, K7-K9 on the mma.sync
-        # core), launches from serve_fp32_packed
+        # the float32 mode (K5, K6 and K9 on the Hopper core, K7 and K8 on
+        # the mma.sync core), launches from serve_fp32_packed
         cases = [c for c in packed_f32 if c["kernel"] == name]
         k6 = name == "conv_up_packed"
         where = "2160x3840 (its 4K request)" if k6 else "1088x1920"
@@ -1271,28 +1342,32 @@ def kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_
             F32_TENSOR_FLOPS, "_f32")
         entry["prepared_ms"] = sum(c["kernel_prepared_ms"] * c["per_flow_unet"]
                                    for c in cases if c["per_flow_unet"])
+        entry["core"] = (f"wgmma m64nNk8.tf32, mode {SM90_MODE[name]} of conv_sm90.cuh"
+                         if name in F32_SM90 else "mma.sync m16n8k8.tf32")
         entry["sites"] = [{k: c[k] for k in ("site", "out_shape", "cins", "k", "max_abs_err",
                                              "max_err_over_bar", "kernel_ms",
                                              "kernel_prepared_ms", "plain_ms", "library_ms",
                                              "bound_ms", "bound_by")} for c in cases]
         entries.append(entry)
-    entries.append(_prep_entry(packed, packed_f32, serve_counts, f32_counts))
+    entries.append(_prep_entry(packed, packed_f32, conv, serve_counts, f32_counts,
+                               plain_counts))
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was never launched by the path it belongs to")
     return {"kernels": entries, "not_ported": []}
 
 
-def _prep_entry(packed, packed_f32, serve_counts, f32_counts):
+def _prep_entry(packed, packed_f32, conv, serve_counts, f32_counts, plain_counts):
     """The weight prep of the Hopper core on the card: not a TPU kernel (the
     reference lays out, and for K9 folds, these weights with XLA ops in
     ``prep_conv``, ``prep_conv_up_f``, ``prep_conv_up_m`` and
     ``prep_conv_pool``); its sites as K5, K7, K8 and K9 have them in one flow
     U-Net at 1088x1920 (K6's sites are 4K ones), bytes-bound (fp32 weights
-    in, the bf16 layout out); its float32 mode (K5's sites, the two TF32
-    planes out) beside it."""
+    in, the bf16 layout out); its float32 mode (K5's and K9's sites, the two
+    TF32 planes out) and K1's launches on the plain path beside it."""
     cases = [c for c in packed
              if c["kernel"] != "conv_up_packed" and c["per_flow_unet"]]
-    f32 = [c for c in packed_f32 if c["kernel"] == "conv_packed" and c["per_flow_unet"]]
+    f32 = [c for c in packed_f32 if c["kernel"] in ("conv_packed", "conv_up_f_packed")
+           and c["per_flow_unet"]]
 
     def total(key, sites=cases):
         return sum(c[key] * c["per_flow_unet"] for c in sites)
@@ -1316,10 +1391,16 @@ def _prep_entry(packed, packed_f32, serve_counts, f32_counts):
             "max_abs_err": max(c["prep_max_abs_err"] for c in f32),
             "ms": total("prep_ms", f32), "plain_ms": total("prep_plain_ms", f32),
             "bound_ms": total("prep_bytes", f32) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "what": f"sum over the {sum(c['per_flow_unet'] for c in f32)} K5 launches of one "
-                    "flow U-Net at 1088x1920, float32 (two TF32 planes), bit-equal to "
-                    "prep_conv(dtype=float32) (and prep_conv_up at K6's sites); launches from "
-                    "serve_fp32_packed",
+            "what": f"sum over the {sum(c['per_flow_unet'] for c in f32)} K5 and K9 launches "
+                    "of one flow U-Net at 1088x1920, float32 (two TF32 planes; K9 folded "
+                    "first), bit-equal to prep_conv / prep_conv_up_f (dtype=float32) (and "
+                    "prep_conv_up at K6's sites); launches from serve_fp32_packed",
+        },
+        "plain_path": {
+            "launches": plain_counts["conv_up_prep"],
+            "ms": sum(c["prep_ms"] * c["per_flow_unet"] for c in conv if "prep_ms" in c),
+            "what": "K1's weight prep on the card (prep_conv's one-operand layout), sum over "
+                    "the 9 launches of one flow U-Net at 1088x1920; launches from serve_plain",
         },
     }
 

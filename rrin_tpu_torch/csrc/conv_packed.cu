@@ -1,20 +1,15 @@
-// The float32 modes of the fused-resample convolutions K7-K9 of the packed
-// serving path on NHWC tensors: one implicit-GEMM core on mma.sync with
-// three load prologues. They replace the Pallas kernels of
+// The float32 modes of the fused-resample convolutions K7 and K8 of the
+// packed serving path on NHWC tensors: one implicit-GEMM core on mma.sync
+// with two load prologues. They replace the Pallas kernels of
 // rrin_tpu/ops/conv_packed.py named beside each (K7 _kernel_body_pool, K8
-// _kernel_body_up_m, K9 _kernel_body_up_f) for float32 operands; their
-// bfloat16 and int8 modes, and all three element types of K5 and K6, run on
-// the wgmma core of conv_sm90.cuh.
+// _kernel_body_up_m) for float32 operands; their bfloat16 and int8 modes,
+// and all three element types of K5, K6 and K9, run on the wgmma core of
+// conv_sm90.cuh.
 //
 //   conv_pool_packed  (K7) conv(avg_pool_2x(x)): the block pools the 2x
 //                     footprint of its halo tile while loading;
 //   conv_up_m_packed  (K8) conv(upsample_2x_bilinear(x)), H interpolated
-//                     first, as upsample_2x_bilinear does;
-//   conv_up_f_packed  (K9) the same function for k = 3 with the W-upsample
-//                     folded into per-output-parity weights on the host: the
-//                     block builds only the H-interpolated rows, at half
-//                     width, and the GEMM emits two output columns per pixel
-//                     (below).
+//                     first, as upsample_2x_bilinear does.
 //
 // "3xTF32": the reference contracts float32 operands at full float32
 // precision, which a single TF32 product (10 mantissa bits) misses by three
@@ -35,7 +30,7 @@
 //     <= 64 output channels (blockIdx.z walks batch x channel blocks); warp
 //     w owns row w as two m-tiles of 16 consecutive pixels;
 //   * input channels are walked in chunks of at most 32; for each chunk the
-//     halo tile (8+ky-1) x (32+kx-1) x chunk is built in shared memory (zero
+//     halo tile (8+k-1) x (32+k-1) x chunk is built in shared memory (zero
 //     outside the image: SAME padding at the resolution the conv runs at),
 //     each pixel padded by 16 bytes so the eight pixel rows of an A fragment
 //     fall on distinct banks;
@@ -46,15 +41,6 @@
 // Redundant halo loads across channel blocks and neighbouring tiles are
 // served by the L2 cache. Ragged edges are masked at the store; nothing
 // assumes W % 32 or H % 8.
-//
-// The folded mode (K9): along W, conv3(upsample(s)) at output column 2j + r
-// is a 3-tap stencil on half-resolution columns j-1, j, j+1 with weights
-// that depend on the parity r, so the GEMM runs on (row, j) pixels with N =
-// (r, cout) and the output tensor (B, 2Hs, Ws, 2*cout) is the NHWC result
-// (B, 2Hs, 2Ws, cout) byte for byte. The stencil assumes s[-1] = s[Ws] = 0
-// where the upsample clamps; the exact difference is a product of the edge
-// pixel's values with two more weight taps (3: left, 4: right), which the
-// warps holding column 0 or Ws-1 add with a row-masked A fragment.
 //
 // Plain C entry points; each returns cudaGetLastError() after the launch,
 // runs on the given stream, allocates nothing and does not synchronise.
@@ -72,7 +58,7 @@ constexpr int THREADS = TH * 32;
 constexpr int PAD_BYTES = 16;    // padding per halo pixel
 constexpr int KK = 8;            // channels per tf32 mma step (32 bytes)
 
-enum Mode { POOL = 0, UP_M = 1, UP_F = 2 };
+enum Mode { POOL = 0, UP_M = 1 };
 
 struct ConvArgs {
   const float* x;
@@ -83,8 +69,7 @@ struct ConvArgs {
   int H, W;          // rows and columns of the GEMM's pixels
   int Hs, Ws;        // rows and columns of the stored operands
   int cout;          // channels per GEMM pixel of the output
-  int ky, kx;        // taps that slide in y and in x
-  int ntaps;         // weight taps per dy row (kx, + 2 edge taps when folded)
+  int k;             // taps in y and in x
   int cchunk, n_chunks, n_cb;
   int has_slope;
   float slope;
@@ -134,18 +119,6 @@ __device__ __forceinline__ AFrag load_a(const unsigned char* p, int pstride) {
   return f;
 }
 
-// The fragment with only rows g (keep_g) and g + 8 (keep_g8) kept.
-__device__ __forceinline__ AFrag row_masked(const AFrag& f, bool keep_g, bool keep_g8) {
-  AFrag e;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const bool keep = (i & 1) ? keep_g8 : keep_g;
-    e.r[i] = keep ? f.r[i] : 0u;
-    e.lo[i] = keep ? f.lo[i] : 0u;
-  }
-  return e;
-}
-
 // 3xTF32, the small products first, summed from zero on the tensor cores
 // and added to the accumulator with round to nearest: the tensor cores add
 // to their accumulator by truncation, which over the hundreds of k-steps of
@@ -162,8 +135,8 @@ __device__ __forceinline__ void mma_tile(float (&c)[4], const AFrag& a, const ui
 }
 
 // Eight channels of the pixel (gy, gx) that the GEMM reads, inside the image:
-// pooled 2x2; upsampled in both axes, H first (K8, the order of
-// upsample_2x_bilinear); or interpolated along H only (K9).
+// pooled 2x2, or upsampled in both axes, H first (K8, the order of
+// upsample_2x_bilinear).
 template <int MODE>
 __device__ __forceinline__ F8 construct8(const float* xb, int cs, int Hs, int Ws, int gy,
                                          int gx, int c) {
@@ -173,12 +146,8 @@ __device__ __forceinline__ F8 construct8(const float* xb, int cs, int Hs, int Ws
                   t(2 * gy + 1, 2 * gx + 1));
   } else {
     const int yn = gy >> 1, yf = far_tap(gy, Hs);
-    if constexpr (MODE == UP_F) {
-      return lerp8(t(yf, gx), t(yn, gx));
-    } else {
-      const int xn = gx >> 1, xf = far_tap(gx, Ws);
-      return lerp8(lerp8(t(yf, xf), t(yn, xf)), lerp8(t(yf, xn), t(yn, xn)));
-    }
+    const int xn = gx >> 1, xf = far_tap(gx, Ws);
+    return lerp8(lerp8(t(yf, xf), t(yn, xf)), lerp8(t(yf, xn), t(yn, xn)));
   }
 }
 
@@ -189,15 +158,14 @@ template <int NT, int MODE>
 __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs a) {
   constexpr int ES = 4;                 // bytes per staged element
   extern __shared__ __align__(16) unsigned char smem[];
-  const int hpy = (a.ky - 1) / 2;
-  const int hpx = (a.kx - 1) / 2;
-  const int hw = TW + a.kx - 1;              // halo tile columns
-  const int hh = TH + a.ky - 1;              // halo tile rows
+  const int hp = (a.k - 1) / 2;
+  const int hw = TW + a.k - 1;               // halo tile columns
+  const int hh = TH + a.k - 1;               // halo tile rows
   const int cchunk = a.cchunk;
   const int pstride = cchunk * ES + PAD_BYTES;  // bytes per halo pixel
   const int kc_count = cchunk / KK;
   const int tap_elems = kc_count * NT * 32;  // uint4 per (chunk, dy, tap)
-  const int wrow_elems = a.ntaps * tap_elems;
+  const int wrow_elems = a.k * tap_elems;
   unsigned char* halo = smem;
   uint4* wrow = reinterpret_cast<uint4*>(smem + static_cast<size_t>(hh) * hw * pstride);
   const uint4* wfrag = static_cast<const uint4*>(a.wfrag);
@@ -229,8 +197,8 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
     for (int i = tid; i < hh * hw * v_per_pix; i += THREADS) {
       const int v = i % v_per_pix;
       const int pix = i / v_per_pix;
-      const int gy = y0 + pix / hw - hpy;
-      const int gx = x0 + pix % hw - hpx;
+      const int gy = y0 + pix / hw - hp;
+      const int gx = x0 + pix % hw - hp;
       const int c = c_base + v * 8;
       const bool inside = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && c < a.c;
       F8 val = {};
@@ -238,15 +206,15 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
       store8_f32(halo + pix * pstride + v * 8 * ES, val);
     }
 
-    for (int dy = 0; dy < a.ky; ++dy) {
+    for (int dy = 0; dy < a.k; ++dy) {
       __syncthreads();  // halo tile written; previous weight row consumed
       const uint4* wsrc =
-          wfrag + (static_cast<size_t>(cb * a.n_chunks + gch) * a.ky + dy) * wrow_elems;
+          wfrag + (static_cast<size_t>(cb * a.n_chunks + gch) * a.k + dy) * wrow_elems;
       for (int i = tid; i < wrow_elems; i += THREADS) wrow[i] = __ldg(wsrc + i);
       __syncthreads();
 
       const unsigned char* arow = halo + (warp + dy) * hw * pstride;
-      for (int dx = 0; dx < a.kx; ++dx) {
+      for (int dx = 0; dx < a.k; ++dx) {
         for (int kc = 0; kc < kc_count; ++kc) {
           // KK channels are 32 bytes, a register 4.
           AFrag af[2];
@@ -259,30 +227,6 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
             const uint4 bfrag = bp[nt * 32];
             mma_tile(acc[0][nt], af[0], bfrag);
             mma_tile(acc[1][nt], af[1], bfrag);
-          }
-          if constexpr (MODE == UP_F) {
-            if (dx == 1) {
-              // The centre tap's fragment holds s[row][j] itself: keep only
-              // the edge pixel's row and multiply by the edge taps. The
-              // conditions are uniform over the warp.
-#pragma unroll
-              for (int mt = 0; mt < 2; ++mt) {
-                const int xs = x0 + mt * 16;  // column of fragment row 0
-                if (xs == 0) {
-                  const AFrag e = row_masked(af[mt], g == 0, false);
-                  const uint4* ep = wrow + 3 * tap_elems + kc * NT * 32 + lane;
-#pragma unroll
-                  for (int nt = 0; nt < NT; ++nt) mma_tile(acc[mt][nt], e, ep[nt * 32]);
-                }
-                const int r = a.W - 1 - xs;  // fragment row of the last column
-                if (r >= 0 && r < 16) {
-                  const AFrag e = row_masked(af[mt], g == r, g + 8 == r);
-                  const uint4* ep = wrow + 4 * tap_elems + kc * NT * 32 + lane;
-#pragma unroll
-                  for (int nt = 0; nt < NT; ++nt) mma_tile(acc[mt][nt], e, ep[nt * 32]);
-                }
-              }
-            }
           }
         }
       }
@@ -325,10 +269,10 @@ __global__ void __launch_bounds__(THREADS, 2) conv_packed_kernel(const ConvArgs 
   }
 }
 
-long long smem_bytes(int ky, int kx, int ntaps, int cchunk, int n_tiles) {
+long long smem_bytes(int k, int cchunk, int n_tiles) {
   const long long halo =
-      static_cast<long long>(TH + ky - 1) * (TW + kx - 1) * (cchunk * 4 + PAD_BYTES);
-  const long long wrow = static_cast<long long>(ntaps) * (cchunk / KK) * n_tiles * 32 * 16;
+      static_cast<long long>(TH + k - 1) * (TW + k - 1) * (cchunk * 4 + PAD_BYTES);
+  const long long wrow = static_cast<long long>(k) * (cchunk / KK) * n_tiles * 32 * 16;
   return halo + wrow;
 }
 
@@ -348,15 +292,14 @@ int launch_mode(ConvArgs a, int B, int n_tiles, void* stream) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || a.H <= 0 || a.W <= 0) return 0;
   // The prologues load 8 channels at once.
-  if (a.ky < 1 || (a.ky & 1) == 0 || a.kx < 1 || (a.kx & 1) == 0 || a.cchunk < KK ||
-      a.cchunk % KK || a.cout < 1 || a.c < 8 || a.c % 8)
+  if (a.k < 1 || (a.k & 1) == 0 || a.cchunk < KK || a.cchunk % KK || a.cout < 1 || a.c < 8 ||
+      a.c % 8)
     return invalid;
   a.n_chunks = (a.c + a.cchunk - 1) / a.cchunk;
   a.n_cb = (a.cout + n_tiles * 8 - 1) / (n_tiles * 8);
   if (static_cast<long long>(B) * a.n_cb > 65535 || (a.H + TH - 1) / TH > 65535)
     return invalid;
-  const size_t smem =
-      static_cast<size_t>(smem_bytes(a.ky, a.kx, a.ntaps, a.cchunk, n_tiles));
+  const size_t smem = static_cast<size_t>(smem_bytes(a.k, a.cchunk, n_tiles));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_tiles) {
     case 1: return launch_one<1, MODE>(a, B, smem, s);
@@ -369,7 +312,7 @@ int launch_mode(ConvArgs a, int B, int n_tiles, void* stream) {
 
 // The arguments of an entry point: one operand x of c channels.
 ConvArgs fused_args(const void* x, int c, const void* wfrag, const void* bias, void* out,
-                    int H, int W, int Hs, int Ws, int cout, int ky, int kx, int ntaps,
+                    int H, int W, int Hs, int Ws, int cout, int k,
                     int cchunk, int has_slope, float slope) {
   ConvArgs a = {};
   a.x = static_cast<const float*>(x);
@@ -379,7 +322,7 @@ ConvArgs fused_args(const void* x, int c, const void* wfrag, const void* bias, v
   a.out = out;
   a.H = H; a.W = W; a.Hs = Hs; a.Ws = Ws;
   a.cout = cout;
-  a.ky = ky; a.kx = kx; a.ntaps = ntaps;
+  a.k = k;
   a.cchunk = cchunk;
   a.has_slope = has_slope;
   a.slope = slope;
@@ -395,8 +338,8 @@ ConvArgs fused_args(const void* x, int c, const void* wfrag, const void* bias, v
 extern "C" {
 
 // Shared memory one block needs, in bytes (also used by the Python planner).
-long long rrin_conv_packed_smem(int ky, int kx, int ntaps, int cchunk, int n_tiles) {
-  return smem_bytes(ky, kx, ntaps, cchunk, n_tiles);
+long long rrin_conv_packed_smem(int k, int cchunk, int n_tiles) {
+  return smem_bytes(k, cchunk, n_tiles);
 }
 
 // x: (B,2H,2W,c) full resolution; out: (B,H,W,cout) = conv_k(avg_pool_2x(x)).
@@ -404,8 +347,8 @@ int rrin_conv_pool_packed_f32_launch(const void* x, int c, const void* wfrag,
                                      const void* bias, void* out, int B, int H, int W,
                                      int cout, int k, int cchunk, int n_tiles, int has_slope,
                                      float slope, void* stream) {
-  return launch_mode<POOL>(fused_args(x, c, wfrag, bias, out, H, W, 2 * H, 2 * W, cout, k, k,
-                                      k, cchunk, has_slope, slope),
+  return launch_mode<POOL>(fused_args(x, c, wfrag, bias, out, H, W, 2 * H, 2 * W, cout, k,
+                                      cchunk, has_slope, slope),
                            B, n_tiles, stream);
 }
 
@@ -416,20 +359,7 @@ int rrin_conv_up_m_packed_f32_launch(const void* x, int c, const void* wfrag,
                                      int cout, int k, int cchunk, int n_tiles, int has_slope,
                                      float slope, void* stream) {
   return launch_mode<UP_M>(fused_args(x, c, wfrag, bias, out, 2 * Hs, 2 * Ws, Hs, Ws, cout, k,
-                                      k, k, cchunk, has_slope, slope),
-                           B, n_tiles, stream);
-}
-
-// x: (B,Hs,Ws,c) half resolution; out: (B,2Hs,2Ws,cout) =
-// conv_3(upsample_2x_bilinear(x)); wfrag holds the folded weights with five
-// taps per dy row and 2*cout output channels, bias is 2*cout long (see the
-// file head).
-int rrin_conv_up_f_packed_f32_launch(const void* x, int c, const void* wfrag,
-                                     const void* bias, void* out, int B, int Hs, int Ws,
-                                     int cout, int cchunk, int n_tiles, int has_slope,
-                                     float slope, void* stream) {
-  return launch_mode<UP_F>(fused_args(x, c, wfrag, bias, out, 2 * Hs, Ws, Hs, Ws, 2 * cout, 3,
-                                      3, 5, cchunk, has_slope, slope),
+                                      cchunk, has_slope, slope),
                            B, n_tiles, stream);
 }
 

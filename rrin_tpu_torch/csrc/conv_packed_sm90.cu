@@ -1,6 +1,7 @@
 // K5 and K6 of the packed serving path on Hopper (sm_90a), in bfloat16, int8
 // and float32 (3xTF32, the _f32 entry points), as the producer modes DIRECT
-// and UPW of the wgmma core in conv_sm90.cuh (its head gives the design).
+// and UPW of the wgmma core in conv_sm90.cuh (its head gives the design), and
+// K1 of the plain path as DIRECT with one bf16 operand.
 //
 //   conv_packed     replaces _kernel_body (rrin_tpu/ops/conv_packed.py,
 //                   pallas_call at :506): stride-1 SAME conv over the channel
@@ -18,6 +19,15 @@
 //                   rounds; in int8 an int8 input is dequantised (times
 //                   ax/127) before it is interpolated and the value
 //                   quantised after, as the reference's plain version does.
+//   conv_phase_sm90 replaces _phase_kernel (rrin_tpu/ops/conv_phase.py,
+//                   pallas_call at :164) for k in {3, 5, 7}: the same conv
+//                   of one bf16 operand, + float32 bias + optional LeakyReLU
+//                   on a float32 sum, rounded once to bf16, which is what K5
+//                   computes for one operand. Its sites (the plain U-Net's
+//                   convs with cout <= 64) take the pooled, upsampled or
+//                   concatenated tensor that the plain path materialises, and
+//                   the stems' cin 6/9/10/16, which DIRECT gathers. Its
+//                   weights are laid out by the prep kernel in K5's layout.
 //
 // What bounds them on an H100: operations. K5 does 988 GFLOP in the 14
 // launches of one flow U-Net at 1088x1920 (0.999 ms at 989 TFLOP/s bf16),
@@ -35,17 +45,6 @@
 // runs on the given stream, allocates nothing and does not synchronise.
 
 #include "conv_sm90.cuh"
-
-namespace {
-
-// float32: the longest promotion interval, in k-steps of 8 channels of one
-// tap (consume_f32), that chip_smoke.py's probe found to hold the float32
-// bar at d4c2 (K = 4608) and u1c2 on an H100: 0.43 of it, as at 1 k-step,
-// against 5x the bar with no promotion before the end of the tile;
-// rrin_conv_f32_promotion changes it for a measurement.
-int g_f32_promote = 9;
-
-}  // namespace
 
 // Every bf16/int8 entry point takes, beside its tensors: q (0 bfloat16, 1 int8); in
 // int8 mode in_i8 (the operand holds int8 codes), ax (device pointer to the
@@ -107,13 +106,23 @@ int rrin_conv_up_packed_f32_launch(const void* x, int c, const void* wfrag, cons
   return launch_mode<UPW>(a, B, n_tiles, F32, stream);
 }
 
-// Set the float32 promotion interval of later launches (at most k_steps
-// k-steps, as whole slabs of k; below k: every k-step); returns the one it
-// replaces.
-int rrin_conv_f32_promotion(int k_steps) {
-  const int old = g_f32_promote;
-  g_f32_promote = k_steps;
-  return old;
+// Set the float32 promotion interval of this library's later launches (at
+// most k_steps k-steps, as whole slabs of k; below k: every k-step); returns
+// the one it replaces.
+int rrin_conv_f32_promotion(int k_steps) { return set_f32_promotion(k_steps); }
+
+// K1: x (B,H,W,cs) bf16, of which the first c channels enter the conv; out
+// (B,H,W,cout) bf16; wfrag in conv_packed's layout for one operand (bf16),
+// k in {3, 5, 7}.
+int rrin_conv_phase_sm90_launch(const void* x, int c, int cs, const void* wfrag,
+                                const void* bias, void* out, int B, int H, int W, int cout,
+                                int k, int cchunk, int n_tiles, int has_slope, float slope,
+                                void* stream) {
+  UpArgs a = up_args(nullptr, 0, 0, nullptr, wfrag, bias, nullptr, out, 0, H, W, H, W, cout, k,
+                     cchunk, has_slope, slope);
+  a.n_ops = 1;
+  a.ops[0] = Operand{x, c, cs, 0, nullptr, 0};
+  return launch_mode<DIRECT>(a, B, n_tiles, BF16, stream);
 }
 
 // x: (B,Hs,Ws,c) half resolution; out: (B,2Hs,2Ws,cout) =

@@ -1,7 +1,8 @@
 // The Hopper (sm_90a) core of the packed serving path's convolutions:
 // conv(load(x)) + bias + an optional LeakyReLU on NHWC tensors, in bfloat16
-// or int8, and for K5 and K6 also in float32, on wgmma, with five producer
-// modes that differ only in how they build the halo tile of a channel chunk:
+// or int8, and for K5, K6 and K9 also in float32, on wgmma, with five
+// producer modes that differ only in how they build the halo tile of a
+// channel chunk:
 //
 //   POOL    (K7)  the 2x2 mean of the full-resolution tensor;
 //   UP      (K8)  the 2x bilinear upsample of the half-resolution tensor, H
@@ -12,10 +13,11 @@
 //                 input is dequantised first, the value quantised after);
 //   DIRECT  (K5)  the stored pixels of 1..4 operands, chunk by chunk (a chunk
 //                 never straddles two operands, so the channel concat never
-//                 exists in device memory), zero outside the image.
+//                 exists in device memory), zero outside the image; with one
+//                 bf16 operand also K1 (conv2d_fused of the plain path).
 //
 // conv_up_sm90.cu holds the entry points of POOL, UP and UPF and the weight
-// prep; conv_packed_sm90.cu those of DIRECT and UPW. Two files, built in
+// prep; conv_packed_sm90.cu those of DIRECT (K5, K1) and UPW. Two files, built in
 // parallel, because the template instantiations of all five modes in one
 // take twice as long to compile.
 //
@@ -63,17 +65,18 @@
 //   * the folded kernel's edge taps: only tiles that hold half-column 0 or
 //     Ws-1 have them, and there the producers compute the edge pixel's
 //     products with taps 3 and 4 from the halo tile they built (float32
-//     sums of bf16 products, or exact int32 sums) into shared memory; the
-//     consumers add them to the accumulators of that pixel. Both edge terms
-//     share the stencil's per-channel int8 scale.
+//     sums of bf16 products, exact int32 sums, or in float32 float32
+//     products with the weight's hi + lo, which is exact) into shared
+//     memory; the consumers add them to the accumulators of that pixel. Both
+//     edge terms share the stencil's per-channel int8 scale.
 //   * the epilogue adds the bias (int8: after the scale), applies the
 //     LeakyReLU, rounds once (bf16, or rint and a clip to the int8 grid; a
 //     float32 output is stored as it is) and stages each 64-pixel row in
 //     shared memory, from which the warpgroup stores it with 16-byte
 //     coalesced stores. Ragged edges are masked; nothing assumes W % 64,
 //     H % TH or n_out % N.
-//   * float32 (element type F32; modes DIRECT and UPW, K5 and K6): the halo
-//     tile holds float32 values as they are (a 32-byte k-step is 8
+//   * float32 (element type F32; modes DIRECT, UPW and UPF, K5, K6 and K9):
+//     the halo tile holds float32 values as they are (a 32-byte k-step is 8
 //     channels, so the ldmatrix addressing is the bf16 one and each 32-bit
 //     word of a matrix row one channel, which is the tf32 A fragment of
 //     wgmma m64nNk8); the weights arrive as two planes, hi = rna_tf32(w) and
@@ -100,7 +103,7 @@
 // rows hold five taps (three stencil taps, then the two edge taps), of which
 // only the stencil taps are copied. conv_up_prep_kernel (conv_up_sm90.cu)
 // writes the bf16 or float32 layout from the model's float32 (k, k, cin,
-// cout) weights in one launch, K9's fold included (bf16).
+// cout) weights in one launch, K9's fold included.
 //
 // Rounding points are those of the plain versions: a resampled value in
 // float32 from separately rounded products and sums, one bf16 rounding (or,
@@ -141,7 +144,7 @@ constexpr int SMEM_MAX = 232448;
 enum Mode { UP = 0, UPF = 1, POOL = 2, UPW = 3, DIRECT = 4 };
 
 // Element types of the operands: bfloat16 (float32 sums), int8 (int32 sums),
-// float32 (3xTF32, float32 sums; modes DIRECT and UPW only).
+// float32 (3xTF32, float32 sums; modes DIRECT, UPW and UPF only).
 enum Elem { BF16 = 0, I8 = 1, F32 = 2 };
 
 constexpr int MAX_OPS = 4;      // operands of one DIRECT conv
@@ -254,6 +257,21 @@ struct UpArgs {
   float slope;
   int promote;               // float32: k-steps per promotion interval (consume_f32)
 };
+
+// float32: the longest promotion interval, in k-steps of 8 channels of one
+// tap (consume_f32), that chip_smoke.py's probe found to hold the float32
+// bar at d4c2 (K = 4608) and u1c2 on an H100: 0.43 of it, as at 1 k-step,
+// against 5x the bar with no promotion before the end of the tile. Each
+// library that includes this header has its own, read by its float32 entry
+// points; its rrin_conv_f32_promotion changes it for a measurement.
+int g_f32_promote = 9;
+
+// Set this library's promotion interval; return the one it replaces.
+inline int set_f32_promotion(int k_steps) {
+  const int old = g_f32_promote;
+  g_f32_promote = k_steps;
+  return old;
+}
 
 // The chunks whose weights may stay resident: K7's and K5's, all of them,
 // where the block's tiles share one channel block; none else. (K6, K8 and
@@ -784,6 +802,45 @@ __device__ __forceinline__ void build_halo_upw_f32(const UpArgs& a, const Layout
   }
 }
 
+// The float32 halo tile of one channel chunk of K9 (UPF in float32), a
+// column at a time as build_halo_upw_f32 walks it: the column's stored rows
+// at its own half-resolution column, all loads in flight, and halo row r the
+// H-interpolation of its far and near rows, rounded in float32 as
+// upsample_2x_bilinear rounds; stored as float32.
+template <int N>
+__device__ __forceinline__ void build_halo_upf_f32(const UpArgs& a, const Layout& L,
+                                                   unsigned char* halo, const float* xb,
+                                                   const TileXY& T, int c_base, int p) {
+  constexpr int TH = NCONS * mt_of(N, F32, 3);
+  constexpr int NR = TH / 2 + 2;  // stored rows of a column (k = 3: HP = HB = 1)
+  constexpr int HH = TH + 2;      // halo rows
+  const int vpp = a.cchunk >> 3;  // a power of two <= 16
+  const int v = p % vpp;
+  const int cstep = NPROD / vpp;
+  const int c = c_base + v * 8;
+  const int sb = (T.y0 >> 1) - 1;
+  for (int hx = p / vpp; hx < TW; hx += cstep) {
+    const int gx = T.x0 - 1 + hx;
+    const bool col_in = gx >= 0 && gx < a.W && c < a.cin;
+    F8 row[NR];
+    if (col_in) {
+#pragma unroll
+      for (int j = 0; j < NR; ++j)
+        row[j] = load8_f32(xb, a.cin, a.Ws, min(max(sb + j, 0), a.Hs - 1), gx, c);
+    }
+    unsigned char* dst = halo + hx * L.pstride + v * 8 * 4;
+#pragma unroll
+    for (int r = 0; r < HH; ++r) {
+      const int jn = 1 + ((r - 1) >> 1);
+      const int jf = jn + (((r - 1) & 1) ? 1 : -1);
+      const int gy = T.y0 - 1 + r;
+      F8 f = {};
+      if (col_in && gy >= 0 && gy < a.H) f = lerp8(row[jf], row[jn]);
+      store8_f32(dst + r * L.hw * L.pstride, f);
+    }
+  }
+}
+
 // The 2x2 mean of four stored pixels' eight bf16 channels in float32, as
 // avg_pool_2x sums them: ((p00 + p01) + p10) + p11, then times 1/4, each
 // step rounded.
@@ -1032,6 +1089,20 @@ __device__ __forceinline__ float dot16(const uint4 s, const uint4 w, float acc) 
   return acc;
 }
 
+// float32: 16 bytes of an edge pixel (four channels) against the hi and lo
+// TF32 planes of an edge tap; hi + lo is the float32 weight to 2^-22, and
+// exact in float32.
+__device__ __forceinline__ float dot16(const uint4 s, const uint4 hi, const uint4 lo,
+                                       float acc) {
+  const uint32_t sv[4] = {s.x, s.y, s.z, s.w}, h[4] = {hi.x, hi.y, hi.z, hi.w},
+                 l[4] = {lo.x, lo.y, lo.z, lo.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    acc = fmaf(__uint_as_float(sv[i]), __fadd_rn(__uint_as_float(h[i]), __uint_as_float(l[i])),
+               acc);
+  return acc;
+}
+
 __device__ __forceinline__ int dot16(const uint4 s, const uint4 w, int acc) {
   acc = __dp4a(static_cast<int>(s.x), static_cast<int>(w.x), acc);
   acc = __dp4a(static_cast<int>(s.y), static_cast<int>(w.y), acc);
@@ -1114,6 +1185,8 @@ __device__ __forceinline__ void produce(const UpArgs& a, const Layout& L, unsign
         const Operand o = a.ops[op];
         build_halo_direct<N, ET, K>(a, L, halo, o, T, (gch - o.chunk0) * a.cchunk, &bars[buf], p);
         continue;  // it has arrived on full[buf]
+      } else if constexpr (ET == F32 && MODE == UPF) {
+        build_halo_upf_f32<N>(a, L, halo, static_cast<const float*>(xb), T, gch * a.cchunk, p);
       } else if constexpr (ET == F32) {  // UPW
         build_halo_upw_f32<N, K>(a, L, halo, static_cast<const float*>(xb), T,
                                  gch * a.cchunk, p);
@@ -1138,19 +1211,29 @@ __device__ __forceinline__ void produce(const UpArgs& a, const Layout& L, unsign
               wchunk + (3 + s) * tap_bytes + (n >> 3) * 256 + (n & 7) * 16;
 #pragma unroll
           for (int dy = 0; dy < 3; ++dy) {
-            // 16-byte units along the chunk's channels: k-step u / 2, half u % 2
+            // 16-byte units along the chunk's channels: k-step u / 2, half u
+            // % 2 (float32: a k-step of 8 channels holds the hi plane, then
+            // the lo plane, each N * 32 bytes)
+            constexpr int XES = ET == F32 ? 4 : (Q ? 1 : 2);  // bytes of a halo element
+            constexpr int KSTEP = ET == F32 ? N * 64 : N * 32;
 #pragma unroll 1
-            for (int u = 0; u < a.cchunk * ES / 16; ++u) {
-              const uint4 wv = __ldg(reinterpret_cast<const uint4*>(
-                  wtap + static_cast<size_t>(dy) * a.ntaps * tap_bytes + (u >> 1) * (N * 32) +
-                  (u & 1) * 128));
+            for (int u = 0; u < a.cchunk * XES / 16; ++u) {
+              const unsigned char* wp =
+                  wtap + static_cast<size_t>(dy) * a.ntaps * tap_bytes + (u >> 1) * KSTEP +
+                  (u & 1) * 128;
+              const uint4 wv = __ldg(reinterpret_cast<const uint4*>(wp));
+              uint4 wlo = make_uint4(0u, 0u, 0u, 0u);
+              if constexpr (ET == F32) wlo = __ldg(reinterpret_cast<const uint4*>(wp + N * 32));
 #pragma unroll
               for (int e = 0; e < EPT; ++e) {
                 const int o = p + NPROD * e;
                 if (o >= TH * N) continue;
                 const uint4 sv = *reinterpret_cast<const uint4*>(
                     halo + ((o / N + dy) * L.hw + hx0) * L.pstride + u * 16);
-                esum[s][e] = dot16(sv, wv, esum[s][e]);
+                if constexpr (ET == F32)
+                  esum[s][e] = dot16(sv, wv, wlo, esum[s][e]);
+                else
+                  esum[s][e] = dot16(sv, wv, esum[s][e]);
               }
             }
           }
@@ -1498,7 +1581,7 @@ __device__ __forceinline__ void consume_f32(const UpArgs& a, const Layout& L,
   const int promote = a.promote / K;  // whole slabs of at most a.promote k-steps
   const bool each = promote <= 0;
   const int slabs = a.n_chunks * K * ks_n;  // of one tile
-  uint32_t cnt = 0;
+  uint32_t cnt = 0, ecnt = 0;
   int bs_cb = -1;
   float acc[MT][NR], P[MT][NR];
   uint32_t A[4][2][4];
@@ -1563,8 +1646,18 @@ __device__ __forceinline__ void consume_f32(const UpArgs& a, const Layout& L,
       __syncwarp();
       if (lane == 0) mbar_arrive(&bars[3 + buf]);
     }
-    epilogue<N, MODE, F32>(a, T, acc, bs, static_cast<const float*>(nullptr), stage, false,
-                           false, has_slope, slope, wg, warp, lane);
+    // K9: the edge sums of the tile's half-columns 0 and Ws-1, as consume
+    const bool side0 = MODE == UPF && T.x0 == 0;
+    const bool side1 = MODE == UPF && a.W - 1 < T.x0 + a.tw;
+    const float* edge =
+        reinterpret_cast<const float*>(smem + L.edge_off) + (ecnt & 1) * 2 * NCONS * MT * N;
+    epilogue<N, MODE, F32>(a, T, acc, bs, edge, stage, side0, side1, has_slope, slope, wg, warp,
+                           lane);
+    if (side0 || side1) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bars[6 + (ecnt & 1)]);
+      ++ecnt;
+    }
   }
 }
 
@@ -1637,7 +1730,7 @@ int launch_n(const UpArgs& a, int B, int n_tiles, cudaStream_t s) {
 }
 
 // The kernel sizes each mode is built for: K7 and K8 k in {3, 5}, K9 k = 3,
-// K6 k in {1, 3, 5}, K5 k in {3, 5, 7}; float32 only K5 and K6.
+// K6 k in {1, 3, 5}, K5 (and K1) k in {3, 5, 7}; float32 only K5, K6 and K9.
 constexpr bool built_for(int mode, int k) {
   return mode == UPF      ? k == 3
          : mode == UPW    ? (k == 1 || k == 3 || k == 5)
@@ -1664,7 +1757,7 @@ int launch_k(const UpArgs& a, int B, int n_tiles, cudaStream_t s) {
   return kInvalid;
 }
 
-// et: the element type (Elem); float32 (modes DIRECT and UPW) takes no
+// et: the element type (Elem); float32 (modes DIRECT, UPW and UPF) takes no
 // int8 arguments and a.promote.
 template <int MODE>
 int launch_mode(UpArgs a, int B, int n_tiles, int et, void* stream) {
@@ -1692,7 +1785,8 @@ int launch_mode(UpArgs a, int B, int n_tiles, int et, void* stream) {
   a.n_cb = (a.n_out + n_tiles * 8 - 1) / (n_tiles * 8);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (et == F32) {
-    if constexpr (MODE == DIRECT || MODE == UPW) return launch_k<MODE, F32>(a, B, n_tiles, s);
+    if constexpr (MODE == DIRECT || MODE == UPW || MODE == UPF)
+      return launch_k<MODE, F32>(a, B, n_tiles, s);
     return kInvalid;
   }
   return q ? launch_k<MODE, I8>(a, B, n_tiles, s) : launch_k<MODE, BF16>(a, B, n_tiles, s);

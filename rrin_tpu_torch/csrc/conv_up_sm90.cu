@@ -1,9 +1,9 @@
 // K7, K8 and K9 of the packed serving path on Hopper (sm_90a): the fused
 // resample+conv sites of the U-Net, conv(resample(x)) + bias + an optional
-// LeakyReLU on NHWC tensors, in bfloat16 or int8, as the producer modes
-// POOL, UP and UPF of the wgmma core in conv_sm90.cuh (its head gives the
-// design); and the weight prep of every kernel on that core (bf16, and
-// float32 for K5 and K6).
+// LeakyReLU on NHWC tensors, in bfloat16 or int8 (K9 also in float32), as
+// the producer modes POOL, UP and UPF of the wgmma core in conv_sm90.cuh (its
+// head gives the design); and the weight prep of every kernel on that core
+// (bf16, and float32 for K5, K6 and K9).
 //
 //   conv_pool_packed  replaces _kernel_body_pool (rrin_tpu/ops/conv_packed.py,
 //                     pallas_call at :1115): conv(avg_pool_2x(x)). The block
@@ -25,14 +25,18 @@
 //                     (B, 2Hs, 2Ws, cout) byte for byte. The stencil assumes
 //                     s[-1] = s[Ws] = 0 where the upsample clamps; the exact
 //                     difference is the edge pixel times two more weight taps
-//                     (3: left, 4: right), added in the epilogue.
+//                     (3: left, 4: right), added in the epilogue. In float32
+//                     (3xTF32) N = 2*cout is 128 at u3c1, above the float32
+//                     core's 64: the two channel blocks are the two output
+//                     parities, and each builds the tile's halo.
 //
 // What bounds them on an H100: operations (77 GFLOP at each of K8's and
 // K9's 1080p sites, 0.078 ms at 989 TFLOP/s bf16), with bytes close behind
 // at K9's widest site (200 MB, 0.060 ms) and ahead at K7's (d1c1: 200 MB,
 // 0.060 ms, against 53.5 GFLOP, 0.054 ms): the pool reads four stored pixels
 // for every pixel that the GEMM reads, so K7's producers move four times the
-// bytes they write.
+// bytes they write. K9 in float32 is bound by operations at 165 TFLOP/s
+// (three TF32 products per product): 0.467 ms at each of its 1080p sites.
 //
 // Plain C entry points; each returns cudaGetLastError() after the launch,
 // runs on the given stream, allocates nothing and does not synchronise.
@@ -62,7 +66,7 @@ __device__ __forceinline__ float tf32_bits(float x) {
 }
 
 // One weight of the core's layout per thread, from float32 (k, k, cin, cout)
-// weights: the conv's own (K5-K8) or folded (K9, bf16 only: the stencil taps
+// weights: the conv's own (K5-K8) or folded (K9: the stencil taps
 // summed in kx order from 0, then the edge taps, each product and sum
 // rounded in float32, as conv_packed._upf_fold computes them), zero where an
 // operand's chunk or the output channels are padding; rounded once to bf16,
@@ -198,6 +202,23 @@ int rrin_conv_up_m_packed_launch(const void* x, int c, int in_i8, const void* ax
                          B, n_tiles, q, stream);
 }
 
+// float32: x (B,Hs,Ws,c), out (B,2Hs,2Ws,cout), as conv_up_f_packed; wfrag
+// holds the folded weights in the float32 layout (two TF32 planes) for
+// n_tiles in {1, 2, 4, 8}, bias is 2*cout long.
+int rrin_conv_up_f_packed_f32_launch(const void* x, int c, const void* wfrag, const void* bias,
+                                     void* out, int B, int Hs, int Ws, int cout, int cchunk,
+                                     int n_tiles, int has_slope, float slope, void* stream) {
+  UpArgs a = up_args(x, c, 0, nullptr, wfrag, bias, nullptr, out, 0, 2 * Hs, Ws, Hs, Ws,
+                     2 * cout, 3, cchunk, has_slope, slope);
+  a.promote = g_f32_promote;
+  return launch_mode<UPF>(a, B, n_tiles, F32, stream);
+}
+
+// Set the float32 promotion interval of this library's later launches (K9;
+// conv_packed_sm90.cu has its own for K5 and K6); returns the one it
+// replaces.
+int rrin_conv_f32_promotion(int k_steps) { return set_f32_promotion(k_steps); }
+
 // x: (B,Hs,Ws,c) half resolution; out: (B,2Hs,2Ws,cout) =
 // conv_3(upsample_2x_bilinear(x)); wfrag holds the folded weights with five
 // taps per dy row and 2*cout output channels, bias (and scale) are 2*cout
@@ -215,7 +236,7 @@ int rrin_conv_up_f_packed_launch(const void* x, int c, int in_i8, const void* ax
 // w: float32 (k, k, cin, cout), contiguous, cin the sum of the n_ops
 // operands' channels cins[i] (n_ops > 1 only unfolded); out: the bf16
 // layout of conv_sm90.cuh for (cchunk, n_tiles), or with f32 its float32
-// layout (two TF32 planes; not folded), each operand's channels padded to
+// layout (two TF32 planes), each operand's channels padded to
 // whole chunks, folded (k = 3, five taps, 2*cout output channels) when
 // `folded`, and then bias_out (2*cout float32) the float32 bias (cout)
 // repeated; bias and bias_out are unused otherwise.
@@ -224,7 +245,7 @@ int rrin_conv_up_prep_launch(const void* w, const void* bias, void* out, void* b
                              int folded, int f32, void* stream) {
   const int kk = f32 ? 8 : 16;
   if (k < 1 || n_ops < 1 || n_ops > MAX_OPS || cout < 1 || cchunk < kk || cchunk % kk ||
-      n_tiles < 1 || (folded && (f32 || k != 3 || n_ops != 1 || !bias || !bias_out)))
+      n_tiles < 1 || (folded && (k != 3 || n_ops != 1 || !bias || !bias_out)))
     return kInvalid;
   Cins c = {};
   c.n = n_ops;

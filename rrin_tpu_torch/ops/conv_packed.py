@@ -28,10 +28,12 @@ producer warpgroup that builds the halo tile of the next channel chunk
 consumer warpgroups contract the current one, all of a site's output
 channels (up to 128; float32 64) in one block; its planner is
 :func:`_sm90_plan`, its weight layout :func:`_sm90_weights` (K5-K8 take the
-conv's own weights in it, K5's split per operand, K9 the folded ones). K5
-and K6 run on it in float32 too; the float32 modes of K7-K9 are
-``csrc/conv_packed.cu``, one implicit-GEMM core on ``mma.sync`` with three
-load prologues. **K6 and K8 compute one function** in NHWC. The two TPU kernels differ only in their lane geometry
+conv's own weights in it, K5's split per operand, K9 the folded ones). K5,
+K6 and K9 run on it in float32 too; the float32 modes of K7 and K8 are
+``csrc/conv_packed.cu``, one implicit-GEMM core on ``mma.sync`` with two
+load prologues. With one bfloat16 operand its K5 mode (DIRECT) is also K1,
+``conv_phase.conv2d_fused`` of the plain path (entry point
+``rrin_conv_phase_sm90_launch``). **K6 and K8 compute one function** in NHWC. The two TPU kernels differ only in their lane geometry
 (K6 doubles the lane groups P, K8 the sublane groups M at a level boundary),
 which is not carried over.
 Both entry points exist because each mirrors one reference kernel, with its
@@ -49,10 +51,11 @@ float32 sum, rounded once to bfloat16.
 
 **float32** (float32 operands on the card; entry points
 ``rrin_<kernel>_f32_launch``, launches counted under ``"<kernel>_f32"``):
-K5 and K6 on the Hopper core (``wgmma.m64nNk8.tf32``, element type F32 of
-``csrc/conv_sm90.cuh``, entry points in ``csrc/conv_packed_sm90.cu``), K7-K9
-on the ``mma.sync`` core of ``csrc/conv_packed.cu``
-(``mma.m16n8k8.tf32``); :data:`_SM90_KERNELS` says which. The reference
+K5, K6 and K9 on the Hopper core (``wgmma.m64nNk8.tf32``, element type F32
+of ``csrc/conv_sm90.cuh``, entry points in ``csrc/conv_packed_sm90.cu`` and,
+K9, ``csrc/conv_up_sm90.cu``), K7 and K8 on the ``mma.sync`` core of
+``csrc/conv_packed.cu`` (``mma.m16n8k8.tf32``); :data:`_SM90_KERNELS` says
+which. The reference
 contracts float32 at full precision; the kernels split each operand into two
 TF32 parts (``hi = rna(x)``, ``lo = rna(x - hi)``, :func:`_tf32`) and sum
 ``lo_a*hi_b + hi_a*lo_b + hi_a*hi_b`` ("3xTF32"): about 2^-22 of each
@@ -62,8 +65,8 @@ and then added to a float32 accumulator with round to nearest (every k-step
 on ``mma.sync``; on the Hopper core a promotion interval of (dx, k-step)
 slabs, ``rrin_conv_f32_promotion``). The weights are split once (a hi and a
 lo plane: :func:`_sm90_weights` with ``q=F32``, on the card by the prep
-kernel; :func:`_weight_fragments` for ``mma.sync``), the activations in the
-kernel. Prologue values stay float32; the output is float32.
+kernel, K9's after the fold; :func:`_weight_fragments` for ``mma.sync``), the
+activations in the kernel. Prologue values stay float32; the output is float32.
 
 **int8** (``in_absmax`` given, one calibrated |x| maximum per operand, from
 ``models.unet.unet_apply_stats``): activations are quantised per tensor,
@@ -101,9 +104,10 @@ Forward only. ``prepared=`` takes the result of the matching
 ``prep_*`` (built with the same absmax and ``dtype``) and skips the per-call
 weight re-layout, split and quantisation. Without it, K5-K9 in bfloat16
 lay out (and K9 folds) their weights on the card in one launch of the
-Hopper core's prep kernel (launch count ``conv_up_prep``), and so do K5 and
-K6 in float32; the ``prep_*`` functions are its plain version. int8 weights,
-and the float32 ones of K7-K9, are prepared in PyTorch on every call.
+Hopper core's prep kernel (launch count ``conv_up_prep``), and so do K5, K6
+and K9 in float32; the ``prep_*`` functions are its plain version. int8
+weights, and the float32 ones of K7 and K8, are prepared in PyTorch on every
+call.
 """
 
 from __future__ import annotations
@@ -138,8 +142,8 @@ F32 = 2
 _ELEM = {False: (2, 16, 8), True: (1, 32, 8), F32: (4, 8, 16)}
 # Channel chunks of the float32 K-loop of csrc/conv_packed.cu, largest first.
 _CHUNKS = {F32: (32, 16, 8)}
-# The Hopper core of csrc/conv_sm90.cuh (K5-K9 in bfloat16 and int8, K5 and
-# K6 in float32): pixels per block row, output channels per block (N of its
+# The Hopper core of csrc/conv_sm90.cuh (K5-K9 in bfloat16 and int8, K5, K6
+# and K9 in float32): pixels per block row, output channels per block (N of its
 # wgmma) that it is built for (float32 up to 64: its promotion sums take as
 # many registers as its accumulators), consumer warpgroups, channel chunks
 # (powers of two: its producer threads split a chunk evenly; float32 ones
@@ -149,12 +153,13 @@ _SM90_N_MAX = {False: 128, True: 128, F32: 64}
 _SM90_CHUNKS = {False: (64, 32, 16), True: (128, 64, 32), F32: (32, 16, 8)}
 # Its kernels -> (folded, resident, float32): K9's weights are folded with
 # its W-upsample; K5 and K7 keep every chunk's weights in shared memory where
-# that is what fits (the C side's resident_chunks<MODE>); K5 and K6 run on it
-# in float32 as well (the others' float32 modes are csrc/conv_packed.cu).
+# that is what fits (the C side's resident_chunks<MODE>); K5, K6 and K9 run
+# on it in float32 as well (the float32 modes of K7 and K8 are
+# csrc/conv_packed.cu).
 _SM90_KERNELS = {"conv_packed": (False, True, True), "conv_pool_packed": (False, True, False),
                  "conv_up_packed": (False, False, True),
                  "conv_up_m_packed": (False, False, False),
-                 "conv_up_f_packed": (True, False, False)}
+                 "conv_up_f_packed": (True, False, True)}
 # The source of each kernel's entry points (csrc/<name>.cu, one library
 # each); the weight prep of all five is in conv_up_sm90.
 _SM90_SOURCE = {"conv_packed": "conv_packed_sm90", "conv_up_packed": "conv_packed_sm90",
@@ -191,22 +196,19 @@ def _n_tiles(n_out: int) -> int:
     return next((n for n in (1, 2, 4, 8) if n * 8 >= n_out), 8)
 
 
-def _smem_bytes(
-    ky: int, kx: int, ntaps: int, cchunk: int, n_tiles: int, q: int = False,
-) -> int:
+def _smem_bytes(k: int, cchunk: int, n_tiles: int, q: int = False) -> int:
     es, kk, bfrag = _ELEM[q]
-    halo = (_TH + ky - 1) * (_TW + kx - 1) * (cchunk * es + _PAD_BYTES)
-    wrow = ntaps * (cchunk // kk) * n_tiles * 32 * bfrag
+    halo = (_TH + k - 1) * (_TW + k - 1) * (cchunk * es + _PAD_BYTES)
+    wrow = k * (cchunk // kk) * n_tiles * 32 * bfrag
     return halo + wrow
 
 
 def _plan(
-    ky: int, kx: int, ntaps: int, cins: Sequence[int], n_out: int, q: int = F32,
+    k: int, cins: Sequence[int], n_out: int, q: int = F32,
 ) -> Optional[Tuple[int, int, int]]:
     """(cchunk, n_tiles, n_cout_blocks) of the float32 kernel of
-    ``csrc/conv_packed.cu`` (``q`` = F32, its only element type) for this
-    site, or None. ``n_out`` is the number of channels per GEMM pixel
-    (2*cout when folded)."""
+    ``csrc/conv_packed.cu`` (K7 and K8; ``q`` = F32, its only element type)
+    for this site, or None."""
     if not cins or min(cins) < 1 or n_out < 1:
         return None
     n_tiles = _n_tiles(n_out)
@@ -215,7 +217,7 @@ def _plan(
     for cchunk in _CHUNKS[q]:
         if cchunk > cin_k:
             continue
-        if _smem_bytes(ky, kx, ntaps, cchunk, n_tiles, q) <= _SMEM_MAX:
+        if _smem_bytes(k, cchunk, n_tiles, q) <= _SMEM_MAX:
             return cchunk, n_tiles, -(-n_out // (n_tiles * 8))
     return None
 
@@ -315,13 +317,11 @@ def _sm90_plan(
 def _sm90_fits(k: int, cin: Union[int, Tuple[int, ...]], n_out: int, folded: bool,
                resident: bool = False, f32: bool = False) -> bool:
     """Whether the site has a plan on the Hopper core (bfloat16, int8; with
-    ``f32``, K5 and K6, float32 too) and, for the others' float32, on the
-    ``mma.sync`` core (five taps a row when ``folded``): the routing does not
-    depend on the dtype."""
+    ``f32``, K5, K6 and K9, float32 too) and, for K7's and K8's float32, on
+    the ``mma.sync`` core: the routing does not depend on the dtype."""
     ets = (False, True, F32) if f32 else (False, True)
     return all(_sm90_plan(k, cin, n_out, q, folded, resident) is not None
-               for q in ets) and (f32 or _plan(
-                   k, k, 5 if folded else k, _cins(cin), n_out, F32) is not None)
+               for q in ets) and (f32 or _plan(k, _cins(cin), n_out, F32) is not None)
 
 
 def supports(cins: Sequence[int], k: int, cout: int) -> bool:
@@ -502,7 +502,7 @@ def _prepared(wt, bias, cins, k, cout, plan, scale=None, out_q=False,
     """``scale`` is None for bfloat16 (``f32``: float32) weights and the
     per-channel int8 dequantisation for int8 codes ``wt``; ``layout`` lays
     the weights out for the kernel (``_sm90_weights`` for K5-K9 in bfloat16
-    and int8, K5 and K6 in float32). The layout's dtype (``wfrag``) says
+    and int8, K5, K6 and K9 in float32). The layout's dtype (``wfrag``) says
     which calls it serves."""
     cchunk, n_tiles, _ = plan
     q = scale is not None
@@ -587,7 +587,7 @@ def _prep_sm90(name, w, bias, cins, absmax, out_absmax, dtype) -> Prepared:
             return _prepared(w.float(), bias, cins, k, cout,
                              _sm90_plan(k, cins, cout, F32, resident=res),
                              layout=_sm90_weights, f32=True)
-        return _prepared(w.float(), bias, cins, k, cout, _plan(k, k, k, cins, cout, F32),
+        return _prepared(w.float(), bias, cins, k, cout, _plan(k, cins, cout, F32),
                          f32=True)
     if absmax is None:
         return _prepared(w.float(), bias, cins, k, cout,
@@ -691,15 +691,16 @@ def prep_conv_up_f(w: torch.Tensor, bias: torch.Tensor, absmax: Optional[Absmax]
     their edge taps on one per-channel grid) in the layout of the Hopper core
     (:func:`_sm90_weights`, five taps per dy row: the stencil, then the two
     edge taps), and the bias (and scale) repeated for both output parities.
-    In bfloat16 also the plain version of the core's prep kernel. For float32
-    operands (``dtype``) the folded float32 weights are split in two TF32
-    planes in the ``mma.sync`` core's layout (:func:`_weight_fragments`)."""
+    For float32 operands (``dtype``) the folded float32 weights are split in
+    two TF32 planes in the same core's float32 layout (``q=F32``). In
+    bfloat16 and float32 also the plain version of the core's prep kernel."""
     k, cout = _check_w(w, bias, w.shape[2])
     cin = w.shape[2]
     _need(supports_up_f(cin, k, cout), "conv_up_f_packed", cin, k, cout)
     if absmax is None and _is_f32(dtype):
         return _prepared(_upf_taps(w.float()), torch.cat([bias, bias]), (cin,), k, cout,
-                         _plan(3, 3, 5, (cin,), 2 * cout, F32), f32=True)
+                         _sm90_plan(3, cin, 2 * cout, F32, folded=True), layout=_sm90_weights,
+                         f32=True)
     if absmax is None:
         return _prepared(
             _upf_taps(w.float()), torch.cat([bias, bias]), (cin,), k, cout,
@@ -853,22 +854,20 @@ def _conv_up_f_q_plain(x, w, bias, slope, ax, out_absmax, out_dtype):
 
 # The float32 entry points of one input (conv_up_packed on the Hopper core,
 # K7 and K8 on mma.sync): x, c, wfrag, bias, out, B, 2 sizes, cout, k, cchunk,
-# n_tiles, has_slope, slope, stream.
+# n_tiles, has_slope, slope, stream; conv_up_f_packed's has no k.
 _F32_ONE = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_void_p]
 
 
 def _lib() -> ctypes.CDLL:
-    """``csrc/conv_packed.cu``: the float32 modes of K7-K9."""
+    """``csrc/conv_packed.cu``: the float32 modes of K7 and K8."""
     lib = _build.library("conv_packed")
     if not getattr(lib, "_rrin_typed", False):
         ci = ctypes.c_int
-        lib.rrin_conv_packed_smem.argtypes = [ci] * 5
+        lib.rrin_conv_packed_smem.argtypes = [ci] * 3
         lib.rrin_conv_packed_smem.restype = ctypes.c_longlong
         for name in ("conv_pool_packed", "conv_up_m_packed"):
             getattr(lib, f"rrin_{name}_f32_launch").argtypes = _F32_ONE
-        lib.rrin_conv_up_f_packed_f32_launch.argtypes = _F32_ONE[:5] + [ci] * 7 + _F32_ONE[-2:]
-        for name in ("conv_pool_packed", "conv_up_m_packed", "conv_up_f_packed"):
             getattr(lib, f"rrin_{name}_f32_launch").restype = ci
         lib._rrin_typed = True
     return lib
@@ -876,7 +875,7 @@ def _lib() -> ctypes.CDLL:
 
 def _lib_sm90(source: str = "conv_up_sm90") -> ctypes.CDLL:
     """A library of the Hopper core: ``csrc/conv_up_sm90.cu`` (K7-K9 and the
-    weight prep) or ``csrc/conv_packed_sm90.cu`` (K5, K6)."""
+    weight prep) or ``csrc/conv_packed_sm90.cu`` (K5, K6 and K1)."""
     lib = _build.library(source)
     if not getattr(lib, "_rrin_typed", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -889,7 +888,9 @@ def _lib_sm90(source: str = "conv_up_sm90") -> ctypes.CDLL:
             lib.rrin_conv_up_m_packed_launch.argtypes = one
             lib.rrin_conv_up_f_packed_launch.argtypes = one[:-4] + [cf, ci, vp]
             lib.rrin_conv_up_prep_launch.argtypes = [vp] * 4 + [ci, pi] + [ci] * 6 + [vp]
-            names = ("conv_pool_packed", "conv_up_m_packed", "conv_up_f_packed", "conv_up_prep")
+            lib.rrin_conv_up_f_packed_f32_launch.argtypes = _F32_ONE[:5] + [ci] * 7 + _F32_ONE[-2:]
+            names = ("conv_pool_packed", "conv_up_m_packed", "conv_up_f_packed", "conv_up_prep",
+                     "conv_up_f_packed_f32")
         else:
             lib.rrin_conv_packed_sm90_smem.argtypes = [ci] * 5
             lib.rrin_conv_packed_sm90_smem.restype = ctypes.c_longlong
@@ -899,9 +900,12 @@ def _lib_sm90(source: str = "conv_up_sm90") -> ctypes.CDLL:
             lib.rrin_conv_packed_f32_launch.argtypes = [pv, pi, pi, ci] + [vp] * 3 + [
                 ci] * 8 + [cf, vp]
             lib.rrin_conv_up_packed_f32_launch.argtypes = _F32_ONE
-            lib.rrin_conv_f32_promotion.argtypes = [ci]
-            lib.rrin_conv_f32_promotion.restype = ci
-            names = ("conv_packed", "conv_up_packed", "conv_packed_f32", "conv_up_packed_f32")
+            lib.rrin_conv_phase_sm90_launch.argtypes = [vp, ci, ci] + [vp] * 3 + [ci] * 8 + [
+                cf, vp]
+            names = ("conv_packed", "conv_up_packed", "conv_packed_f32", "conv_up_packed_f32",
+                     "conv_phase_sm90")
+        lib.rrin_conv_f32_promotion.argtypes = [ci]
+        lib.rrin_conv_f32_promotion.restype = ci
         for name in names:
             getattr(lib, f"rrin_{name}_launch").restype = ci
         lib._rrin_typed = True
@@ -974,12 +978,11 @@ def _check_cuda(
 
 
 @functools.lru_cache(maxsize=None)
-def _smem_agrees(lib, ky, kx, ntaps, plan) -> None:
+def _smem_agrees(lib, k, plan) -> None:
     """Raise unless ``rrin_conv_packed_smem`` and :func:`_smem_bytes` agree
     on the float32 kernel's tile (checked once per site)."""
     cchunk, n_tiles, _ = plan
-    if lib.rrin_conv_packed_smem(ky, kx, ntaps, cchunk, n_tiles) != _smem_bytes(
-            ky, kx, ntaps, cchunk, n_tiles, F32):
+    if lib.rrin_conv_packed_smem(k, cchunk, n_tiles) != _smem_bytes(k, cchunk, n_tiles, F32):
         raise RuntimeError("conv_packed.cu and conv_packed.py disagree on the tile")
 
 
@@ -1005,8 +1008,8 @@ def _prep_on_card(name: str, w: torch.Tensor, bias: torch.Tensor,
                   cins: Optional[Sequence[int]] = None, f32: bool = False) -> Prepared:
     """What ``prep_conv`` (operands of ``cins`` channels) / ``prep_conv_up``
     / ``prep_conv_pool`` / ``prep_conv_up_m`` / ``prep_conv_up_f`` return in
-    bfloat16 (``f32``: ``prep_conv`` / ``prep_conv_up`` with
-    ``dtype=torch.float32``), from one launch of the Hopper core's prep
+    bfloat16 (``f32``: ``prep_conv`` / ``prep_conv_up`` / ``prep_conv_up_f``
+    with ``dtype=torch.float32``), from one launch of the Hopper core's prep
     kernel: the layout of :func:`_sm90_weights` (each operand's channels
     padded to whole chunks; K9: the fold of :func:`_upf_taps` before the
     bf16 rounding; float32: the hi and the lo TF32 plane) and, folded, the
@@ -1048,13 +1051,16 @@ def _check_sm90_layout(name: str, prepared: Prepared) -> None:
 
 def _f32_promotion(k_steps: int) -> int:
     """Set the float32 promotion interval of the Hopper core's later launches
-    (``csrc/conv_packed_sm90.cu``'s ``rrin_conv_f32_promotion``): at most
+    (``rrin_conv_f32_promotion`` of both of its libraries: K5 and K6 in
+    ``csrc/conv_packed_sm90.cu``, K9 in ``csrc/conv_up_sm90.cu``): at most
     ``k_steps`` k-steps (8 channels of one tap) of an output row, as whole
     (dx, k-step) slabs of k, are summed on the tensor cores before one
     addition with round to nearest (below k: every k-step); returns the one
     it replaces. A measurement's knob: the default (9) is what the float32
     bar allows."""
-    return _lib_sm90("conv_packed_sm90").rrin_conv_f32_promotion(k_steps)
+    old = [_lib_sm90(source).rrin_conv_f32_promotion(k_steps)
+           for source in ("conv_packed_sm90", "conv_up_sm90")]
+    return old[0]
 
 
 def _slope_args(slope: Optional[float]) -> Tuple[int, float]:
@@ -1178,8 +1184,8 @@ def _fused(name: str, x, w, bias, slope, prepared, in_absmax, out_absmax,
     f32 = x.dtype == torch.float32
     et = F32 if f32 else q
     folded, _, f32_sm90 = _SM90_KERNELS[name]
-    # bfloat16 and int8 run on the Hopper core, float32 there too (K6) or on
-    # the mma.sync core (K7-K9).
+    # bfloat16 and int8 run on the Hopper core, float32 there too (K6, K9) or
+    # on the mma.sync core (K7, K8).
     sm90 = f32_sm90 or not f32
     if prepared is None:
         if q or not sm90:
@@ -1197,7 +1203,7 @@ def _fused(name: str, x, w, bias, slope, prepared, in_absmax, out_absmax,
             raise ValueError(f"{name}: prepared['wfrag'] is not in the layout of "
                              "_weight_fragments")
         lib = _lib()
-        _smem_agrees(lib, k, k, 5 if folded else k, prepared["plan"])
+        _smem_agrees(lib, k, prepared["plan"])
     entry = f"rrin_{name}{'_f32' if f32 else ''}_launch"
     oh, ow = (h // 2, width // 2) if pool else (2 * h, 2 * width)
     out = _out_tensor(name, (b, oh, ow, cout), x.device, f32, out_absmax, out_dtype)

@@ -1,28 +1,44 @@
-"""Low-channel NHWC convolution: hand-written CUDA kernel and its wrapper.
+"""Low-channel NHWC convolution (K1): hand-written CUDA kernels and their
+wrapper.
 
 Replaces the phase-packed Pallas kernel of the JAX package
 (``ops/conv_phase.py``: ``_phase_kernel`` via ``_conv_phase_impl``, public
 ``conv2d_fused``): stride-1 SAME conv with odd k, + bias + optional LeakyReLU,
 bfloat16 inputs and weights, float32 accumulation and bias, one rounding to
-bfloat16 at the store. These are the U-Net sites with few output channels
-(stem 7x7 at 32, down/up stages at 32-64, the 2-4 channel heads), which hold
-most of the cascade's operations.
+bfloat16 at the store. These are the plain U-Net's sites with few output
+channels (stem 7x7 at 32, down/up stages at 32-64, the 2-4 channel heads),
+which hold most of the cascade's operations; the plain path is what int8
+calibration, training and every shape the packed path rejects run.
 
 What bounds it on an H100: operations, not bytes, at every site but the heads
 (the 32->32 7x7 stem does 3,136 multiply-adds for each byte pair it reads and
-writes). So the kernel feeds the tensor cores (``mma.sync`` m16n8k16) from a
-shared-memory halo tile that is read once per block and reused by all k*k
-taps and all output channels; see ``csrc/conv_phase.cu`` for the tiling. It
-drops what existed for the TPU's lanes: no packing factor, no block-Toeplitz
-weights with their redundant multiply-adds, no width or height gates. cin in
-{6, 9, 10} and cout in {2, 3, 4} are zero-padded to the MMA tile in shared
-memory and masked at the store, so those sites stay on the kernel.
+writes). Two kernels, no width or height gates, nothing of the TPU's lanes
+(no packing factor, no block-Toeplitz weights):
 
-Routing (:func:`supports`): odd k, cout <= 64 and a tile that fits shared
-memory, bfloat16 only. Everything else (float32, cout >= 128) is
-``F.conv2d``, as the JAX package leaves those sites to XLA. The plain version
-of the kernel is :func:`_conv_plain`; the wrapper takes it only for CPU
-tensors. Forward only: inputs that require grad are refused on the card.
+  * k in {3, 5, 7} (every site of the repo's configurations): the Hopper
+    core of ``csrc/conv_sm90.cuh`` in its DIRECT mode with one operand, the
+    function K5 (``conv_packed``) computes, entry point
+    ``rrin_conv_phase_sm90_launch`` of ``csrc/conv_packed_sm90.cu``: a
+    producer warpgroup copies the next channel chunks' halo tiles (``cp.async``;
+    the stems' cin 6/9/10 gathered a channel at a time) while two consumer
+    warpgroups contract the current one on ``wgmma``, persistent blocks. Its
+    weights are laid out on the card by the core's prep kernel in K5's
+    one-operand layout, one launch per call (count ``conv_up_prep``);
+  * any other odd k (1, 9, ...; ``ModelConfig.stem_kernel`` and
+    ``down_kernels`` may ask for them): the kernel of ``csrc/conv_phase.cu``,
+    ``mma.sync`` m16n8k16 from a shared-memory halo tile, its weights laid out
+    in PyTorch per call (:func:`_weight_fragments`).
+
+Both count their launches under ``conv_phase``. cin in {6, 9, 10} and cout in
+{2, 3, 4} are zero-padded to the MMA tile and masked at the store, so those
+sites stay on a kernel.
+
+Routing (:func:`supports`): odd k, cout <= 64 and a tile of the ``mma.sync``
+kernel that fits shared memory, bfloat16 only. Everything else (float32, cout >=
+128) is ``F.conv2d``, as the JAX package leaves those sites to XLA. The plain
+version of both kernels is :func:`_conv_plain`; the wrapper takes it only
+for CPU tensors, and on the card launches a kernel or raises. Forward only:
+inputs that require grad are refused on the card.
 """
 
 from __future__ import annotations
@@ -38,6 +54,9 @@ from rrin_tpu_torch import _build
 
 # Tile constants of csrc/conv_phase.cu (kept equal to the kernel's).
 _TH, _TW, _CPAD = 8, 32, 8
+# Kernel sizes that go to the Hopper core (the k its DIRECT mode is built
+# for, conv_packed._K_CONV); the other odd k take csrc/conv_phase.cu.
+SM90_K = (3, 5, 7)
 # Dynamic shared memory a block may use on sm_90 (227 KB).
 _SMEM_MAX = 232448
 MAX_COUT = 64
@@ -146,8 +165,8 @@ def _weight_fragments(
     return wp.permute(2, 0, 1, 3, 7, 8, 5, 4, 6).contiguous()
 
 
-def _conv_kernel(x, w, bias, slope, plan) -> torch.Tensor:
-    cchunk, n_chunks, n_tiles = plan
+def _check_args(x, w, bias) -> None:
+    """What both kernels ask of their tensors."""
     if w.device != x.device or bias.device != x.device:
         raise ValueError("x, w and bias must lie on one device")
     if not x.is_contiguous():
@@ -156,12 +175,56 @@ def _conv_kernel(x, w, bias, slope, plan) -> torch.Tensor:
         raise RuntimeError(
             "the conv kernel is forward-only; detach its inputs "
             "(or run under torch.no_grad())")
-    b, h, width, cin = x.shape
-    k, _, _, cout = w.shape
+    cout = w.shape[3]
     if bias.shape != (cout,):
         raise ValueError(f"bias must be ({cout},), got {tuple(bias.shape)}")
     if x.data_ptr() % 16:
         raise ValueError("the conv kernel takes a 16-byte aligned input")
+
+
+def _sm90_plan(k: int, cin: int, cout: int) -> Optional[Tuple[int, int, int]]:
+    """(cchunk, n_tiles, n_cout_blocks) of K1 on the Hopper core: K5's plan
+    for one bf16 operand, or None where k is not one it is built for."""
+    from rrin_tpu_torch.ops import conv_packed  # it imports this module
+    if k not in SM90_K:
+        return None
+    return conv_packed._sm90_plan(k, (cin,), cout, resident=True)
+
+
+def _conv_sm90(x, w, bias, slope) -> torch.Tensor:
+    """K1 on the Hopper core: the weights laid out on the card (one launch
+    of its prep kernel, K5's one-operand layout), then one launch of the
+    DIRECT mode."""
+    from rrin_tpu_torch.ops import conv_packed  # it imports this module
+    _check_args(x, w, bias)
+    b, h, width, cin = x.shape
+    k, _, _, cout = w.shape
+    plan = _sm90_plan(k, cin, cout)
+    if plan is None:
+        raise ValueError(f"K1 has no Hopper plan for k {k}, cin {cin}, cout {cout}")
+    prepared = conv_packed._prep_on_card("conv_packed", w, bias, (cin,))
+    conv_packed._sm90_smem_agrees("conv_packed", k, (cin,), plan, False)
+    lib = conv_packed._lib_sm90("conv_packed_sm90")
+    cchunk, n_tiles, _ = plan
+    out = torch.empty((b, h, width, cout), dtype=torch.bfloat16, device=x.device)
+    with torch.cuda.device(x.device):
+        _build.launch(
+            "conv_phase", lib.rrin_conv_phase_sm90_launch,
+            x.data_ptr(), cin, cin, prepared["wfrag"].data_ptr(), prepared["bias"].data_ptr(),
+            out.data_ptr(), b, h, width, cout, k, cchunk, n_tiles,
+            int(slope is not None), 0.0 if slope is None else float(slope),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    return out
+
+
+def _conv_kernel(x, w, bias, slope, plan) -> torch.Tensor:
+    """K1 on the mma.sync kernel of csrc/conv_phase.cu, for the odd k that
+    the Hopper core lacks."""
+    cchunk, n_chunks, n_tiles = plan
+    _check_args(x, w, bias)
+    b, h, width, cin = x.shape
+    k, _, _, cout = w.shape
     lib = _lib()
     if lib.rrin_conv_phase_smem(k, cchunk, n_tiles) != _smem_bytes(k, cchunk, n_tiles):
         raise RuntimeError("conv_phase.cu and conv_phase.py disagree on the tile")
@@ -186,10 +249,10 @@ def conv2d_fused(
     """conv2d(stride 1, SAME) + bias + optional LeakyReLU.
 
     x: (B, H, W, cin) NHWC; w: (kh, kw, cin, cout) HWIO; bias: (cout,).
-    A bfloat16 input at a site :func:`supports` accepts goes to the CUDA
-    kernel when it lies on the card (launch or raise) and to the plain
-    version when it lies on the CPU. float32 inputs and the other sites are
-    ``F.conv2d``.
+    A bfloat16 input at a site :func:`supports` accepts goes to a CUDA
+    kernel when it lies on the card (launch or raise): the Hopper core for k
+    in :data:`SM90_K`, else ``csrc/conv_phase.cu``; to the plain version when
+    it lies on the CPU. float32 inputs and the other sites are ``F.conv2d``.
     """
     if supports(tuple(x.shape), tuple(w.shape)) is None or x.dtype != torch.bfloat16:
         return _conv_plain(x, w, bias, slope)
@@ -197,4 +260,6 @@ def conv2d_fused(
         return _conv_plain(x, w, bias, slope)
     if x.device.type != "cuda":
         raise RuntimeError(f"no conv kernel for device {x.device}")
+    if w.shape[0] in SM90_K:
+        return _conv_sm90(x, w, bias, slope)
     return _conv_kernel(x, w, bias, slope, _plan(w.shape[0], w.shape[2], w.shape[3]))

@@ -48,8 +48,9 @@ def _sites(cfg):
 def test_float32_plans_fit_every_site():
     """Every site that the bfloat16 and int8 plans accept has a float32 plan
     that fits shared memory, so that routing does not depend on the dtype:
-    K5 and K6 on the Hopper core, K7-K9 on the mma.sync core; 1080p and 4K
-    take the packed path at every site."""
+    K5, K6 and K9 (folded, 2*cout channels a GEMM pixel) on the Hopper core,
+    K7 and K8 on the mma.sync core; 1080p and 4K take the packed path at
+    every site."""
     supports = {"conv_packed": lambda k, cins, cout: tcp.supports(cins, k, cout),
                 "conv_pool_packed": lambda k, cins, cout: tcp.supports_pool(cins[0], k, cout),
                 "conv_up_m_packed": lambda k, cins, cout: tcp.supports_up_m(cins[0], k, cout),
@@ -57,28 +58,28 @@ def test_float32_plans_fit_every_site():
                 "conv_up_packed": lambda k, cins, cout: tcp.supports_up(cins[0], k, cout)}
     for name, k, cins, cout in _sites(CFG):
         assert supports[name](k, cins, cout), (name, cins)
-        if name in ("conv_packed", "conv_up_packed"):
+        if name in ("conv_packed", "conv_up_packed", "conv_up_f_packed"):
             resident = name == "conv_packed"
-            plan = tcp._sm90_plan(k, cins, cout, tcp.F32, resident=resident)
+            folded = name == "conv_up_f_packed"
+            n_out = 2 * cout if folded else cout
+            plan = tcp._sm90_plan(k, cins, n_out, tcp.F32, folded=folded, resident=resident)
             assert plan is not None, (name, cins)
             cchunk, n_tiles, n_cb = plan
-            assert cchunk % 8 == 0 and n_cb * n_tiles * 8 >= cout and n_tiles <= 8
+            assert cchunk % 8 == 0 and n_cb * n_tiles * 8 >= n_out and n_tiles <= 8
             res = tcp._sm90_res_chunks(cins, plan, resident)
-            assert tcp._sm90_smem_bytes(k, cchunk, n_tiles, tcp.F32, False,
+            assert tcp._sm90_smem_bytes(k, cchunk, n_tiles, tcp.F32, folded,
                                         res) <= tcp._SMEM_MAX
             continue
-        folded = name == "conv_up_f_packed"
-        ntaps, n_out = (5, 2 * cout) if folded else (k, cout)
-        plan = tcp._plan(k, k, ntaps, cins, n_out, tcp.F32)
+        plan = tcp._plan(k, cins, cout, tcp.F32)
         assert plan is not None, (name, cins)
         cchunk, n_tiles, n_cb = plan
-        assert cchunk % 8 == 0 and n_cb * n_tiles * 8 >= n_out
-        assert tcp._smem_bytes(k, k, ntaps, cchunk, n_tiles, tcp.F32) <= tcp._SMEM_MAX
+        assert cchunk % 8 == 0 and n_cb * n_tiles * 8 >= cout
+        assert tcp._smem_bytes(k, cchunk, n_tiles, tcp.F32) <= tcp._SMEM_MAX
         # the halo of a float32 chunk takes the bytes of a bf16 chunk twice as
         # wide; its weights twice those (the hi and the lo plane)
-        assert tcp._smem_bytes(k, k, ntaps, cchunk, n_tiles, tcp.F32) == (
-            tcp._smem_bytes(k, k, ntaps, 2 * cchunk, n_tiles)
-            + ntaps * (cchunk // 8) * n_tiles * 32 * 8)
+        assert tcp._smem_bytes(k, cchunk, n_tiles, tcp.F32) == (
+            tcp._smem_bytes(k, 2 * cchunk, n_tiles)
+            + k * (cchunk // 8) * n_tiles * 32 * 8)
     for h, w, up in ((1088, 1920, 2), (2160, 3840, 1)):
         assert tunet.packed_supported(h, w, CFG)
         assert tunet.packed_branch_flags(h, w, CFG)[4:6] == (up, up)
@@ -114,9 +115,8 @@ def _gather_f32(frag, wt, cins, cchunk, n_tiles):
 
 @pytest.mark.parametrize("kind", ["conv", "up_f"])
 def test_float32_weight_layout(rng, kind):
-    """The two TF32 planes of a float32 prep: K5's in the Hopper core's
-    layout (read in fragment order), K9's folded taps in the mma.sync
-    core's."""
+    """The two TF32 planes of a float32 prep in the Hopper core's layout
+    (read in fragment order): K5's, and K9's folded taps."""
     if kind == "conv":
         cins, k, cout = (40, 12), 3, 70
         w = t(rng.standard_normal((k, k, sum(cins), cout)).astype(np.float32))
@@ -130,9 +130,9 @@ def test_float32_weight_layout(rng, kind):
         b = t(rng.standard_normal(cout).astype(np.float32))
         pr = tcp.prep_conv_up_f(w, b, dtype=torch.float32)
         ref = tcp._upf_taps(w)
-        plan = tcp._plan(k, k, ref.shape[1], cins, ref.shape[3], tcp.F32)
+        plan = tcp._sm90_plan(k, cins, ref.shape[3], tcp.F32, folded=True)
         assert torch.equal(pr["bias"], torch.cat([b, b]))
-        assert pr["wfrag"].is_contiguous()
+        tcp._check_sm90_layout("conv_up_f_packed", pr)
     cchunk, n_tiles, _ = pr["plan"]
     assert pr["plan"] == plan
     assert pr["wfrag"].dtype == torch.float32

@@ -1,11 +1,13 @@
-"""The host side of K5 (``conv_packed``) and K6 (``conv_up_packed``) in float32
-on the Hopper core (``csrc/conv_sm90.cuh``, element type F32, entry points in
-``csrc/conv_packed_sm90.cu``): the two TF32 weight planes that its wgmma B
-descriptor reads, located element by element through its address formula;
-the tile and shared-memory planner at every K5/K6 site of the 1080p and 4K
-cascades and of ``chip_smoke.py``; and that a float32 operand without a
+"""The host side of K5 (``conv_packed``), K6 (``conv_up_packed``) and K9
+(``conv_up_f_packed``) in float32 on the Hopper core (``csrc/conv_sm90.cuh``,
+element type F32, entry points in ``csrc/conv_packed_sm90.cu`` and, K9,
+``csrc/conv_up_sm90.cu``): the two TF32 weight planes that its wgmma B
+descriptor reads, located element by element through its address formula
+(K9: the five folded taps, both channel blocks where 2*cout exceeds 64);
+the tile and shared-memory planner at every K5/K6/K9 site of the 1080p and
+4K cascades and of ``chip_smoke.py``; and that a float32 operand without a
 kernel raises instead of falling back (to the plain version or to the
-``mma.sync`` core of ``csrc/conv_packed.cu``, which no longer holds K5/K6)."""
+``mma.sync`` core of ``csrc/conv_packed.cu``, which holds only K7 and K8)."""
 
 import numpy as np
 import pytest
@@ -35,6 +37,8 @@ LAYOUTS = [
     ("stem_cin6", "conv_packed", 7, (6,), 12),
     ("k6_k1", "conv_up_packed", 1, (24,), 12),
     ("k6_k3", "conv_up_packed", 3, (40,), 20),
+    # u3c1-like: 2*cout = 80 > 64, two channel blocks, the second half padding
+    ("k9_two_blocks", "conv_up_f_packed", 3, (24,), 40),
 ]
 
 
@@ -44,19 +48,28 @@ def test_weight_layout_read_by_the_core(rng, site):
     (plane 0) or the lo part (plane 1, one B tile later) of the weight of its
     (dy, tap, channel-in, channel-out), zero where an operand's chunk or the
     output channels are padding; indexed in fragment order, the layout holds
-    the elements of ``_weight_fragments(q=F32)``."""
+    the elements of ``_weight_fragments(q=F32)``. K9: the weights folded in
+    float32 (three stencil taps, then the two edge taps, ``_upf_taps``)
+    before the split, 2*cout channels out, the bias repeated."""
     _, kernel, k, cins, cout = site
     w = t(rng.standard_normal((k, k, sum(cins), cout)).astype(np.float32))
     b = t(rng.standard_normal(cout).astype(np.float32))
+    ref, n_out, folded = w, cout, kernel == "conv_up_f_packed"
     if kernel == "conv_packed":
         pr = tcp.prep_conv(w, b, cins, dtype=torch.float32)
+    elif folded:
+        pr = tcp.prep_conv_up_f(w, b, dtype=torch.float32)
+        ref, n_out = tcp._upf_taps(w), 2 * cout
+        assert ref.shape[1] == 5 and torch.equal(pr["bias"], torch.cat([b, b]))
+        assert pr["plan"][2] == 2  # one channel block per output parity
     else:
         pr = tcp.prep_conv_up(w, b, dtype=torch.float32)
-    assert pr["plan"] == tcp._sm90_plan(k, cins, cout, F32, resident=kernel == "conv_packed")
+    assert pr["plan"] == tcp._sm90_plan(k, cins, n_out, F32, folded=folded,
+                                        resident=kernel == "conv_packed")
     assert pr["cins"] == cins and not pr["q"] and pr["scale"] is None
-    check_sm90_layout(pr, w, k, F32, cins)
+    check_sm90_layout(pr, ref, k, F32, cins)
     cchunk, n_tiles, _ = pr["plan"]
-    frag = tcp._weight_fragments(w, cins, cchunk, n_tiles, F32)
+    frag = tcp._weight_fragments(ref, cins, cchunk, n_tiles, F32)
     assert torch.equal(pr["wfrag"], frag)
     tcp._check_sm90_layout(kernel, pr)
     with pytest.raises(ValueError, match="not in the layout of _sm90_weights"):
@@ -88,6 +101,10 @@ SITES = [
     ("u4c1_4k", "conv_up_packed", 3, (64,), 32),
     ("k6_k5", "conv_up_packed", 5, (64,), 32),
     ("k6_k1", "conv_up_packed", 1, (32,), 16),
+    # K9 (cout; 2*cout channels a GEMM pixel): u3c1 and u4c1 at 1080p, and
+    # chip_smoke.py's ragged, edge-in-tile and 4K cases at those widths
+    ("k9_u3c1", "conv_up_f_packed", 3, (128,), 64),
+    ("k9_u4c1", "conv_up_f_packed", 3, (64,), 32),
 ]
 
 
@@ -103,14 +120,17 @@ def test_planner_fits_every_site():
     or 32 are left only where N is small (u4c2, the heads)."""
     for name, kernel, k, cins, cout in SITES:
         resident = kernel == "conv_packed"
-        plan = tcp._sm90_plan(k, cins, cout, F32, resident=resident)
+        folded = kernel == "conv_up_f_packed"
+        n_out = 2 * cout if folded else cout
+        plan = tcp._sm90_plan(k, cins, n_out, F32, folded=folded, resident=resident)
         assert plan is not None, name
         cchunk, n_tiles, n_cb = plan
         assert cchunk % 8 == 0 and cchunk & (cchunk - 1) == 0, name
         assert n_tiles * 8 in tcp._SM90_N and n_tiles * 8 <= 64, name
-        assert n_tiles * 8 * n_cb >= cout > n_tiles * 8 * (n_cb - 1), name
+        assert n_tiles * 8 * n_cb >= n_out > n_tiles * 8 * (n_cb - 1), name
         res = tcp._sm90_res_chunks(cins, plan, resident)
-        assert tcp._sm90_smem_bytes(k, cchunk, n_tiles, F32, False, res) <= tcp._SMEM_MAX, name
+        assert tcp._sm90_smem_bytes(k, cchunk, n_tiles, F32, folded,
+                                    res) <= tcp._SMEM_MAX, name
         rows = sm90_rows(cins, cchunk)
         owner = np.repeat(np.arange(len(cins)), cins)
         for ch in range(len(rows) // cchunk):
@@ -118,6 +138,8 @@ def test_planner_fits_every_site():
             assert len(ops) == 1, (name, ch)
         if kernel == "conv_packed":
             assert tcp.supports(cins, k, cout), name
+        elif folded:
+            assert tcp.supports_up_f(cins[0], k, cout), name
         else:
             assert tcp.supports_up(cins[0], k, cout), name
     assert [tcp._sm90_rows(n, F32) for n in (8, 16, 32, 64)] == [8, 8, 8, 4]
@@ -127,6 +149,13 @@ def test_planner_fits_every_site():
     assert tcp._sm90_plan(3, (512,), 512, F32, resident=True) == (8, 8, 8)
     assert tcp._sm90_plan(3, (32, 32), 32, F32, resident=True) == (16, 4, 1)
     assert tcp._sm90_plan(3, (32,), 4, F32, resident=True) == (32, 1, 1)
+    # K9: N = 64 and 2 rows a consumer; u3c1's 128 folded channels are two
+    # channel blocks, one per output parity, each building the tile's halo
+    assert tcp._sm90_plan(3, (128,), 128, F32, folded=True) == (8, 8, 2)
+    assert tcp._sm90_plan(3, (64,), 64, F32, folded=True) == (8, 8, 1)
+    # the edge sums of two tiles (4 rows x 64 channels a side) beside K6's layout
+    assert tcp._sm90_smem_bytes(3, 8, 8, F32, True) == tcp._sm90_smem_bytes(
+        3, 8, 8, F32) + 2 * 2 * 4 * 64 * 4
     # float32 halo, weights (two planes) and staged row against bfloat16
     assert tcp._sm90_smem_bytes(3, 8, 4, F32) == tcp._sm90_smem_bytes(3, 16, 4) + 3 * (
         9 * 8 * 32 * 8 - 9 * 16 * 32 * 2) + 2 * 64 * 32 * 2
@@ -134,12 +163,12 @@ def test_planner_fits_every_site():
 
 def test_no_fallback_for_float32(rng, monkeypatch, tmp_path):
     """A float32 tensor on a device without a kernel raises (no plain
-    version), and without a CUDA compiler the Hopper core's library does not
-    build: its float32 weight prep and library raise, as does the mma.sync
-    library, and no launch is counted. K5 and K6 route float32 to the Hopper
-    core, K7-K9 to the mma.sync core."""
+    version), and without a CUDA compiler the Hopper core's libraries do not
+    build: its float32 weight prep (K9's fold included) and libraries raise,
+    as does the mma.sync library, and no launch is counted. K5, K6 and K9
+    route float32 to the Hopper core, K7 and K8 to the mma.sync core."""
     assert [n for n, (_, _, f32) in tcp._SM90_KERNELS.items() if f32] == [
-        "conv_packed", "conv_up_packed"]
+        "conv_packed", "conv_up_packed", "conv_up_f_packed"]
     x = t(rng.standard_normal((1, 4, 6, 16)).astype(np.float32))
     w = t(rng.standard_normal((3, 3, 16, 8)).astype(np.float32))
     b = t(rng.standard_normal(8).astype(np.float32))
@@ -148,6 +177,8 @@ def test_no_fallback_for_float32(rng, monkeypatch, tmp_path):
         tcp.conv_packed([xm[..., :8], xm[..., 8:]], wm, bm, S)
     with pytest.raises(RuntimeError, match="no conv_up_packed kernel for device meta"):
         tcp.conv_up_packed(xm, wm, bm, S)
+    with pytest.raises(RuntimeError, match="no conv_up_f_packed kernel for device meta"):
+        tcp.conv_up_f_packed(xm, wm, bm, S)
 
     def no_nvcc():
         raise RuntimeError("nvcc not found")
@@ -158,8 +189,9 @@ def test_no_fallback_for_float32(rng, monkeypatch, tmp_path):
     before = _build.launch_counts()
     for call in (lambda: tcp._prep_on_card("conv_packed", wm, bm, (8, 8), f32=True),
                  lambda: tcp._prep_on_card("conv_up_packed", wm, bm, f32=True),
+                 lambda: tcp._prep_on_card("conv_up_f_packed", wm, bm, f32=True),
                  lambda: tcp._f32_promotion(1), lambda: tcp._lib_sm90("conv_packed_sm90"),
-                 tcp._lib):
+                 lambda: tcp._lib_sm90("conv_up_sm90"), tcp._lib):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             call()
     assert _build.launch_counts() == before

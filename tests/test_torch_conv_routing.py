@@ -48,6 +48,26 @@ class TestSupports:
         assert not tcp.supports_up_m(256, 7, 128) and not tcp.supports_up_m(6, 3, 8)
         assert not tcp.supports_up_f(64, 5, 32) and not tcp.supports_up_f(10, 3, 32)
 
+    def test_supports_up_f_at_the_cascade_sites(self):
+        """K9 takes u3c1 (cin 128 -> 64) and u4c1 (64 -> 32) of the 1080p
+        cascade in every dtype, float32 now on the Hopper core as bfloat16
+        and int8 are, and the routing is the reference's: the folded kernel
+        below width 3200 (the flag 2), K6 from there on (1), 4K included;
+        K9 keeps rejecting what it rejected (k 5, cin no multiple of 8)."""
+        from rrin_tpu_torch import ModelConfig
+        from rrin_tpu_torch.models import unet as tunet
+        cfg = ModelConfig()
+        _, w2, w3, _, _ = cfg.widths
+        w1 = cfg.widths[0]
+        for cin, cout in ((w3, w2), (w2, w1)):  # u3c1, u4c1
+            assert tcp.supports_up_f(cin, 3, cout) and tcp.supports_up(cin, 3, cout)
+            for q in (False, True, tcp.F32):
+                assert tcp._sm90_plan(3, cin, 2 * cout, q, folded=True) is not None
+        for (h, w), up in (((1088, 1920), 2), ((256, 448), 2), ((64, 3184), 2),
+                           ((64, 3200), 1), ((2160, 3840), 1)):
+            assert tunet.packed_branch_flags(h, w, cfg)[4:6] == (up, up), (h, w)
+        assert not tcp.supports_up_f(64, 5, 32) and not tcp.supports_up_f(60, 3, 32)
+
     def test_plans_fit_shared_memory(self):
         """conv_packed's plans on the Hopper core, bfloat16 and int8: whole
         k-steps a chunk, channel blocks of N <= 128 that cover cout, and a
