@@ -14,11 +14,11 @@ and numpy; nothing else and no network. It builds the CUDA kernels of
                sites, K7 at the 4K d1c1 site), in bfloat16, in int8 and in
                float32, with times and bounds; K1 on the Hopper core beside
                its mma.sync kernel, which keeps the other odd k; the
-               weight-prep kernel of the Hopper core (K5-K9 in bfloat16, K5,
-               K6 and K9 in float32) bit-equal to its plain version; the
-               float32 promotion interval against its error at d4c2, u1c2
-               (K5) and u3c1 (K9); the warps through warp_one and as one
-               launch per pair
+               weight-prep kernel of the Hopper core (K5-K9 in bfloat16 and
+               float32) bit-equal to its plain version; the float32
+               promotion interval against its error at d4c2, u1c2 (K5),
+               u2c1 (K8) and u3c1 (K9); the warps through warp_one and as
+               one launch per pair
   serve        the main path: the default Interpolator (bfloat16, kernels,
                packed U-Net path, full model width) answering 1080p requests
   serve_4k     the same Interpolator answering 2160x3840 requests, whose up
@@ -30,9 +30,9 @@ and numpy; nothing else and no network. It builds the CUDA kernels of
   serve_fp32   the float32 plain path (float32 warp kernel) at 256x448 and the
                bf16-source warp
   serve_fp32_packed  the default float32 Interpolator (packed: the float32
-               modes of K5, K7, K8 and K9; K5, K6 and K9 on the Hopper core)
-               against the float32 plain path at 1080p, in turns, and one
-               float32 request at 2160x3840 (K6)
+               modes of K5, K7, K8 and K9, all on the Hopper core) against
+               the float32 plain path at 1080p, in turns, and one float32
+               request at 2160x3840 (K6)
   agreement    card (kernels) against CPU (plain versions), packed against
                plain path on the card, int8 card against int8 CPU, float32
                packed card against CPU, and the K6 route at a 4K width, on
@@ -302,15 +302,12 @@ PACKED_KERNELS = {
 }
 
 
-# The kernels on the Hopper core (csrc/conv_sm90.cuh) in bfloat16 and int8,
-# whose bf16 wrappers lay out (and fold) their weights on the card, and the
-# source of their entry points; K5, K6 and K9 run there in float32 too (and
-# lay out, K9 fold, their float32 weights on the card), K7's and K8's
-# float32 modes are csrc/conv_packed.cu.
+# The kernels on the Hopper core (csrc/conv_sm90.cuh) in bfloat16, int8 and
+# float32, whose bf16 and float32 wrappers lay out (and fold) their weights on
+# the card, and the source of their entry points.
 SM90 = {"conv_packed": "conv_packed_sm90.cu", "conv_up_packed": "conv_packed_sm90.cu",
         "conv_pool_packed": "conv_up_sm90.cu", "conv_up_m_packed": "conv_up_sm90.cu",
         "conv_up_f_packed": "conv_up_sm90.cu"}
-F32_SM90 = ("conv_packed", "conv_up_packed", "conv_up_f_packed")
 SM90_MODE = {"conv_packed": "DIRECT", "conv_up_packed": "UPW", "conv_pool_packed": "POOL",
              "conv_up_m_packed": "UP", "conv_up_f_packed": "UPF"}
 
@@ -431,7 +428,7 @@ def packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope, int8=None, f
           f"{name}: prepared= changes the result")
     out["kernel_prepared_ms"] = time_ms(
         lambda: wrapper(arg, wt, bias, slope, prepared=prep, **qkw))
-    if int8 is None and (not f32 or kernel in F32_SM90):
+    if int8 is None:
         # The weight prep that the wrapper runs on the card without
         # prepared=, against prep_* (its plain version): bit-equal (float32:
         # both TF32 planes, in the Hopper core's layout).
@@ -525,11 +522,19 @@ def packed_cases(rng, dev, f32=False):
         ("conv_up_f_packed", "u4c1_4k", H4K, W4K, (64,), 32, 3, s, 0),
     ]
     if f32:
-        # K5, K6 and K9 run on the Hopper core in float32: conv_packed.cu has
-        # no entry point of theirs any more.
-        lib = conv_packed._lib()
-        check(not any(hasattr(lib, f"rrin_{k}_f32_launch") for k in F32_SM90),
-              "conv_packed.cu still holds a float32 K5, K6 or K9")
+        # Every float32 kernel is on the Hopper core: no other source holds
+        # one, and K7's and K8's entry points are conv_up_sm90.cu's.
+        lib = conv_packed._lib_sm90("conv_up_sm90")
+        check("conv_packed" not in _build.sources()
+              and all(hasattr(lib, f"rrin_{k}_f32_launch")
+                      for k in ("conv_pool_packed", "conv_up_m_packed")),
+              "float32 K7 or K8 is not on the Hopper core")
+        # K7 where its one chunk of float32 weights stays resident in shared
+        # memory beside three halo buffers (two buffers with weights do not fit)
+        plan = conv_packed._sm90_plan(5, (8,), 64, conv_packed.F32, resident=True)
+        check(conv_packed._sm90_res_chunks((8,), plan, True) == 1,
+              f"K7 cin 8 -> 64, k 5, float32: plan {plan} keeps no weights resident")
+        specs.append(("conv_pool_packed", "resident_cin8_136x240", 136, 240, (8,), 64, 5, s, 0))
     cases = []
     for kernel, name, h, w, cins, cout, k, slope, mult in specs:
         c = packed_case(rng, dev, kernel, name, h, w, cins, cout, k, slope, f32=f32)
@@ -540,8 +545,9 @@ def packed_cases(rng, dev, f32=False):
 
 def promotion_probe(rng, dev):
     """The float32 K5 on the Hopper core at d4c2 (K = 4608, the deepest sum)
-    and u1c2 (two operands), and the float32 K9 at u3c1 (K = 1152 of folded
-    taps, the edge sums beside), for promotion intervals of 1 k-step (8
+    and u1c2 (two operands), the float32 K8 at u2c1 (K = 2304, the upsample
+    in the producers) and the float32 K9 at u3c1 (K = 1152 of folded taps,
+    the edge sums beside), for promotion intervals of 1 k-step (8
     channels of one tap), 3 (one (dx, k-step) slab at k 3), 6, 9 (a whole
     chunk of 8 channels at k 3) and the whole tile (products never leave
     the tensor cores before the end): max abs error against the plain
@@ -553,6 +559,7 @@ def promotion_probe(rng, dev):
     try:
         for name, hs, ws, cins, cout in (("d4c2", HP // 16, WP // 16, (512,), 512),
                                          ("u1c2", HP // 8, WP // 8, (256, 256), 256),
+                                         ("k8_u2c1", HP // 8, WP // 8, (256,), 128),
                                          ("k9_u3c1", HP // 4, WP // 4, (128,), 64)):
             xs = [torch.from_numpy(rng.standard_normal((1, hs, ws, c)).astype(np.float32)).to(dev)
                   for c in cins]
@@ -560,7 +567,12 @@ def promotion_probe(rng, dev):
             wt = torch.from_numpy(
                 rng.uniform(-bound, bound, (3, 3, sum(cins), cout)).astype(np.float32)).to(dev)
             bias = torch.from_numpy(rng.uniform(-bound, bound, (cout,)).astype(np.float32)).to(dev)
-            if name.startswith("k9"):
+            if name.startswith("k8"):
+                want = conv_packed._conv_up_plain(xs[0], wt, bias, s)
+                prep = conv_packed.prep_conv_up_m(wt, bias, dtype=torch.float32)
+                run = lambda: conv_packed.conv_up_m_packed(  # noqa: E731
+                    xs[0], wt, bias, s, prepared=prep)
+            elif name.startswith("k9"):
                 want = conv_packed._conv_up_plain(xs[0], wt, bias, s)
                 prep = conv_packed.prep_conv_up_f(wt, bias, dtype=torch.float32)
                 run = lambda: conv_packed.conv_up_f_packed(  # noqa: E731
@@ -782,18 +794,17 @@ INT8_4K_PER_REQUEST = {"conv_packed_int8": 52, "conv_packed": 4, "conv_pool_pack
                        "conv_up_prep": 4, **WARP_PAIR}
 PLAIN_PER_REQUEST = {"conv_phase": 36, "conv_up_prep": 36, **WARP_PAIR}
 CALIBRATION_LAUNCHES = PLAIN_PER_REQUEST
-# float32: the float32 modes of the same kernels (K5, K6 and K9 lay out, K9
-# fold, their weights on the card, one prep launch each; K7's and K8's
-# weights are laid out and split in PyTorch), the float32 warp pair; on the
-# plain path every conv is F.conv2d (K1 is bfloat16 only, as in the
+# float32: the float32 modes of the same kernels (each lays out, K9 folds,
+# its weights on the card, one prep launch a conv), the float32 warp pair;
+# on the plain path every conv is F.conv2d (K1 is bfloat16 only, as in the
 # reference).
 F32_WARP_PAIR = {"warp_f32": 1}
 FP32_PACKED_PER_REQUEST = {"conv_packed_f32": 56, "conv_pool_packed_f32": 8,
                            "conv_up_m_packed_f32": 4, "conv_up_f_packed_f32": 8,
-                           "conv_up_prep": 64, **F32_WARP_PAIR}
+                           "conv_up_prep": 76, **F32_WARP_PAIR}
 FP32_PACKED_4K_PER_REQUEST = {"conv_packed_f32": 56, "conv_pool_packed_f32": 8,
                               "conv_up_m_packed_f32": 4, "conv_up_packed_f32": 8,
-                              "conv_up_prep": 64, **F32_WARP_PAIR}
+                              "conv_up_prep": 76, **F32_WARP_PAIR}
 FP32_PLAIN_PER_REQUEST = F32_WARP_PAIR
 
 
@@ -965,7 +976,6 @@ def phase_serve_plain(params, dev):
     return counts
 
 
-_PACKED_MODES = {"0": "conv_pool_packed (K7)", "1": "conv_up_m_packed (K8)"}
 _SM90_MODES = {"0": "conv_up_m_packed (K8)", "1": "conv_up_f_packed (K9)",
                "2": "conv_pool_packed (K7)", "3": "conv_up_packed (K6)",
                "4": "conv_packed (K5)"}
@@ -975,9 +985,6 @@ def _profile_group(name: str, plain: bool = False) -> str:
     """The group of a kernel's name; on the plain path (``plain``) the Hopper
     core's bf16 DIRECT mode is K1."""
     low = name.lower()
-    packed = re.search(r"conv_packed_kernel<\s*\d+,\s*(?:\(.*?\))?(\d+)\s*>", low)
-    if packed:  # conv_packed_kernel<NT, MODE>, float32: the mode is the entry point
-        return _PACKED_MODES[packed.group(1)] + " float32"
     sm90 = re.search(
         r"conv_up_sm90_kernel<\s*\d+,\s*(?:\(.*?\))?(\d+),\s*(?:\(.*?\))?(\d+)", low)
     if sm90:  # conv_up_sm90_kernel<N, MODE, ET, K>, ET: 0 bf16, 1 int8, 2 float32
@@ -1327,23 +1334,20 @@ def kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_
           "the closing line lists the nine TPU kernels")
     for name in ("conv_packed", "conv_pool_packed", "conv_up_packed", "conv_up_m_packed",
                  "conv_up_f_packed"):
-        # the float32 mode (K5, K6 and K9 on the Hopper core, K7 and K8 on
-        # the mma.sync core), launches from serve_fp32_packed
+        # the float32 mode on the Hopper core, launches from serve_fp32_packed
         cases = [c for c in packed_f32 if c["kernel"] == name]
         k6 = name == "conv_up_packed"
         where = "2160x3840 (its 4K request)" if k6 else "1088x1920"
-        core = "wgmma" if name in F32_SM90 else "mma.sync"
         entry = _conv_entry(
-            name, "rrin_tpu_torch/csrc/" + (SM90[name] if name in F32_SM90 else "conv_packed.cu"),
+            name, "rrin_tpu_torch/csrc/" + SM90[name],
             cases, (f32_counts_4k if k6 else f32_counts)[f"{name}_f32"],
-            f"float32 mode (3xTF32 on {core}): sum over the "
+            "float32 mode (3xTF32 on wgmma): sum over the "
             f"{sum(c['per_flow_unet'] for c in cases)} launches of one flow U-Net at "
             f"{where}; launches from serve_fp32_packed; library F.conv2d float32 without TF32",
             F32_TENSOR_FLOPS, "_f32")
         entry["prepared_ms"] = sum(c["kernel_prepared_ms"] * c["per_flow_unet"]
                                    for c in cases if c["per_flow_unet"])
-        entry["core"] = (f"wgmma m64nNk8.tf32, mode {SM90_MODE[name]} of conv_sm90.cuh"
-                         if name in F32_SM90 else "mma.sync m16n8k8.tf32")
+        entry["core"] = f"wgmma m64nNk8.tf32, mode {SM90_MODE[name]} of conv_sm90.cuh"
         entry["sites"] = [{k: c[k] for k in ("site", "out_shape", "cins", "k", "max_abs_err",
                                              "max_err_over_bar", "kernel_ms",
                                              "kernel_prepared_ms", "plain_ms", "library_ms",
@@ -1362,12 +1366,12 @@ def _prep_entry(packed, packed_f32, conv, serve_counts, f32_counts, plain_counts
     ``prep_conv``, ``prep_conv_up_f``, ``prep_conv_up_m`` and
     ``prep_conv_pool``); its sites as K5, K7, K8 and K9 have them in one flow
     U-Net at 1088x1920 (K6's sites are 4K ones), bytes-bound (fp32 weights
-    in, the bf16 layout out); its float32 mode (K5's and K9's sites, the two
-    TF32 planes out) and K1's launches on the plain path beside it."""
+    in, the bf16 layout out); its float32 mode (the same sites, the two TF32
+    planes out) and K1's launches on the plain path beside it."""
     cases = [c for c in packed
              if c["kernel"] != "conv_up_packed" and c["per_flow_unet"]]
-    f32 = [c for c in packed_f32 if c["kernel"] in ("conv_packed", "conv_up_f_packed")
-           and c["per_flow_unet"]]
+    f32 = [c for c in packed_f32
+           if c["kernel"] != "conv_up_packed" and c["per_flow_unet"]]
 
     def total(key, sites=cases):
         return sum(c[key] * c["per_flow_unet"] for c in sites)
@@ -1391,10 +1395,11 @@ def _prep_entry(packed, packed_f32, conv, serve_counts, f32_counts, plain_counts
             "max_abs_err": max(c["prep_max_abs_err"] for c in f32),
             "ms": total("prep_ms", f32), "plain_ms": total("prep_plain_ms", f32),
             "bound_ms": total("prep_bytes", f32) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "what": f"sum over the {sum(c['per_flow_unet'] for c in f32)} K5 and K9 launches "
+            "what": f"sum over the {sum(c['per_flow_unet'] for c in f32)} K5, K7-K9 launches "
                     "of one flow U-Net at 1088x1920, float32 (two TF32 planes; K9 folded "
-                    "first), bit-equal to prep_conv / prep_conv_up_f (dtype=float32) (and "
-                    "prep_conv_up at K6's sites); launches from serve_fp32_packed",
+                    "first), bit-equal to prep_conv / prep_conv_pool / prep_conv_up_m / "
+                    "prep_conv_up_f (dtype=float32) (and prep_conv_up at K6's sites); "
+                    "launches from serve_fp32_packed",
         },
         "plain_path": {
             "launches": plain_counts["conv_up_prep"],

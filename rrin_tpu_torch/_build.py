@@ -33,8 +33,8 @@ NVCC_FLAGS = [
 
 # Kernel name -> launches since the last reset_launch_counts(). The packed
 # convs count their int8 launches under "<name>_int8" and their float32 ones
-# under "<name>_f32"; "conv_up_prep" is the bf16 weight prep of
-# conv_pool_packed, conv_up_m_packed and conv_up_f_packed on the card.
+# under "<name>_f32"; "conv_up_prep" is the Hopper core's weight prep on the
+# card (bf16 and float32, every packed kernel and K1).
 _PACKED = ("conv_packed", "conv_pool_packed", "conv_up_packed", "conv_up_m_packed",
            "conv_up_f_packed")
 LAUNCHES: Dict[str, int] = {

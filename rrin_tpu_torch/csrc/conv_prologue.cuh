@@ -1,10 +1,10 @@
-// The element arithmetic of the fused-resample load prologues, shared by the
-// convolution kernels of this directory (conv_packed.cu, conv_sm90.cuh):
-// eight channels of one stored pixel at a time, widened to float32 (or read
-// as float32), pooled or interpolated with every product and sum rounded
-// separately (as the plain PyTorch versions compute them, no fused
-// multiply-add), then rounded once to bfloat16, taken to the int8 grid
-// (conv_sm90.cuh's codes8), or stored as float32 as they are.
+// The element arithmetic of the fused-resample halo builders of the Hopper
+// core (conv_sm90.cuh): eight channels of one stored pixel at a time,
+// widened to float32 (or read as float32), pooled or interpolated with
+// every product and sum rounded separately (as the plain PyTorch versions
+// compute them, no fused multiply-add), then rounded once to bfloat16,
+// taken to the int8 grid (conv_sm90.cuh's codes8), or stored as float32 as
+// they are.
 
 #pragma once
 
@@ -65,6 +65,16 @@ __device__ __forceinline__ F8 avg4_8(const F8& p00, const F8& p01, const F8& p10
     r.v[i] = __fmul_rn(
         __fadd_rn(__fadd_rn(__fadd_rn(p00.v[i], p01.v[i]), p10.v[i]), p11.v[i]), 0.25f);
   return r;
+}
+
+// avg4_8's arithmetic on four channels (float32 K7's halo items).
+__device__ __forceinline__ float4 avg4_4(const float4& p00, const float4& p01,
+                                         const float4& p10, const float4& p11) {
+  auto m = [](float a, float b, float c, float d) {
+    return __fmul_rn(__fadd_rn(__fadd_rn(__fadd_rn(a, b), c), d), 0.25f);
+  };
+  return make_float4(m(p00.x, p01.x, p10.x, p11.x), m(p00.y, p01.y, p10.y, p11.y),
+                     m(p00.z, p01.z, p10.z, p11.z), m(p00.w, p01.w, p10.w, p11.w));
 }
 
 // The far tap of output position p of a 2x half-pixel bilinear upsample of n

@@ -1,8 +1,7 @@
 // The Hopper (sm_90a) core of the packed serving path's convolutions:
-// conv(load(x)) + bias + an optional LeakyReLU on NHWC tensors, in bfloat16
-// or int8, and for K5, K6 and K9 also in float32, on wgmma, with five
-// producer modes that differ only in how they build the halo tile of a
-// channel chunk:
+// conv(load(x)) + bias + an optional LeakyReLU on NHWC tensors, in bfloat16,
+// int8 or float32, on wgmma, with five producer modes that differ only in
+// how they build the halo tile of a channel chunk:
 //
 //   POOL    (K7)  the 2x2 mean of the full-resolution tensor;
 //   UP      (K8)  the 2x bilinear upsample of the half-resolution tensor, H
@@ -75,8 +74,8 @@
 //     shared memory, from which the warpgroup stores it with 16-byte
 //     coalesced stores. Ragged edges are masked; nothing assumes W % 64,
 //     H % TH or n_out % N.
-//   * float32 (element type F32; modes DIRECT, UPW and UPF, K5, K6 and K9):
-//     the halo tile holds float32 values as they are (a 32-byte k-step is 8
+//   * float32 (element type F32, every mode): the halo tile holds float32
+//     values as they are (a 32-byte k-step is 8
 //     channels, so the ldmatrix addressing is the bf16 one and each 32-bit
 //     word of a matrix row one channel, which is the tf32 A fragment of
 //     wgmma m64nNk8); the weights arrive as two planes, hi = rna_tf32(w) and
@@ -91,7 +90,16 @@
 //     round to nearest (consume_f32; a whole tile was 5x the 1e-5 bar at
 //     K = 4608 on an H100, 9 k-steps as good as 1). The two sets take MT x N registers a thread, so N <= 64
 //     and MT x N <= 128 (mt_of); halo, weights and staged row take twice
-//     (weights four times) the bf16 bytes, so chunks are thinner.
+//     (weights four times) the bf16 bytes, so chunks are thinner (8
+//     channels at every model site). Each mode has a float32 halo builder
+//     that rounds as its plain version: K7 pools item by item (four
+//     channels of a pooled value, four 16-byte loads, so that every
+//     producer thread works, where a column walk would leave half of them
+//     idle at 8-channel chunks); K6, K8 and K9 walk columns, K8 with two
+//     threads a column, streaming its stored rows through the registers
+//     (k = 5 reads eight, 128 floats). K7-K9 walk the channel blocks of a
+//     spatial tile as consecutive tiles (cb_inner), so that a halo that two
+//     blocks build is read from device memory once.
 //
 // The weights arrive in the layout the descriptor reads:
 // [channel block][chunk][dy][tap][k-step][n-tile][r][g][16 bytes], with the
@@ -144,7 +152,7 @@ constexpr int SMEM_MAX = 232448;
 enum Mode { UP = 0, UPF = 1, POOL = 2, UPW = 3, DIRECT = 4 };
 
 // Element types of the operands: bfloat16 (float32 sums), int8 (int32 sums),
-// float32 (3xTF32, float32 sums; modes DIRECT, UPW and UPF only).
+// float32 (3xTF32, float32 sums).
 enum Elem { BF16 = 0, I8 = 1, F32 = 2 };
 
 constexpr int MAX_OPS = 4;      // operands of one DIRECT conv
@@ -285,21 +293,40 @@ __host__ __device__ inline int resident_chunks(const UpArgs& a) {
 // One tile: tw columns x TH rows of GEMM pixels of batch element b, output
 // channels cb*N .. cb*N + N-1. The wgmma rows run over 64 columns, of which
 // the last k - 1 are not stored, so that the halo tile that the producers
-// build is exactly 64 columns wide.
+// build is exactly 64 columns wide. Tile t's channel block is its innermost
+// index where `inner` (cb_inner below), else the outermost but b.
 struct TileXY {
   int x0, y0, cb;
   size_t b;
 };
 
-__device__ __forceinline__ TileXY tile_of(const UpArgs& a, int t, int th) {
+__device__ __forceinline__ TileXY tile_of(const UpArgs& a, int t, int th, bool inner) {
   TileXY r;
+  if (inner) {
+    r.cb = t % a.n_cb;
+    t /= a.n_cb;
+  }
   r.x0 = (t % a.tiles_x) * a.tw;
   t /= a.tiles_x;
   r.y0 = (t % a.tiles_y) * th;
   t /= a.tiles_y;
-  r.cb = t % a.n_cb;
-  r.b = t / a.n_cb;
+  if (!inner) {
+    r.cb = t % a.n_cb;
+    t /= a.n_cb;
+  }
+  r.b = t;
   return r;
+}
+
+// Tile order: in float32 the resampling modes (K7-K9) walk the channel
+// blocks of one spatial tile as consecutive tiles, so that the blocks that
+// build the same halo tile run side by side and the second finds the input
+// in L2 (their sites' inputs exceed it: K7's d1c1 reads 267 MB twice); with
+// an even grid each block keeps one channel block. Elsewhere the channel
+// block is the outer index.
+template <int MODE, int ET>
+__host__ __device__ constexpr bool cb_inner() {
+  return ET == F32 && (MODE == POOL || MODE == UP || MODE == UPF);
 }
 
 // ------------------------------------------------------------ PTX wrappers
@@ -841,6 +868,91 @@ __device__ __forceinline__ void build_halo_upf_f32(const UpArgs& a, const Layout
   }
 }
 
+// min(jn, jf) of halo row r of an upsampling mode (build_halo): the first of
+// the two stored rows that the row reads; it grows by one every two rows.
+__host__ __device__ constexpr int up_lo_row(int r, int hp, int hb) {
+  return hb + ((r - hp) >> 1) - (((r - hp) & 1) ? 0 : 1);
+}
+
+// Halo rows R0 .. R1-1 of one column of K8's float32 halo tile (UP in
+// float32): halo row r is the H-interpolation of its far and near stored
+// rows at the column's near (x0) and at its far (x1) stored column, then the
+// W-interpolation of those two (H first, as upsample_2x_bilinear rounds and
+// column8 computes for UP), each product and sum rounded in float32; stored
+// as float32, zero where `in` is false for the column or gy is outside the
+// image. The stored rows stream through the registers, at most LIVE of them
+// (both stored columns, 16 floats a row) at once: the rows that the next
+// halo rows read are loaded while the current ones are built (k = 5 at N <=
+// 32 reads eight rows, 128 floats, beyond the producers' 136 registers).
+// Every index is compile-time (r and j are unrolled).
+template <int N, int K, int R0, int R1>
+__device__ __forceinline__ void upm_rows_f32(const UpArgs& a, const Layout& L,
+                                             unsigned char* dst, const float* xb,
+                                             const TileXY& T, int x0, int x1, int c,
+                                             bool in) {
+  constexpr int TH = NCONS * mt_of(N, F32, K);
+  constexpr int HP = (K - 1) / 2;
+  constexpr int HB = HP > 0 ? HP : 1;
+  constexpr int NR = TH / 2 + 2 * HB;  // stored rows of a column
+  constexpr int LIVE = 4;
+  const int sb = (T.y0 >> 1) - HB;
+  F8 s[NR][2];  // [stored row][near, far column]; only a window is live
+#pragma unroll
+  for (int r = R0; r < R1; ++r) {
+    // rows below up_lo_row(r) are read no more: LIVE rows from it on in flight
+    const int from =
+        r == R0 ? up_lo_row(R0, HP, HB) : min(NR, up_lo_row(r - 1, HP, HB) + LIVE);
+    const int to = min(NR, up_lo_row(r, HP, HB) + LIVE);
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      if (j >= from && j < to) {
+        const int sy = min(max(sb + j, 0), a.Hs - 1);
+        s[j][0] = load8_f32(xb, a.cin, a.Ws, sy, x0, c);
+        s[j][1] = load8_f32(xb, a.cin, a.Ws, sy, x1, c);
+      }
+    }
+    const int jn = HB + ((r - HP) >> 1);
+    const int jf = jn + (((r - HP) & 1) ? 1 : -1);
+    const int gy = T.y0 - HP + r;
+    F8 f = {};
+    if (in && gy >= 0 && gy < a.H)
+      f = lerp8(lerp8(s[jf][1], s[jn][1]), lerp8(s[jf][0], s[jn][0]));
+    store8_f32(dst + r * L.hw * L.pstride, f);
+  }
+}
+
+// The float32 halo tile of one channel chunk of K8 (UP in float32), a column
+// at a time as build_halo walks it (upm_rows_f32). At chunks of 8 channels
+// (every model site) the producers outnumber the 64 columns two to one, so
+// each column is built by two threads, one half of its rows each (a stored
+// row that both halves read is loaded twice); wider chunks give each thread
+// whole columns.
+template <int N, int K>
+__device__ __forceinline__ void build_halo_upm_f32(const UpArgs& a, const Layout& L,
+                                                   unsigned char* halo, const float* xb,
+                                                   const TileXY& T, int c_base, int p) {
+  constexpr int HP = (K - 1) / 2;
+  constexpr int HH = NCONS * mt_of(N, F32, K) + K - 1;  // halo rows, even
+  const int vpp = a.cchunk >> 3;  // a power of two <= 16
+  const bool split = vpp == 1;
+  const int v = split ? 0 : p % vpp;
+  const int cstep = split ? TW : NPROD / vpp;
+  const int c = c_base + v * 8;
+  for (int hx = split ? p % TW : p / vpp; hx < TW; hx += cstep) {
+    const int gx = T.x0 - HP + hx;
+    const bool in = gx >= 0 && gx < a.W && c < a.cin;
+    // clamped, so that every load is in bounds (and needs no branch); what
+    // lies outside the image or past cin is stored as zero
+    const int gxc = min(max(gx, 0), a.W - 1), cc = min(c, a.cin - 8);
+    const int x0 = gxc >> 1, x1 = far_tap(gxc, a.Ws);
+    unsigned char* dst = halo + hx * L.pstride + v * 8 * 4;
+    if (!split || p < TW)
+      upm_rows_f32<N, K, 0, HH / 2>(a, L, dst, xb, T, x0, x1, cc, in);
+    if (!split || p >= TW)
+      upm_rows_f32<N, K, HH / 2, HH>(a, L, dst, xb, T, x0, x1, cc, in);
+  }
+}
+
 // The 2x2 mean of four stored pixels' eight bf16 channels in float32, as
 // avg_pool_2x sums them: ((p00 + p01) + p10) + p11, then times 1/4, each
 // step rounded.
@@ -936,6 +1048,55 @@ __device__ __forceinline__ void build_halo_pool(const UpArgs& a, const Layout& L
           *reinterpret_cast<uint4*>(d) = val;
         }
       }
+    }
+  }
+}
+
+// The pooled float32 halo tile of one channel chunk (K7 in float32), item by
+// item: item i is channels 4u .. 4u+3 (u = i % upp, upp = cchunk / 4) of
+// halo pixel i / upp (row r, column hx), for i = p, + NPROD, ... below HH x
+// TW x upp, so that every producer thread works (a column walk leaves half
+// of them idle at chunks of 8 channels, and the pool reads no stored value
+// twice, so a column gains nothing). An item is pooled pixel (gy, gx) = (y0
+// - HP + r, x0 - HP + hx): avg4_4 of stored pixels (2gy + i, 2gx + j), four
+// 16-byte loads, RB items in flight. Two neighbouring threads read the two
+// halves of one 32-byte sector, so a warp's load touches 16 lines, not 32.
+// Stored as float32, zero outside the image and past cin.
+template <int N, int K>
+__device__ __forceinline__ void build_halo_pool_f32(const UpArgs& a, const Layout& L,
+                                                    unsigned char* halo, const float* xb,
+                                                    const TileXY& T, int c_base, int p) {
+  constexpr int TH = NCONS * mt_of(N, F32, K);
+  constexpr int HP = (K - 1) / 2;
+  constexpr int HH = TH + K - 1;  // halo rows
+  constexpr int RB = 2;           // items in flight
+  const int ushift = 31 - __clz(a.cchunk >> 2);  // upp, a power of two
+  const int umask = (1 << ushift) - 1;
+  const int items = (HH * TW) << ushift;
+  for (int i0 = p; i0 < items; i0 += RB * NPROD) {
+    float4 s[RB][4];
+    bool in[RB];
+#pragma unroll
+    for (int j = 0; j < RB; ++j) {
+      const int i = i0 + j * NPROD;
+      const int pix = i >> ushift;
+      const int gy = T.y0 - HP + pix / TW, gx = T.x0 - HP + pix % TW;
+      const int c = c_base + ((i & umask) << 2);
+      in[j] = i < items && gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && c < a.cin;
+      if (in[j]) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          s[j][q] = __ldg(reinterpret_cast<const float4*>(
+              xb + pix_off(a.cin, a.Ws, 2 * gy + (q >> 1), 2 * gx + (q & 1), c)));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < RB; ++j) {
+      const int i = i0 + j * NPROD;
+      if (i >= items) continue;
+      float4 f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (in[j]) f = avg4_4(s[j][0], s[j][1], s[j][2], s[j][3]);
+      *reinterpret_cast<float4*>(halo + (i >> ushift) * L.pstride + (i & umask) * 16) = f;
     }
   }
 }
@@ -1149,7 +1310,7 @@ __device__ __forceinline__ void produce(const UpArgs& a, const Layout& L, unsign
                a.wb + static_cast<size_t>(i) * a.ntaps * tap_bytes, row_bytes, &bars[8]);
   }
   for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
-    const TileXY T = tile_of(a, t, TH);
+    const TileXY T = tile_of(a, t, TH, cb_inner<MODE, ET>());
     const void* xb = static_cast<const unsigned char*>(a.x) +
                      T.b * a.Hs * a.Ws * a.cin * (ET == F32 ? 4 : (i8 ? 1 : 2));
     const unsigned char* wblock =
@@ -1185,11 +1346,16 @@ __device__ __forceinline__ void produce(const UpArgs& a, const Layout& L, unsign
         const Operand o = a.ops[op];
         build_halo_direct<N, ET, K>(a, L, halo, o, T, (gch - o.chunk0) * a.cchunk, &bars[buf], p);
         continue;  // it has arrived on full[buf]
-      } else if constexpr (ET == F32 && MODE == UPF) {
-        build_halo_upf_f32<N>(a, L, halo, static_cast<const float*>(xb), T, gch * a.cchunk, p);
-      } else if constexpr (ET == F32) {  // UPW
-        build_halo_upw_f32<N, K>(a, L, halo, static_cast<const float*>(xb), T,
-                                 gch * a.cchunk, p);
+      } else if constexpr (ET == F32) {
+        const float* xf = static_cast<const float*>(xb);
+        if constexpr (MODE == UPF)
+          build_halo_upf_f32<N>(a, L, halo, xf, T, gch * a.cchunk, p);
+        else if constexpr (MODE == UPW)
+          build_halo_upw_f32<N, K>(a, L, halo, xf, T, gch * a.cchunk, p);
+        else if constexpr (MODE == POOL)
+          build_halo_pool_f32<N, K>(a, L, halo, xf, T, gch * a.cchunk, p);
+        else
+          build_halo_upm_f32<N, K>(a, L, halo, xf, T, gch * a.cchunk, p);
       } else if constexpr (MODE == POOL) {
         if (Q && i8)
           build_halo_pool<N, Q, K, Q>(a, L, halo, xb, T, gch * a.cchunk, post, p);
@@ -1416,7 +1582,7 @@ __device__ __forceinline__ void consume(const UpArgs& a, const Layout& L, unsign
   if (wres) mbar_wait(&bars[8], 0);  // the resident weights have arrived
 
   for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
-    const TileXY T = tile_of(a, t, TH);
+    const TileXY T = tile_of(a, t, TH, false);
     if (T.cb != bs_cb) {
       named_sync(2, NCONS * 128);  // the last tile's epilogue is done with bs
       for (int i = ct; i < N; i += NCONS * 128) {
@@ -1585,11 +1751,11 @@ __device__ __forceinline__ void consume_f32(const UpArgs& a, const Layout& L,
   int bs_cb = -1;
   float acc[MT][NR], P[MT][NR];
   uint32_t A[4][2][4];
-  const bool wres = MODE == DIRECT && L.wres;
+  const bool wres = (MODE == POOL || MODE == DIRECT) && L.wres;  // as produce's
   if (wres) mbar_wait(&bars[8], 0);
 
   for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
-    const TileXY T = tile_of(a, t, NCONS * MT);
+    const TileXY T = tile_of(a, t, NCONS * MT, cb_inner<MODE, F32>());
     if (T.cb != bs_cb) {
       named_sync(2, NCONS * 128);
       for (int i = ct; i < N; i += NCONS * 128) {
@@ -1729,8 +1895,8 @@ int launch_n(const UpArgs& a, int B, int n_tiles, cudaStream_t s) {
   return kInvalid;
 }
 
-// The kernel sizes each mode is built for: K7 and K8 k in {3, 5}, K9 k = 3,
-// K6 k in {1, 3, 5}, K5 (and K1) k in {3, 5, 7}; float32 only K5, K6 and K9.
+// The kernel sizes each mode is built for, in every element type: K7 and K8
+// k in {3, 5}, K9 k = 3, K6 k in {1, 3, 5}, K5 (and K1) k in {3, 5, 7}.
 constexpr bool built_for(int mode, int k) {
   return mode == UPF      ? k == 3
          : mode == UPW    ? (k == 1 || k == 3 || k == 5)
@@ -1757,8 +1923,8 @@ int launch_k(const UpArgs& a, int B, int n_tiles, cudaStream_t s) {
   return kInvalid;
 }
 
-// et: the element type (Elem); float32 (modes DIRECT, UPW and UPF) takes no
-// int8 arguments and a.promote.
+// et: the element type (Elem); float32 takes no int8 arguments and
+// a.promote.
 template <int MODE>
 int launch_mode(UpArgs a, int B, int n_tiles, int et, void* stream) {
   if (B <= 0 || a.H <= 0 || a.W <= 0) return 0;
@@ -1784,11 +1950,7 @@ int launch_mode(UpArgs a, int B, int n_tiles, int et, void* stream) {
   a.ntaps = MODE == UPF ? 5 : a.k;
   a.n_cb = (a.n_out + n_tiles * 8 - 1) / (n_tiles * 8);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (et == F32) {
-    if constexpr (MODE == DIRECT || MODE == UPW || MODE == UPF)
-      return launch_k<MODE, F32>(a, B, n_tiles, s);
-    return kInvalid;
-  }
+  if (et == F32) return launch_k<MODE, F32>(a, B, n_tiles, s);
   return q ? launch_k<MODE, I8>(a, B, n_tiles, s) : launch_k<MODE, BF16>(a, B, n_tiles, s);
 }
 

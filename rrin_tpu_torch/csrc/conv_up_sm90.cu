@@ -1,9 +1,9 @@
 // K7, K8 and K9 of the packed serving path on Hopper (sm_90a): the fused
 // resample+conv sites of the U-Net, conv(resample(x)) + bias + an optional
-// LeakyReLU on NHWC tensors, in bfloat16 or int8 (K9 also in float32), as
-// the producer modes POOL, UP and UPF of the wgmma core in conv_sm90.cuh (its
-// head gives the design); and the weight prep of every kernel on that core
-// (bf16, and float32 for K5, K6 and K9).
+// LeakyReLU on NHWC tensors, in bfloat16, int8 or float32 (3xTF32, the _f32
+// entry points), as the producer modes POOL, UP and UPF of the wgmma core in
+// conv_sm90.cuh (its head gives the design); and the weight prep of every
+// kernel on that core (bf16 and float32).
 //
 //   conv_pool_packed  replaces _kernel_body_pool (rrin_tpu/ops/conv_packed.py,
 //                     pallas_call at :1115): conv(avg_pool_2x(x)). The block
@@ -35,8 +35,12 @@
 // at K9's widest site (200 MB, 0.060 ms) and ahead at K7's (d1c1: 200 MB,
 // 0.060 ms, against 53.5 GFLOP, 0.054 ms): the pool reads four stored pixels
 // for every pixel that the GEMM reads, so K7's producers move four times the
-// bytes they write. K9 in float32 is bound by operations at 165 TFLOP/s
-// (three TF32 products per product): 0.467 ms at each of its 1080p sites.
+// bytes they write. In float32 all three are bound by operations at 165
+// TFLOP/s (three TF32 products per product): K7 0.441 ms over its two 1080p
+// sites (d1c1 0.324, d2c1 0.117), K8 0.467 ms at u2c1, K9 0.467 ms at each
+// of its 1080p sites. Float32 K7 reads four stored float32 pixels for each
+// pooled value; at d1c1 (N = 32 in two channel blocks, each building the
+// pooled halo) that is the input twice, 534 MB, 0.16 ms at 3.35 TB/s.
 //
 // Plain C entry points; each returns cudaGetLastError() after the launch,
 // runs on the given stream, allocates nothing and does not synchronise.
@@ -160,9 +164,9 @@ __global__ void conv_up_prep_kernel(const float* __restrict__ w, const float* __
 
 }  // namespace
 
-// Every entry point takes, beside its tensors: q (0 bfloat16, 1 int8); in
-// int8 mode in_i8 (x holds int8 codes), ax (device pointer to x's float32
-// calibrated |x| maximum), scale (n_out float32, the int32 sum's
+// Every entry point without _f32 takes, beside its tensors: q (0 bfloat16,
+// 1 int8); in int8 mode in_i8 (x holds int8 codes), ax (device pointer to
+// x's float32 calibrated |x| maximum), scale (n_out float32, the int32 sum's
 // dequantisation, 127/ax_out folded in when out_i8) and out_i8 (store int8
 // instead of bf16). wfrag holds bf16 or int8 weights in the layout of
 // conv_sm90.cuh for chunks of cchunk channels and blocks of n_tiles*8 output
@@ -214,9 +218,35 @@ int rrin_conv_up_f_packed_f32_launch(const void* x, int c, const void* wfrag, co
   return launch_mode<UPF>(a, B, n_tiles, F32, stream);
 }
 
-// Set the float32 promotion interval of this library's later launches (K9;
-// conv_packed_sm90.cu has its own for K5 and K6); returns the one it
-// replaces.
+// float32: x (B,2H,2W,c) full resolution, out (B,H,W,cout) =
+// conv_k(avg_pool_2x(x)), k in {3, 5}; wfrag holds the conv's own weights in
+// the float32 layout (two TF32 planes) for n_tiles in {1, 2, 4, 8}.
+int rrin_conv_pool_packed_f32_launch(const void* x, int c, const void* wfrag,
+                                     const void* bias, void* out, int B, int H, int W,
+                                     int cout, int k, int cchunk, int n_tiles, int has_slope,
+                                     float slope, void* stream) {
+  UpArgs a = up_args(x, c, 0, nullptr, wfrag, bias, nullptr, out, 0, H, W, 2 * H, 2 * W, cout,
+                     k, cchunk, has_slope, slope);
+  a.promote = g_f32_promote;
+  return launch_mode<POOL>(a, B, n_tiles, F32, stream);
+}
+
+// float32: x (B,Hs,Ws,c) half resolution, out (B,2Hs,2Ws,cout) =
+// conv_k(upsample_2x_bilinear(x)), H interpolated first, k in {3, 5};
+// wfrag as rrin_conv_pool_packed_f32_launch's.
+int rrin_conv_up_m_packed_f32_launch(const void* x, int c, const void* wfrag,
+                                     const void* bias, void* out, int B, int Hs, int Ws,
+                                     int cout, int k, int cchunk, int n_tiles, int has_slope,
+                                     float slope, void* stream) {
+  UpArgs a = up_args(x, c, 0, nullptr, wfrag, bias, nullptr, out, 0, 2 * Hs, 2 * Ws, Hs, Ws,
+                     cout, k, cchunk, has_slope, slope);
+  a.promote = g_f32_promote;
+  return launch_mode<UP>(a, B, n_tiles, F32, stream);
+}
+
+// Set the float32 promotion interval of this library's later launches (K7,
+// K8 and K9; conv_packed_sm90.cu has its own for K5 and K6); returns the one
+// it replaces.
 int rrin_conv_f32_promotion(int k_steps) { return set_f32_promotion(k_steps); }
 
 // x: (B,Hs,Ws,c) half resolution; out: (B,2Hs,2Ws,cout) =

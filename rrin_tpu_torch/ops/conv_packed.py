@@ -20,7 +20,7 @@ Replaces five Pallas kernels of the JAX package's ``ops/conv_packed.py``:
                         weights (:func:`_upf_fold`) and the clamped-edge
                         residual added exactly.
 
-In bfloat16 and int8 all five run on one Hopper core on ``wgmma``
+In bfloat16, int8 and float32 all five run on one Hopper core on ``wgmma``
 (``csrc/conv_sm90.cuh``; entry points of K5 and K6 in
 ``csrc/conv_packed_sm90.cu``, of K7-K9 in ``csrc/conv_up_sm90.cu``) with a
 producer warpgroup that builds the halo tile of the next channel chunk
@@ -28,10 +28,8 @@ producer warpgroup that builds the halo tile of the next channel chunk
 consumer warpgroups contract the current one, all of a site's output
 channels (up to 128; float32 64) in one block; its planner is
 :func:`_sm90_plan`, its weight layout :func:`_sm90_weights` (K5-K8 take the
-conv's own weights in it, K5's split per operand, K9 the folded ones). K5,
-K6 and K9 run on it in float32 too; the float32 modes of K7 and K8 are
-``csrc/conv_packed.cu``, one implicit-GEMM core on ``mma.sync`` with two
-load prologues. With one bfloat16 operand its K5 mode (DIRECT) is also K1,
+conv's own weights in it, K5's split per operand, K9 the folded ones). With
+one bfloat16 operand its K5 mode (DIRECT) is also K1,
 ``conv_phase.conv2d_fused`` of the plain path (entry point
 ``rrin_conv_phase_sm90_launch``). **K6 and K8 compute one function** in NHWC. The two TPU kernels differ only in their lane geometry
 (K6 doubles the lane groups P, K8 the sublane groups M at a level boundary),
@@ -51,22 +49,18 @@ float32 sum, rounded once to bfloat16.
 
 **float32** (float32 operands on the card; entry points
 ``rrin_<kernel>_f32_launch``, launches counted under ``"<kernel>_f32"``):
-K5, K6 and K9 on the Hopper core (``wgmma.m64nNk8.tf32``, element type F32
-of ``csrc/conv_sm90.cuh``, entry points in ``csrc/conv_packed_sm90.cu`` and,
-K9, ``csrc/conv_up_sm90.cu``), K7 and K8 on the ``mma.sync`` core of
-``csrc/conv_packed.cu`` (``mma.m16n8k8.tf32``); :data:`_SM90_KERNELS` says
-which. The reference
-contracts float32 at full precision; the kernels split each operand into two
-TF32 parts (``hi = rna(x)``, ``lo = rna(x - hi)``, :func:`_tf32`) and sum
-``lo_a*hi_b + hi_a*lo_b + hi_a*hi_b`` ("3xTF32"): about 2^-22 of each
-product is lost, against 2^-11 for one TF32 product. The tensor cores add
-by truncation, so the products are summed there only over a short interval
-and then added to a float32 accumulator with round to nearest (every k-step
-on ``mma.sync``; on the Hopper core a promotion interval of (dx, k-step)
-slabs, ``rrin_conv_f32_promotion``). The weights are split once (a hi and a
-lo plane: :func:`_sm90_weights` with ``q=F32``, on the card by the prep
-kernel, K9's after the fold; :func:`_weight_fragments` for ``mma.sync``), the
-activations in the kernel. Prologue values stay float32; the output is float32.
+all five on the Hopper core (``wgmma.m64nNk8.tf32``, element type F32 of
+``csrc/conv_sm90.cuh``). The reference contracts float32 at full precision;
+the kernels split each operand into two TF32 parts (``hi = rna(x)``, ``lo =
+rna(x - hi)``, :func:`_tf32`) and sum ``lo_a*hi_b + hi_a*lo_b + hi_a*hi_b``
+("3xTF32"): about 2^-22 of each product is lost, against 2^-11 for one TF32
+product. The tensor cores add by truncation, so the products are summed
+there only over a promotion interval of (dx, k-step) slabs
+(``rrin_conv_f32_promotion``) and then added to a float32 accumulator with
+round to nearest. The weights are split once (a hi and a lo plane:
+:func:`_sm90_weights` with ``q=F32``, on the card by the prep kernel, K9's
+after the fold), the activations in the kernel. Pooled and upsampled values
+stay float32; the output is float32.
 
 **int8** (``in_absmax`` given, one calibrated |x| maximum per operand, from
 ``models.unet.unet_apply_stats``): activations are quantised per tensor,
@@ -103,11 +97,10 @@ or raises; it takes the plain version beside it only for a CPU tensor.
 Forward only. ``prepared=`` takes the result of the matching
 ``prep_*`` (built with the same absmax and ``dtype``) and skips the per-call
 weight re-layout, split and quantisation. Without it, K5-K9 in bfloat16
-lay out (and K9 folds) their weights on the card in one launch of the
-Hopper core's prep kernel (launch count ``conv_up_prep``), and so do K5, K6
-and K9 in float32; the ``prep_*`` functions are its plain version. int8
-weights, and the float32 ones of K7 and K8, are prepared in PyTorch on every
-call.
+and float32 lay out (and K9 folds) their weights on the card in one launch
+of the Hopper core's prep kernel (launch count ``conv_up_prep``); the
+``prep_*`` functions are its plain version. int8 weights are prepared in
+PyTorch on every call.
 """
 
 from __future__ import annotations
@@ -127,9 +120,9 @@ from rrin_tpu_torch.ops.resize import (
     upsample_2x_bilinear,
 )
 
-# Tile constants of csrc/conv_packed.cu (kept equal to the kernel's); the
-# operands of one conv_packed call.
-_TH, _TW, _PAD_BYTES, MAX_OPS = 8, 32, 16, 4
+# The Hopper core's padding per halo pixel and per staged row (conv_sm90.cuh's
+# PAD_BYTES); the operands of one conv_packed call.
+_PAD_BYTES, MAX_OPS = 16, 4
 # Dynamic shared memory a block may use on sm_90 (227 KB).
 _SMEM_MAX = 232448
 # Kernel sizes each kernel is built for.
@@ -137,13 +130,10 @@ _K_CONV, _K_POOL, _K_UP, _K_UP_M, _K_UP_F = (3, 5, 7), (3, 5), (1, 3, 5), (3, 5)
 # Element types, as the Hopper core numbers them (conv_sm90.cuh's Elem): a
 # ``q`` argument below is False (bfloat16), True (int8) or F32.
 F32 = 2
-# Per element type: bytes an element, channels per mma step (32 bytes), bytes
-# of one lane's B fragment (float32: the hi and the lo pair).
-_ELEM = {False: (2, 16, 8), True: (1, 32, 8), F32: (4, 8, 16)}
-# Channel chunks of the float32 K-loop of csrc/conv_packed.cu, largest first.
-_CHUNKS = {F32: (32, 16, 8)}
-# The Hopper core of csrc/conv_sm90.cuh (K5-K9 in bfloat16 and int8, K5, K6
-# and K9 in float32): pixels per block row, output channels per block (N of its
+# Per element type: bytes an element, channels per mma step (32 bytes).
+_ELEM = {False: (2, 16), True: (1, 32), F32: (4, 8)}
+# The Hopper core of csrc/conv_sm90.cuh (K5-K9 in bfloat16, int8 and
+# float32): pixels per block row, output channels per block (N of its
 # wgmma) that it is built for (float32 up to 64: its promotion sums take as
 # many registers as its accumulators), consumer warpgroups, channel chunks
 # (powers of two: its producer threads split a chunk evenly; float32 ones
@@ -151,15 +141,13 @@ _CHUNKS = {F32: (32, 16, 8)}
 _SM90_TW, _SM90_N, _SM90_CONSUMERS = 64, (8, 16, 32, 64, 128), 2
 _SM90_N_MAX = {False: 128, True: 128, F32: 64}
 _SM90_CHUNKS = {False: (64, 32, 16), True: (128, 64, 32), F32: (32, 16, 8)}
-# Its kernels -> (folded, resident, float32): K9's weights are folded with
-# its W-upsample; K5 and K7 keep every chunk's weights in shared memory where
-# that is what fits (the C side's resident_chunks<MODE>); K5, K6 and K9 run
-# on it in float32 as well (the float32 modes of K7 and K8 are
-# csrc/conv_packed.cu).
-_SM90_KERNELS = {"conv_packed": (False, True, True), "conv_pool_packed": (False, True, False),
-                 "conv_up_packed": (False, False, True),
-                 "conv_up_m_packed": (False, False, False),
-                 "conv_up_f_packed": (True, False, True)}
+# Its kernels -> (folded, resident): K9's weights are folded with its
+# W-upsample; K5 and K7 keep every chunk's weights in shared memory where
+# that is what fits (the C side's resident_chunks<MODE>), in every element
+# type.
+_SM90_KERNELS = {"conv_packed": (False, True), "conv_pool_packed": (False, True),
+                 "conv_up_packed": (False, False), "conv_up_m_packed": (False, False),
+                 "conv_up_f_packed": (True, False)}
 # The source of each kernel's entry points (csrc/<name>.cu, one library
 # each); the weight prep of all five is in conv_up_sm90.
 _SM90_SOURCE = {"conv_packed": "conv_packed_sm90", "conv_up_packed": "conv_packed_sm90",
@@ -191,36 +179,6 @@ _UPF_A = (
 
 
 # --------------------------------------------------------------------- plan
-
-def _n_tiles(n_out: int) -> int:
-    return next((n for n in (1, 2, 4, 8) if n * 8 >= n_out), 8)
-
-
-def _smem_bytes(k: int, cchunk: int, n_tiles: int, q: int = False) -> int:
-    es, kk, bfrag = _ELEM[q]
-    halo = (_TH + k - 1) * (_TW + k - 1) * (cchunk * es + _PAD_BYTES)
-    wrow = k * (cchunk // kk) * n_tiles * 32 * bfrag
-    return halo + wrow
-
-
-def _plan(
-    k: int, cins: Sequence[int], n_out: int, q: int = F32,
-) -> Optional[Tuple[int, int, int]]:
-    """(cchunk, n_tiles, n_cout_blocks) of the float32 kernel of
-    ``csrc/conv_packed.cu`` (K7 and K8; ``q`` = F32, its only element type)
-    for this site, or None."""
-    if not cins or min(cins) < 1 or n_out < 1:
-        return None
-    n_tiles = _n_tiles(n_out)
-    kk = _ELEM[q][1]
-    cin_k = -(-max(cins) // kk) * kk
-    for cchunk in _CHUNKS[q]:
-        if cchunk > cin_k:
-            continue
-        if _smem_bytes(k, cchunk, n_tiles, q) <= _SMEM_MAX:
-            return cchunk, n_tiles, -(-n_out // (n_tiles * 8))
-    return None
-
 
 def _sm90_rows(n: int, q: int = False, k: int = 3) -> int:
     """Rows of GEMM pixels per block of the Hopper core for N = ``n``: each
@@ -315,13 +273,11 @@ def _sm90_plan(
 
 
 def _sm90_fits(k: int, cin: Union[int, Tuple[int, ...]], n_out: int, folded: bool,
-               resident: bool = False, f32: bool = False) -> bool:
-    """Whether the site has a plan on the Hopper core (bfloat16, int8; with
-    ``f32``, K5, K6 and K9, float32 too) and, for K7's and K8's float32, on
-    the ``mma.sync`` core: the routing does not depend on the dtype."""
-    ets = (False, True, F32) if f32 else (False, True)
+               resident: bool = False) -> bool:
+    """Whether the site has a plan on the Hopper core in bfloat16, int8 and
+    float32: the routing does not depend on the dtype."""
     return all(_sm90_plan(k, cin, n_out, q, folded, resident) is not None
-               for q in ets) and (f32 or _plan(k, _cins(cin), n_out, F32) is not None)
+               for q in (False, True, F32))
 
 
 def supports(cins: Sequence[int], k: int, cout: int) -> bool:
@@ -440,9 +396,10 @@ def _weight_fragments(
     wt: torch.Tensor, cins: Sequence[int], cchunk: int, n_tiles: int, q: int = False,
 ) -> torch.Tensor:
     """(ky, ntaps, sum(cins), n_out) weights -> bf16 (``q``: int8 codes;
-    ``q=F32``: float32 split in two TF32 planes) in the kernel's B-fragment
-    order ``[cout block][chunk][dy][tap][kstep][n-tile][lane = g*4+tig][reg
-    r][p]``.
+    ``q=F32``: float32 split in two TF32 planes) in the B-fragment order of
+    an m16n8 tensor-core product ``[cout block][chunk][dy][tap][kstep]
+    [n-tile][lane = g*4+tig][reg r][p]``, the element order from which
+    :func:`_sm90_weights` lays out the Hopper core's weights.
 
     Chunks run operand by operand, each operand's channels zero-padded to a
     multiple of ``cchunk``; the element is ``wt[dy, tap, row(chunk) +
@@ -451,8 +408,7 @@ def _weight_fragments(
     cin or cout is padding. ``wt`` is rounded to bfloat16 here, once (int8:
     cast, exact). In float32 a plane dimension comes before r: ``[...][lane]
     [plane][r][p]`` holds ``hi = _tf32(w)`` (plane 0) and ``lo = _tf32(w -
-    hi)`` (plane 1), so that a lane reads its hi and lo pairs as one 16-byte
-    word."""
+    hi)`` (plane 1)."""
     ky, ntaps, _, n_out = wt.shape
     kk = _ELEM[q][1]
     nb = n_tiles * 8
@@ -498,16 +454,15 @@ def _sm90_weights(
 
 
 def _prepared(wt, bias, cins, k, cout, plan, scale=None, out_q=False,
-              layout=_weight_fragments, f32=False) -> Prepared:
+              f32=False) -> Prepared:
     """``scale`` is None for bfloat16 (``f32``: float32) weights and the
-    per-channel int8 dequantisation for int8 codes ``wt``; ``layout`` lays
-    the weights out for the kernel (``_sm90_weights`` for K5-K9 in bfloat16
-    and int8, K5, K6 and K9 in float32). The layout's dtype (``wfrag``) says
-    which calls it serves."""
+    per-channel int8 dequantisation for int8 codes ``wt``, which are laid
+    out in the Hopper core's layout (:func:`_sm90_weights`). The layout's
+    dtype (``wfrag``) says which calls it serves."""
     cchunk, n_tiles, _ = plan
     q = scale is not None
     return {
-        "wfrag": layout(wt, cins, cchunk, n_tiles, F32 if f32 else q),
+        "wfrag": _sm90_weights(wt, cins, cchunk, n_tiles, F32 if f32 else q),
         "bias": bias.to(torch.float32).contiguous(),
         "scale": None if scale is None else scale.contiguous(),
         "cins": tuple(cins), "k": k, "cout": cout, "plan": plan,
@@ -578,25 +533,20 @@ def _prep_sm90(name, w, bias, cins, absmax, out_absmax, dtype) -> Prepared:
     """The conv's own weights in the layout of the Hopper core
     (:func:`_sm90_weights`), for operands of ``cins`` channels; int8 with
     ``absmax`` (one per operand) as in :func:`prep_conv`; float32 in two
-    TF32 planes, on the Hopper core (K5, K6) or in the ``mma.sync`` core's
-    layout (:func:`_weight_fragments`; K7, K8)."""
+    TF32 planes."""
     k, cout = w.shape[0], w.shape[3]
-    _, res, f32_sm90 = _SM90_KERNELS[name]
+    _, res = _SM90_KERNELS[name]
     if absmax is None and _is_f32(dtype):
-        if f32_sm90:
-            return _prepared(w.float(), bias, cins, k, cout,
-                             _sm90_plan(k, cins, cout, F32, resident=res),
-                             layout=_sm90_weights, f32=True)
-        return _prepared(w.float(), bias, cins, k, cout, _plan(k, cins, cout, F32),
-                         f32=True)
+        return _prepared(w.float(), bias, cins, k, cout,
+                         _sm90_plan(k, cins, cout, F32, resident=res), f32=True)
     if absmax is None:
         return _prepared(w.float(), bias, cins, k, cout,
-                         _sm90_plan(k, cins, cout, resident=res), layout=_sm90_weights)
+                         _sm90_plan(k, cins, cout, resident=res))
     wqs, sw = _quantize_weights(torch.split(w.float(), cins, dim=2), absmax)
     scale, b = _q_fold(absmax[0], sw, bias, out_absmax)
     return _prepared(torch.cat(wqs, dim=2).float(), b, cins, k, cout,
                      _sm90_plan(k, cins, cout, q=True, resident=res),
-                     scale, out_absmax is not None, _sm90_weights)
+                     scale, out_absmax is not None)
 
 
 def _prep_single(name, ok, w, bias, absmax, out_absmax, dtype) -> Prepared:
@@ -699,18 +649,17 @@ def prep_conv_up_f(w: torch.Tensor, bias: torch.Tensor, absmax: Optional[Absmax]
     _need(supports_up_f(cin, k, cout), "conv_up_f_packed", cin, k, cout)
     if absmax is None and _is_f32(dtype):
         return _prepared(_upf_taps(w.float()), torch.cat([bias, bias]), (cin,), k, cout,
-                         _sm90_plan(3, cin, 2 * cout, F32, folded=True), layout=_sm90_weights,
-                         f32=True)
+                         _sm90_plan(3, cin, 2 * cout, F32, folded=True), f32=True)
     if absmax is None:
         return _prepared(
             _upf_taps(w.float()), torch.cat([bias, bias]), (cin,), k, cout,
-            _sm90_plan(3, cin, 2 * cout, folded=True), layout=_sm90_weights)
+            _sm90_plan(3, cin, 2 * cout, folded=True))
     codes, sw = _upf_q_taps(w)
     scale, b = _q_fold(absmax, sw, bias, out_absmax)
     return _prepared(
         codes, torch.cat([b, b]), (cin,), k, cout,
         _sm90_plan(3, cin, 2 * cout, q=True, folded=True),
-        torch.cat([scale, scale]), out_absmax is not None, _sm90_weights)
+        torch.cat([scale, scale]), out_absmax is not None)
 
 
 # ----------------------------------------------------------- plain versions
@@ -852,25 +801,11 @@ def _conv_up_f_q_plain(x, w, bias, slope, ax, out_absmax, out_dtype):
 
 # ------------------------------------------------------------------ launch
 
-# The float32 entry points of one input (conv_up_packed on the Hopper core,
-# K7 and K8 on mma.sync): x, c, wfrag, bias, out, B, 2 sizes, cout, k, cchunk,
-# n_tiles, has_slope, slope, stream; conv_up_f_packed's has no k.
+# The float32 entry points of one input (K6-K8): x, c, wfrag, bias, out, B,
+# 2 sizes, cout, k, cchunk, n_tiles, has_slope, slope, stream;
+# conv_up_f_packed's has no k.
 _F32_ONE = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_void_p]
-
-
-def _lib() -> ctypes.CDLL:
-    """``csrc/conv_packed.cu``: the float32 modes of K7 and K8."""
-    lib = _build.library("conv_packed")
-    if not getattr(lib, "_rrin_typed", False):
-        ci = ctypes.c_int
-        lib.rrin_conv_packed_smem.argtypes = [ci] * 3
-        lib.rrin_conv_packed_smem.restype = ctypes.c_longlong
-        for name in ("conv_pool_packed", "conv_up_m_packed"):
-            getattr(lib, f"rrin_{name}_f32_launch").argtypes = _F32_ONE
-            getattr(lib, f"rrin_{name}_f32_launch").restype = ci
-        lib._rrin_typed = True
-    return lib
 
 
 def _lib_sm90(source: str = "conv_up_sm90") -> ctypes.CDLL:
@@ -889,8 +824,10 @@ def _lib_sm90(source: str = "conv_up_sm90") -> ctypes.CDLL:
             lib.rrin_conv_up_f_packed_launch.argtypes = one[:-4] + [cf, ci, vp]
             lib.rrin_conv_up_prep_launch.argtypes = [vp] * 4 + [ci, pi] + [ci] * 6 + [vp]
             lib.rrin_conv_up_f_packed_f32_launch.argtypes = _F32_ONE[:5] + [ci] * 7 + _F32_ONE[-2:]
+            lib.rrin_conv_pool_packed_f32_launch.argtypes = _F32_ONE
+            lib.rrin_conv_up_m_packed_f32_launch.argtypes = _F32_ONE
             names = ("conv_pool_packed", "conv_up_m_packed", "conv_up_f_packed", "conv_up_prep",
-                     "conv_up_f_packed_f32")
+                     "conv_pool_packed_f32", "conv_up_m_packed_f32", "conv_up_f_packed_f32")
         else:
             lib.rrin_conv_packed_sm90_smem.argtypes = [ci] * 5
             lib.rrin_conv_packed_sm90_smem.restype = ctypes.c_longlong
@@ -978,21 +915,12 @@ def _check_cuda(
 
 
 @functools.lru_cache(maxsize=None)
-def _smem_agrees(lib, k, plan) -> None:
-    """Raise unless ``rrin_conv_packed_smem`` and :func:`_smem_bytes` agree
-    on the float32 kernel's tile (checked once per site)."""
-    cchunk, n_tiles, _ = plan
-    if lib.rrin_conv_packed_smem(k, cchunk, n_tiles) != _smem_bytes(k, cchunk, n_tiles, F32):
-        raise RuntimeError("conv_packed.cu and conv_packed.py disagree on the tile")
-
-
-@functools.lru_cache(maxsize=None)
 def _sm90_smem_agrees(name, k, cins, plan, q) -> None:
     """Raise unless the C layout of kernel ``name``'s library and
     :func:`_sm90_smem_bytes` agree (checked once per site: every argument is
     hashable)."""
     cchunk, n_tiles, _ = plan
-    folded, resident, _ = _SM90_KERNELS[name]
+    folded, resident = _SM90_KERNELS[name]
     res = _sm90_res_chunks(cins, plan, resident)
     source = _SM90_SOURCE[name]
     lib = _lib_sm90(source)
@@ -1008,13 +936,12 @@ def _prep_on_card(name: str, w: torch.Tensor, bias: torch.Tensor,
                   cins: Optional[Sequence[int]] = None, f32: bool = False) -> Prepared:
     """What ``prep_conv`` (operands of ``cins`` channels) / ``prep_conv_up``
     / ``prep_conv_pool`` / ``prep_conv_up_m`` / ``prep_conv_up_f`` return in
-    bfloat16 (``f32``: ``prep_conv`` / ``prep_conv_up`` / ``prep_conv_up_f``
-    with ``dtype=torch.float32``), from one launch of the Hopper core's prep
-    kernel: the layout of :func:`_sm90_weights` (each operand's channels
-    padded to whole chunks; K9: the fold of :func:`_upf_taps` before the
-    bf16 rounding; float32: the hi and the lo TF32 plane) and, folded, the
-    bias repeated for both output parities."""
-    folded, res, _ = _SM90_KERNELS[name]
+    bfloat16 (``f32``: with ``dtype=torch.float32``), from one launch of the
+    Hopper core's prep kernel: the layout of :func:`_sm90_weights` (each
+    operand's channels padded to whole chunks; K9: the fold of
+    :func:`_upf_taps` before the bf16 rounding; float32: the hi and the lo
+    TF32 plane) and, folded, the bias repeated for both output parities."""
+    folded, res = _SM90_KERNELS[name]
     q = F32 if f32 else False
     k, _, cin, cout = w.shape
     cins = (cin,) if cins is None else tuple(int(c) for c in cins)
@@ -1052,7 +979,7 @@ def _check_sm90_layout(name: str, prepared: Prepared) -> None:
 def _f32_promotion(k_steps: int) -> int:
     """Set the float32 promotion interval of the Hopper core's later launches
     (``rrin_conv_f32_promotion`` of both of its libraries: K5 and K6 in
-    ``csrc/conv_packed_sm90.cu``, K9 in ``csrc/conv_up_sm90.cu``): at most
+    ``csrc/conv_packed_sm90.cu``, K7-K9 in ``csrc/conv_up_sm90.cu``): at most
     ``k_steps`` k-steps (8 channels of one tap) of an output row, as whole
     (dx, k-step) slabs of k, are summed on the tensor cores before one
     addition with round to nearest (below k: every k-step); returns the one
@@ -1183,27 +1110,14 @@ def _fused(name: str, x, w, bias, slope, prepared, in_absmax, out_absmax,
                            out_absmax is not None)
     f32 = x.dtype == torch.float32
     et = F32 if f32 else q
-    folded, _, f32_sm90 = _SM90_KERNELS[name]
-    # bfloat16 and int8 run on the Hopper core, float32 there too (K6, K9) or
-    # on the mma.sync core (K7, K8).
-    sm90 = f32_sm90 or not f32
+    folded, _ = _SM90_KERNELS[name]
     if prepared is None:
-        if q or not sm90:
-            prepared = prep(w, bias, in_absmax, out_absmax,
-                            torch.float32 if f32 else torch.bfloat16)
-        else:
-            prepared = _prep_on_card(name, w, bias, f32=f32)
+        prepared = (prep(w, bias, in_absmax, out_absmax) if q
+                    else _prep_on_card(name, w, bias, f32=f32))
     cchunk, n_tiles, _ = prepared["plan"]
-    if sm90:
-        _check_sm90_layout(name, prepared)
-        _sm90_smem_agrees(name, k, (cin,), prepared["plan"], et)
-        lib = _lib_sm90(_SM90_SOURCE[name])
-    else:
-        if not prepared["wfrag"].is_contiguous():
-            raise ValueError(f"{name}: prepared['wfrag'] is not in the layout of "
-                             "_weight_fragments")
-        lib = _lib()
-        _smem_agrees(lib, k, prepared["plan"])
+    _check_sm90_layout(name, prepared)
+    _sm90_smem_agrees(name, k, (cin,), prepared["plan"], et)
+    lib = _lib_sm90(_SM90_SOURCE[name])
     entry = f"rrin_{name}{'_f32' if f32 else ''}_launch"
     oh, ow = (h // 2, width // 2) if pool else (2 * h, 2 * width)
     out = _out_tensor(name, (b, oh, ow, cout), x.device, f32, out_absmax, out_dtype)

@@ -47,10 +47,9 @@ def _sites(cfg):
 
 def test_float32_plans_fit_every_site():
     """Every site that the bfloat16 and int8 plans accept has a float32 plan
-    that fits shared memory, so that routing does not depend on the dtype:
-    K5, K6 and K9 (folded, 2*cout channels a GEMM pixel) on the Hopper core,
-    K7 and K8 on the mma.sync core; 1080p and 4K take the packed path at
-    every site."""
+    on the Hopper core that fits shared memory, so that routing does not
+    depend on the dtype: all five kernels (K9 folded, 2*cout channels a GEMM
+    pixel); 1080p and 4K take the packed path at every site."""
     supports = {"conv_packed": lambda k, cins, cout: tcp.supports(cins, k, cout),
                 "conv_pool_packed": lambda k, cins, cout: tcp.supports_pool(cins[0], k, cout),
                 "conv_up_m_packed": lambda k, cins, cout: tcp.supports_up_m(cins[0], k, cout),
@@ -58,28 +57,15 @@ def test_float32_plans_fit_every_site():
                 "conv_up_packed": lambda k, cins, cout: tcp.supports_up(cins[0], k, cout)}
     for name, k, cins, cout in _sites(CFG):
         assert supports[name](k, cins, cout), (name, cins)
-        if name in ("conv_packed", "conv_up_packed", "conv_up_f_packed"):
-            resident = name == "conv_packed"
-            folded = name == "conv_up_f_packed"
-            n_out = 2 * cout if folded else cout
-            plan = tcp._sm90_plan(k, cins, n_out, tcp.F32, folded=folded, resident=resident)
-            assert plan is not None, (name, cins)
-            cchunk, n_tiles, n_cb = plan
-            assert cchunk % 8 == 0 and n_cb * n_tiles * 8 >= n_out and n_tiles <= 8
-            res = tcp._sm90_res_chunks(cins, plan, resident)
-            assert tcp._sm90_smem_bytes(k, cchunk, n_tiles, tcp.F32, folded,
-                                        res) <= tcp._SMEM_MAX
-            continue
-        plan = tcp._plan(k, cins, cout, tcp.F32)
+        folded, resident = tcp._SM90_KERNELS[name]
+        n_out = 2 * cout if folded else cout
+        plan = tcp._sm90_plan(k, cins, n_out, tcp.F32, folded=folded, resident=resident)
         assert plan is not None, (name, cins)
         cchunk, n_tiles, n_cb = plan
-        assert cchunk % 8 == 0 and n_cb * n_tiles * 8 >= cout
-        assert tcp._smem_bytes(k, cchunk, n_tiles, tcp.F32) <= tcp._SMEM_MAX
-        # the halo of a float32 chunk takes the bytes of a bf16 chunk twice as
-        # wide; its weights twice those (the hi and the lo plane)
-        assert tcp._smem_bytes(k, cchunk, n_tiles, tcp.F32) == (
-            tcp._smem_bytes(k, 2 * cchunk, n_tiles)
-            + k * (cchunk // 8) * n_tiles * 32 * 8)
+        assert cchunk % 8 == 0 and n_cb * n_tiles * 8 >= n_out and n_tiles <= 8
+        res = tcp._sm90_res_chunks(cins, plan, resident)
+        assert tcp._sm90_smem_bytes(k, cchunk, n_tiles, tcp.F32, folded,
+                                    res) <= tcp._SMEM_MAX
     for h, w, up in ((1088, 1920, 2), (2160, 3840, 1)):
         assert tunet.packed_supported(h, w, CFG)
         assert tunet.packed_branch_flags(h, w, CFG)[4:6] == (up, up)
