@@ -20,11 +20,20 @@ and numpy; nothing else and no network. It builds the CUDA kernels of
                u2c1 (K8) and u3c1 (K9); the warps through warp_one and as
                one launch per pair
   serve        the main path: the default Interpolator (bfloat16, kernels,
-               packed U-Net path, full model width) answering 1080p requests
+               packed U-Net path, full model width) answering 1080p requests,
+               its weights prepared once at the first (76 prep launches,
+               none a request)
   serve_4k     the same Interpolator answering 2160x3840 requests, whose up
                sites u3c1 and u4c1 take K6 (conv_up_packed)
-  serve_int8   ``Interpolator(int8=True)``: calibration, then int8 requests
-               at 1080p (beside bfloat16 ones) and one at 2160x3840
+  serve_int8   ``Interpolator(int8=True)``: calibration by absmax and by the
+               99.9th percentile at 1080p and 4K (ms, peak memory), the
+               saturation rates of both, then int8 requests of both at
+               1080p (beside bfloat16 ones) and one at 2160x3840
+  prepare_once a request through the preparing Interpolator bit-equal to
+               ``device_step`` without ``packed_params`` (bf16 1080p and 4K,
+               float32, int8 absmax and 99.9th percentile), with the prepare
+               time and the memory the prep holds; a 1080p prep refused by a
+               4K request, an int8 prep by stats of other values
   serve_plain  one 1080p request on the plain U-Net path (``packed=False``:
                K1 on the Hopper core, its weights prepared on the card)
   serve_fp32   the float32 plain path (float32 warp kernel) at 256x448 and the
@@ -33,6 +42,9 @@ and numpy; nothing else and no network. It builds the CUDA kernels of
                modes of K5, K7, K8 and K9, all on the Hopper core) against
                the float32 plain path at 1080p, in turns, and one float32
                request at 2160x3840 (K6)
+  int8_trained the trained checkpoint ``benchmarks/trained_synth_f16.npz``
+               at 1080p: bf16, int8 absmax and int8 at the 99.9th percentile
+               against the float32 packed output (int8 absmax > 35 dB)
   agreement    card (kernels) against CPU (plain versions), packed against
                plain path on the card, int8 card against int8 CPU, float32
                packed card against CPU, and the K6 route at a 4K width, on
@@ -46,9 +58,10 @@ served paths, times measured in this run), and ``{"ok": true, "device":
 
 ``python3 chip_smoke.py --profile`` adds one phase after ``serve_plain``:
 ``torch.profiler`` traces of two 1080p requests on each U-Net path, of one
-int8 1080p request, of one bfloat16 4K request, of one float32 1080p
-request on each U-Net path and of one float32 4K request, printed as device
-time by group of kernels (where the time of a request goes).
+int8 1080p request (fewer than 600 kernels), of one int8 and one bfloat16
+4K request, of one float32 1080p request on each U-Net path and of one
+float32 4K request, printed as device time by group of kernels (where the
+time of a request goes).
 """
 
 from __future__ import annotations
@@ -64,16 +77,18 @@ import torch
 import torch.nn.functional as F
 
 from rrin_tpu_torch import ModelConfig, _build, forward, init_params
+from rrin_tpu_torch.models import unet as tunet
 from rrin_tpu_torch.models.rrin import scale_quant_stats
 from rrin_tpu_torch.ops import conv_packed, conv_phase, warp_kernel
 from rrin_tpu_torch.ops.resize import avg_pool_2x, upsample_2x_bilinear
 from rrin_tpu_torch.ops.warp import warp_pair
 from rrin_tpu_torch.params.checkpoint import (
     flatten_params,
+    load_params,
     params_from_numpy,
     unflatten_params,
 )
-from rrin_tpu_torch.pipeline import Interpolator, device_calibrate
+from rrin_tpu_torch.pipeline import Interpolator, device_calibrate, device_step
 
 # Published peaks of one H100 SXM (dense): the bounds are stated against these.
 HBM_BYTES_PER_S = 3.35e12
@@ -112,9 +127,13 @@ BF16_PSNR_DB = 40.0
 # step away where it sits near a tie; a bf16 output is held to K1's bar.
 INT8_STEPS = 1
 # int8 request against the bf16 one: the JAX package's bar for its int8
-# cascade against float32 (tests/test_int8.py); int8 card against int8 CPU
-# with the same stats: the bf16 card-vs-CPU bar.
+# cascade against float32 (tests/test_int8.py); also int8 absmax against
+# float32 with the trained weights; int8 card against int8 CPU with the same
+# stats: the bf16 card-vs-CPU bar.
 INT8_VS_BF16_PSNR_DB = 35.0
+# A prepared 1080p int8 request launches fewer kernels than this (its
+# weights quantised once, not per call).
+INT8_KERNELS_MAX = 600
 INT8_CARD_CPU_PSNR_DB = 40.0
 # float32 kernels against their plain versions (float32 convs without TF32 on
 # the same inputs): the reference's bar between its packed and plain float32
@@ -594,39 +613,65 @@ def promotion_probe(rng, dev):
     return {"default_k_steps": default, "runs": out}
 
 
+# The 18 int8 sites of one flow U-Net at 1088x1920 (the head is bf16):
+# (kernel, site, h, w, cins, cout, k).
+FLOW_INT8_SITES = [
+    ("conv_packed", "c1", HP, WP, (6,), 32, 7),
+    ("conv_packed", "c2", HP, WP, (32,), 32, 7),
+    ("conv_pool_packed", "d1c1", HP // 2, WP // 2, (32,), 64, 5),
+    ("conv_packed", "d1c2", HP // 2, WP // 2, (64,), 64, 5),
+    ("conv_pool_packed", "d2c1", HP // 4, WP // 4, (64,), 128, 3),
+    ("conv_packed", "d2c2", HP // 4, WP // 4, (128,), 128, 3),
+    ("conv_packed", "d3c1", HP // 8, WP // 8, (128,), 256, 3),
+    ("conv_packed", "d3c2", HP // 8, WP // 8, (256,), 256, 3),
+    ("conv_packed", "d4c1", HP // 16, WP // 16, (256,), 512, 3),
+    ("conv_packed", "d4c2", HP // 16, WP // 16, (512,), 512, 3),
+    ("conv_packed", "u1c1", HP // 8, WP // 8, (512,), 256, 3),
+    ("conv_packed", "u1c2", HP // 8, WP // 8, (256, 256), 256, 3),
+    ("conv_up_m_packed", "u2c1", HP // 4, WP // 4, (256,), 128, 3),
+    ("conv_packed", "u2c2", HP // 4, WP // 4, (128, 128), 128, 3),
+    ("conv_up_f_packed", "u3c1", HP // 2, WP // 2, (128,), 64, 3),
+    ("conv_packed", "u3c2", HP // 2, WP // 2, (64, 64), 64, 3),
+    ("conv_up_f_packed", "u4c1", HP, WP, (64,), 32, 3),
+    ("conv_packed", "u4c2", HP, WP, (32, 32), 32, 3),
+]
+
+
 def int8_cases(rng, dev):
-    """One int8 site or more of each packed kernel, at the shapes of the int8
-    requests: (which operands arrive as int8, int8 output) as the carry plan
-    of ``models.unet.int8_carry`` has them there."""
+    """Every int8 site of one flow U-Net at the shapes of the 1080p int8
+    request, with (which operands arrive as int8, int8 output) as the carry
+    plan of ``models.unet.int8_carry`` has them there (an operand is int8
+    where its producer is carried), and other int8 cases of each packed
+    kernel: K6 at the 4K up sites (its sites of one 4K flow U-Net), where
+    K7 and K8 quantise a bf16 input in their load, mixed operands."""
     s = ModelConfig().leaky_slope
-    specs = [
-        ("conv_packed", "c1_flow_cin6", HP, WP, (6,), 32, 7, ((False,), True)),
-        ("conv_packed", "d4c2", HP // 16, WP // 16, (512,), 512, 3, ((True,), False)),
-        ("conv_packed", "u1c2", HP // 8, WP // 8, (256, 256), 256, 3, ((True, False), True)),
-        ("conv_packed", "u4c2", HP, WP, (32, 32), 32, 3, ((True, True), False)),
+    carry = tunet.int8_carry(HP, WP, ModelConfig())
+    specs = [(kernel, site, h, w, cins, cout, k,
+              (tuple(src in carry for src in tunet.QUANT_SITES[site]), site in carry), 1)
+             for kernel, site, h, w, cins, cout, k in FLOW_INT8_SITES]
+    specs += [
         # int8 and bf16 operands mixed, one gathered a channel at a time
         ("conv_packed", "four_operands_136x240", 136, 240, (64, 24, 16, 10), 48, 3,
-         ((True, False, True, True), True)),
-        ("conv_pool_packed", "d1c1", HP // 2, WP // 2, (32,), 64, 5, ((True,), True)),
-        ("conv_pool_packed", "d2c1", HP // 4, WP // 4, (64,), 128, 3, ((True,), True)),
+         ((True, False, True, True), True), 0),
         ("conv_pool_packed", "d1c1_bf16_in_out", HP // 2, WP // 2, (32,), 64, 5,
-         ((False,), False)),
+         ((False,), False), 0),
         # where h // 4 is no multiple of 8 (2160x3840), d1c2 and u1c2 are not
         # carried: K7 and K8 quantise a bf16 input in their load
         ("conv_pool_packed", "d2c1_4k_bf16_in", H4K // 4, W4K // 4, (64,), 128, 3,
-         ((False,), True)),
-        ("conv_up_m_packed", "u2c1", HP // 4, WP // 4, (256,), 128, 3, ((True,), True)),
+         ((False,), True), 0),
         ("conv_up_m_packed", "u2c1_4k_bf16_in", H4K // 4, W4K // 4, (256,), 128, 3,
-         ((False,), True)),
-        ("conv_up_f_packed", "u3c1", HP // 2, WP // 2, (128,), 64, 3, ((True,), True)),
-        ("conv_up_f_packed", "u4c1", HP, WP, (64,), 32, 3, ((True,), True)),
-        ("conv_up_packed", "u3c1_4k", H4K // 2, W4K // 2, (128,), 64, 3, ((True,), True)),
-        ("conv_up_packed", "u4c1_4k", H4K, W4K, (64,), 32, 3, ((True,), True)),
-        ("conv_up_packed", "k5_bf16_in_out", 270, 480, (64,), 32, 5, ((False,), False)),
-        ("conv_up_packed", "k1_ragged_270x486", 270, 486, (32,), 16, 1, ((True,), True)),
+         ((False,), True), 0),
+        ("conv_up_packed", "u3c1_4k", H4K // 2, W4K // 2, (128,), 64, 3, ((True,), True), 1),
+        ("conv_up_packed", "u4c1_4k", H4K, W4K, (64,), 32, 3, ((True,), True), 1),
+        ("conv_up_packed", "k5_bf16_in_out", 270, 480, (64,), 32, 5, ((False,), False), 0),
+        ("conv_up_packed", "k1_ragged_270x486", 270, 486, (32,), 16, 1, ((True,), True), 0),
     ]
-    return [packed_case(rng, dev, kernel, name, h, w, cins, cout, k, s, int8=q)
-            for kernel, name, h, w, cins, cout, k, q in specs]
+    cases = []
+    for kernel, name, h, w, cins, cout, k, q, mult in specs:
+        c = packed_case(rng, dev, kernel, name, h, w, cins, cout, k, s, int8=q)
+        c["per_flow_unet"] = mult
+        cases.append(c)
+    return cases
 
 
 # ------------------------------------------------------------ kernels: K2-K4
@@ -775,36 +820,38 @@ def serve_request(interp, pairs):
 
 # Launches of one exp=1 request (4 U-Nets, one warp pair) on each U-Net
 # path: 1080p and 4K differ at u3c1 and u4c1 (K9 below width 3200, K6 from
-# there on); every bf16 K5-K9 launch comes with one launch of the weight
-# prep; in int8 every conv but the four heads is int8 (weights quantised in
-# PyTorch), the bf16 heads prepare theirs on the card; both warps of a pair
-# are one launch, with no packing pass; the plain path's K1 (on the Hopper
-# core at its k 3/5/7) prepares its weights on the card too, one launch
-# each; the int8 calibration pass runs the plain path.
+# there on); in int8 every conv but the four heads is int8; both warps of a
+# pair are one launch, with no packing pass. The packed path prepares its
+# weights once per resolution (the Interpolator's first request there):
+# in bf16 and float32 one launch of the weight prep per conv, in int8 the
+# codes in PyTorch and the bf16 heads on the card; a prepared request makes
+# no prep launch. The plain path's K1 (on the Hopper core at its k 3/5/7)
+# prepares its weights on the card per call, one launch each, as the
+# reference has no prepare-once for it; the int8 calibration pass runs the
+# plain path.
 WARP_PAIR = {"warp_u8": 1}
+PREPARE = {"conv_up_prep": 76}
+PREPARE_INT8 = {"conv_up_prep": 4}
 PACKED_PER_REQUEST = {"conv_packed": 56, "conv_pool_packed": 8, "conv_up_m_packed": 4,
-                      "conv_up_f_packed": 8, "conv_up_prep": 76, **WARP_PAIR}
+                      "conv_up_f_packed": 8, **WARP_PAIR}
 PACKED_4K_PER_REQUEST = {"conv_packed": 56, "conv_pool_packed": 8, "conv_up_m_packed": 4,
-                         "conv_up_packed": 8, "conv_up_prep": 76, **WARP_PAIR}
+                         "conv_up_packed": 8, **WARP_PAIR}
 INT8_PER_REQUEST = {"conv_packed_int8": 52, "conv_packed": 4, "conv_pool_packed_int8": 8,
-                    "conv_up_m_packed_int8": 4, "conv_up_f_packed_int8": 8,
-                    "conv_up_prep": 4, **WARP_PAIR}
+                    "conv_up_m_packed_int8": 4, "conv_up_f_packed_int8": 8, **WARP_PAIR}
 INT8_4K_PER_REQUEST = {"conv_packed_int8": 52, "conv_packed": 4, "conv_pool_packed_int8": 8,
-                       "conv_up_m_packed_int8": 4, "conv_up_packed_int8": 8,
-                       "conv_up_prep": 4, **WARP_PAIR}
+                       "conv_up_m_packed_int8": 4, "conv_up_packed_int8": 8, **WARP_PAIR}
 PLAIN_PER_REQUEST = {"conv_phase": 36, "conv_up_prep": 36, **WARP_PAIR}
 CALIBRATION_LAUNCHES = PLAIN_PER_REQUEST
-# float32: the float32 modes of the same kernels (each lays out, K9 folds,
-# its weights on the card, one prep launch a conv), the float32 warp pair;
-# on the plain path every conv is F.conv2d (K1 is bfloat16 only, as in the
-# reference).
+# float32: the float32 modes of the same kernels (each laid out, K9's
+# folded, on the card once), the float32 warp pair; on the plain path every
+# conv is F.conv2d (K1 is bfloat16 only, as in the reference).
 F32_WARP_PAIR = {"warp_f32": 1}
 FP32_PACKED_PER_REQUEST = {"conv_packed_f32": 56, "conv_pool_packed_f32": 8,
                            "conv_up_m_packed_f32": 4, "conv_up_f_packed_f32": 8,
-                           "conv_up_prep": 76, **F32_WARP_PAIR}
+                           **F32_WARP_PAIR}
 FP32_PACKED_4K_PER_REQUEST = {"conv_packed_f32": 56, "conv_pool_packed_f32": 8,
                               "conv_up_m_packed_f32": 4, "conv_up_packed_f32": 8,
-                              "conv_up_prep": 76, **F32_WARP_PAIR}
+                              **F32_WARP_PAIR}
 FP32_PLAIN_PER_REQUEST = F32_WARP_PAIR
 
 
@@ -819,8 +866,9 @@ def counted(fn):
     return out, _build.launch_counts()
 
 
-def summed(a: dict, b: dict) -> dict:
-    return {k: a[k] + b[k] for k in a}
+def summed(*ds: dict) -> dict:
+    """Counts added key by key (a missing key counts 0)."""
+    return {k: sum(d.get(k, 0) for d in ds) for k in {k for d in ds for k in d}}
 
 
 def check_launches(what, before, after, want, times=1):
@@ -839,8 +887,10 @@ def phase_serve(params, dev):
                           device=dev)
     check(interp.packed is None, "serve: the Interpolator's packed default is not None")
     torch.cuda.reset_peak_memory_stats()
-    serve_request(interp, pairs)  # warm-up
     _build.reset_launch_counts()
+    (_, first_ms), first = counted(lambda: serve_request(interp, pairs))  # prepares
+    check_launches("serve first request", NO_LAUNCHES, first, summed(PACKED_PER_REQUEST,
+                                                                      PREPARE))
     times = []
     for i in range(4):
         before = _build.launch_counts()
@@ -860,13 +910,16 @@ def phase_serve(params, dev):
     counts = _build.launch_counts()
     check(mids2.shape == (1, 3, H1080, W1080, 3) and mids2.dtype == np.uint8,
           f"serve exp=2: output {mids2.dtype} {mids2.shape}")
-    # the flow U-Net runs once, the other three once per time: 10 U-Nets, 3 warp pairs
-    check_launches("serve exp=2", exp1_counts, counts,
-                   {k: (v // 4 * 10 if k not in WARP_PAIR else 3 * v)
-                    for k, v in PACKED_PER_REQUEST.items()})
+    # the flow U-Net runs once, the other three once per time: 10 U-Nets, 3
+    # warp pairs; a new Interpolator prepares once
+    check_launches("serve exp=2", exp1_counts, counts, summed(
+        {k: (v // 4 * 10 if k not in WARP_PAIR else 3 * v)
+         for k, v in PACKED_PER_REQUEST.items()}, PREPARE))
     emit("serve", path="packed", requests=4, shape=[1, 2, H1080, W1080, 3],
-         compute_dtype="bfloat16", ms_per_request=times, ms_exp2_request=ms2,
+         compute_dtype="bfloat16", ms_first_request_with_prepare=first_ms,
+         ms_per_request=times, ms_exp2_request_with_prepare=ms2,
          launches=counts, launches_per_exp1_request=per_request,
+         launches_prepare=PREPARE,
          peak_device_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     return counts
 
@@ -876,9 +929,11 @@ def phase_serve_4k(params, dev):
     u3c1 and u4c1 to K6 at this width, and so does the port."""
     interp = Interpolator(params, compute_dtype="bfloat16", use_pallas=True, exp=1,
                           device=dev)
-    serve_request(interp, moving_squares(0, H4K, W4K))  # warm-up
-    torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
+    serve_request(interp, moving_squares(0, H4K, W4K))  # prepares
+    check_launches("serve_4k first request", NO_LAUNCHES, _build.launch_counts(),
+                   summed(PACKED_4K_PER_REQUEST, PREPARE))
+    torch.cuda.reset_peak_memory_stats()
     times = []
     for i in range(3):
         before = _build.launch_counts()
@@ -896,62 +951,200 @@ def phase_serve_4k(params, dev):
     return counts
 
 
-def phase_serve_int8(params, dev):
-    """``Interpolator(int8=True)``: the first request at each resolution
-    calibrates on the plain path, the others serve int8 on K5-K9 (K6 at 4K).
-    bfloat16 requests of the default Interpolator run beside them, in turns."""
-    pairs = [moving_squares(i, H1080, W1080) for i in range(3)]
-    _build.reset_launch_counts()
+def _calibrate(params, dev, pairs, pad_h, quantile):
+    """One calibration pass: its ms on the host clock after a sync and its
+    peak device memory; its launches and ranges checked."""
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    stats = device_calibrate(params, pairs[0], compute_dtype=torch.bfloat16,
-                             use_pallas=True, pad_hw=(HP - H1080, 0), device=dev)
+    stats, got = counted(lambda: device_calibrate(
+        params, pairs, compute_dtype=torch.bfloat16, use_pallas=True, pad_hw=(pad_h, 0),
+        quantile=quantile, device=dev))
     torch.cuda.synchronize()
-    calib_ms = (time.perf_counter() - t0) * 1e3
-    check_launches("int8 calibration", NO_LAUNCHES, _build.launch_counts(),
-                   CALIBRATION_LAUNCHES)
+    ms = (time.perf_counter() - t0) * 1e3
+    check_launches("int8 calibration", NO_LAUNCHES, got, CALIBRATION_LAUNCHES)
     check(all(bool(torch.isfinite(v) and v > 0) for st in stats.values() for v in st.values()),
           "int8 calibration: a range is not finite and positive")
+    return {"calibration_ms": ms, "peak_device_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _rates_summary(rates: dict) -> dict:
+    vals = np.array(list(rates.values()), np.float64)
+    check(bool(np.isfinite(vals).all()) and bool(((vals >= 0) & (vals <= 1)).all()),
+          "saturation rates are not finite and in [0, 1]")
+    return {"sites": len(vals), "max": float(vals.max()), "mean": float(vals.mean()),
+            "max_site": max(rates, key=rates.get)}
+
+
+def phase_serve_int8(params, dev):
+    """``Interpolator(int8=True)``: the first request at each resolution
+    calibrates on the plain path and prepares the int8 weights, the others
+    serve int8 on K5-K9 (K6 at 4K) with no weight work. Calibration by
+    absmax and by the 99.9th percentile at 1080p and 4K, the saturation
+    rates of both on the calibration batch, and requests of both modes with
+    bfloat16 requests of the default Interpolator beside them, in turns."""
+    pairs = [moving_squares(i, H1080, W1080) for i in range(3)]
+    wide = [moving_squares(i, H4K, W4K) for i in range(2)]
+    calibration = {}
+    for name, q in (("absmax", None), ("p99.9", 0.999)):
+        for res, p, pad_h in (("1080p", pairs[0], HP - H1080), ("4k", wide[0], 0)):
+            calibration[f"{name}_{res}"] = _calibrate(params, dev, p, pad_h, q)
 
     q8 = Interpolator(params, compute_dtype="bfloat16", use_pallas=True, int8=True,
                       device=dev)
+    q8p = Interpolator(params, compute_dtype="bfloat16", use_pallas=True, int8=True,
+                       int8_percentile=99.9, device=dev)
     bf = Interpolator(params, compute_dtype="bfloat16", use_pallas=True, device=dev)
-    _, first_ms = serve_request(q8, pairs[0])  # calibrates, then serves
+    # The first requests calibrate, prepare and serve.
+    (_, first_ms), first = counted(lambda: serve_request(q8, pairs[0]))
+    check_launches("serve_int8 first request", NO_LAUNCHES, first,
+                   summed(CALIBRATION_LAUNCHES, PREPARE_INT8, INT8_PER_REQUEST))
+    (_, first_p_ms), first_p = counted(lambda: serve_request(q8p, pairs[0]))
+    check_launches("serve_int8 p99.9 first request", NO_LAUNCHES, first_p,
+                   summed(CALIBRATION_LAUNCHES, PREPARE_INT8, INT8_PER_REQUEST))
     serve_request(bf, pairs[0])  # warm-up
+    # Telemetry on the calibration batch: absmax with its margin clips
+    # nothing by construction; the percentile grid clips its tail.
+    rates = q8.saturation_rates(pairs[0])
+    check(all(v == 0.0 for v in rates.values()),
+          f"saturation: absmax with margin clips {_rates_summary(rates)}")
+    rates_p = q8p.saturation_rates(pairs[0])
+    saturation = {"absmax": _rates_summary(rates), "p99.9": _rates_summary(rates_p),
+                  "p99.9_rates": rates_p}
     # Launches of the int8 requests alone, each counted from 0.
-    counts = dict(NO_LAUNCHES)
-    ms8, ms16, agree, peaks = [], [], [], []
+    counts = summed(first, first_p)
+    ms8, ms8p, ms16, agree, agree_p, peaks = [], [], [], [], [], []
     for p in pairs:
         torch.cuda.reset_peak_memory_stats()
         (m8, t8), got = counted(lambda: serve_request(q8, p))
         peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
         check_launches("serve_int8", NO_LAUNCHES, got, INT8_PER_REQUEST)
-        counts = summed(counts, got)
+        (m8p, t8p), got_p = counted(lambda: serve_request(q8p, p))
+        check_launches("serve_int8 p99.9", NO_LAUNCHES, got_p, INT8_PER_REQUEST)
+        counts = summed(counts, got, got_p)
         m16, t16 = serve_request(bf, p)
         ms8.append(t8)
+        ms8p.append(t8p)
         ms16.append(t16)
-        check(m8.shape == (1, 1, H1080, W1080, 3) and m8.std() > 1.0, "serve_int8: output")
+        for m in (m8, m8p):
+            check(m.shape == (1, 1, H1080, W1080, 3) and m.std() > 1.0, "serve_int8: output")
         agree.append(_u8_agreement(m8, m16))
-    for a in agree:
+        agree_p.append(_u8_agreement(m8p, m16))
+    for a in agree + agree_p:
         check(a["psnr_db"] >= INT8_VS_BF16_PSNR_DB, f"serve_int8: int8 vs bf16 {a}")
 
-    # One int8 request at 4K: its own calibration, then K6 in int8.
-    q8.step(moving_squares(0, H4K, W4K)).cpu()
+    # One int8 request at 4K: its own calibration and prep, then K6 in int8.
+    (_, first_4k_ms), got = counted(lambda: serve_request(q8, wide[0]))
+    check_launches("serve_int8 4K first request", NO_LAUNCHES, got,
+                   summed(CALIBRATION_LAUNCHES, PREPARE_INT8, INT8_4K_PER_REQUEST))
+    counts = summed(counts, got)
     torch.cuda.reset_peak_memory_stats()
-    (m4k, ms4k), got = counted(lambda: serve_request(q8, moving_squares(1, H4K, W4K)))
+    (m4k, ms4k), got = counted(lambda: serve_request(q8, wide[1]))
     peak4k = torch.cuda.max_memory_allocated() / 2 ** 30
     check_launches("serve_int8 4K", NO_LAUNCHES, got, INT8_4K_PER_REQUEST)
     counts = summed(counts, got)
     check(m4k.shape == (1, 1, H4K, W4K, 3) and m4k.std() > 1.0, "serve_int8 4K: output")
-    emit("serve_int8", shape=[1, 2, H1080, W1080, 3], calibration_ms=calib_ms,
-         first_request_ms_with_calibration=first_ms, int8_ms_per_request=ms8,
-         bf16_ms_per_request_same_run=ms16, int8_vs_bf16=agree,
-         int8_vs_bf16_psnr_bar_db=INT8_VS_BF16_PSNR_DB,
-         launches_per_request=INT8_PER_REQUEST, launches=counts,
+    emit("serve_int8", shape=[1, 2, H1080, W1080, 3], calibration=calibration,
+         first_request_ms_with_calibration_and_prepare={"absmax": first_ms, "p99.9": first_p_ms,
+                                                        "absmax_4k": first_4k_ms},
+         int8_ms_per_request=ms8, int8_p99_9_ms_per_request=ms8p,
+         bf16_ms_per_request_same_run=ms16, int8_vs_bf16=agree, int8_p99_9_vs_bf16=agree_p,
+         int8_vs_bf16_psnr_bar_db=INT8_VS_BF16_PSNR_DB, saturation=saturation,
+         launches_per_request=INT8_PER_REQUEST, launches_prepare=PREPARE_INT8, launches=counts,
          ms_4k_int8_request=ms4k, launches_per_4k_request=INT8_4K_PER_REQUEST,
          peak_device_gib_per_int8_request=peaks, peak_device_gib_4k_int8_request=peak4k)
     return counts
+
+
+def _held_bytes(tree) -> int:
+    """Bytes of the distinct tensors a prep holds."""
+    seen = {}
+
+    def walk(v):
+        if isinstance(v, torch.Tensor):
+            seen[v.data_ptr()] = v.untyped_storage().nbytes()
+        elif isinstance(v, dict):
+            for x in v.values():
+                walk(x)
+        elif isinstance(v, (tuple, list)):
+            for x in v:
+                walk(x)
+    walk(tree)
+    return sum(seen.values())
+
+
+def phase_prepare_once(params, dev):
+    """Each path through the preparing Interpolator: its prepare alone (host
+    clock after a sync, launches, the memory the prep holds), then a request
+    bit-equal (u8 frames) to ``device_step`` with the same stats and no
+    ``packed_params``, which prepares per call. A 1080p prep given to a 4K
+    request and an int8 prep given stats of other values raise."""
+    paths = [
+        # (name, (h, w), compute dtype, int8, percentile, launches of the prepare)
+        ("bf16_1080p", (H1080, W1080), "bfloat16", False, None, PREPARE),
+        ("bf16_4k", (H4K, W4K), "bfloat16", False, None, PREPARE),
+        ("float32_1080p", (H1080, W1080), "float32", False, None, PREPARE),
+        ("int8_absmax_1080p", (H1080, W1080), "bfloat16", True, None, PREPARE_INT8),
+        ("int8_p99.9_1080p", (H1080, W1080), "bfloat16", True, 99.9, PREPARE_INT8),
+    ]
+    out, keep = [], {}
+    for i, (name, hw, dt, int8, pct, want_prep) in enumerate(paths):
+        interp = Interpolator(params, compute_dtype=dt, use_pallas=True, int8=int8,
+                              int8_percentile=pct, device=dev)
+        pairs = moving_squares(40 + i, *hw)
+        pad_hw, key = interp._pad(pairs)
+        if int8:
+            interp._ensure_quant_stats(torch.from_numpy(pairs).to(dev), pad_hw, key)
+        stats = interp._quant_stats.get(key)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        prep, prep_launches = counted(lambda: interp._prepared(key))
+        torch.cuda.synchronize()
+        prep_ms = (time.perf_counter() - t0) * 1e3
+        held = torch.cuda.memory_allocated() - base
+        check_launches(f"prepare_once {name}: prepare", NO_LAUNCHES, prep_launches, want_prep)
+        check(prep is not None and prep.hw == key and prep.quant_stats is stats,
+              f"prepare_once {name}: the Interpolator did not prepare")
+        got, launches = counted(lambda: interp.step(pairs).cpu().numpy())
+        check(launches["conv_up_prep"] == 0,
+              f"prepare_once {name}: a prepared request made {launches['conv_up_prep']} preps")
+        want, unprepared = counted(lambda: device_step(
+            params, pairs, compute_dtype=interp.compute_dtype, use_pallas=True, pad_hw=pad_hw,
+            quant_stats=stats, device=dev).cpu().numpy())
+        check(unprepared["conv_up_prep"] == want_prep["conv_up_prep"],
+              f"prepare_once {name}: the unprepared request made "
+              f"{unprepared['conv_up_prep']} preps")
+        check(got.shape == want.shape and np.array_equal(got, want),
+              f"prepare_once {name}: prepared and unprepared requests differ "
+              f"{_u8_agreement(got, want)}")
+        out.append({"path": name, "shape": [1, 2, *hw, 3], "bit_equal": True,
+                    "prepare_ms": prep_ms,
+                    "prepare_launches": {k: v for k, v in prep_launches.items() if v},
+                    "held_bytes": _held_bytes(prep.tree), "allocated_delta_bytes": held,
+                    "prepared_request_preps": launches["conv_up_prep"],
+                    "unprepared_request_preps": unprepared["conv_up_prep"]})
+        keep[name] = (prep, stats)
+    # The checks of forward(packed_params=): a 1080p prep on a 4K request
+    # (K6 in place of K9 at u3c1/u4c1), an int8 prep with other stats.
+    z = torch.zeros((1, H4K, W4K, 3), device=dev)
+    refused = {}
+    for name, call in (
+        ("flags", lambda: forward(params, z, z, 0.5, compute_dtype=torch.bfloat16,
+                                  use_pallas=True, packed=True,
+                                  packed_params=keep["bf16_1080p"][0], device=dev)),
+        ("fingerprint", lambda: forward(
+            params, z[:, :HP, :WP], z[:, :HP, :WP], 0.5, compute_dtype=torch.bfloat16,
+            use_pallas=True, packed=True, packed_params=keep["int8_absmax_1080p"][0],
+            quant_stats=scale_quant_stats(keep["int8_absmax_1080p"][1], 1.01), device=dev)),
+    ):
+        try:
+            call()
+        except ValueError as e:
+            refused[name] = str(e)[:120]
+            continue
+        check(False, f"prepare_once: a mismatched prep ({name}) was not refused")
+    emit("prepare_once", paths=out, refused=refused)
 
 
 def phase_serve_plain(params, dev):
@@ -1010,7 +1203,8 @@ def _profile_group(name: str, plain: bool = False) -> str:
 def phase_profile(params, dev, path, top: int = 12, hw=(H1080, W1080), n=2,
                   compute_dtype="bfloat16", **kw):
     """Device time of ``n`` served requests by group of kernels, on the path
-    the Interpolator's keywords ``kw`` select (named ``path``)."""
+    the Interpolator's keywords ``kw`` select (named ``path``), after a
+    first request that prepares (and in int8 calibrates)."""
     from torch.profiler import ProfilerActivity, profile
 
     interp = Interpolator(params, compute_dtype=compute_dtype, use_pallas=True, exp=1,
@@ -1035,13 +1229,17 @@ def phase_profile(params, dev, path, top: int = 12, hw=(H1080, W1080), n=2,
     torch.cuda.reset_peak_memory_stats()
     serve_request(interp, pairs)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_kernels = sum(r[2] for r in rows)
+    if kw.get("int8") and hw == (H1080, W1080):
+        check(n_kernels < INT8_KERNELS_MAX,
+              f"profile {path}: {n_kernels} kernels a prepared int8 request")
     # The profiler slows the host, so the idle share is taken against the
     # requests timed just before it was switched on.
     emit("profile", path=path, shape=[1, 2, *hw, 3], requests=n, compute_dtype=compute_dtype,
          peak_device_gib_one_request=peak,
          ms_per_request_unprofiled=plain_ms, device_busy_ms_per_request=busy,
          device_idle_share=max(0.0, 1.0 - busy / plain_ms),
-         kernels_per_request=sum(r[2] for r in rows), by_group=groups,
+         kernels_per_request=n_kernels, by_group=groups,
          top=[{"kernel": k[:90], "ms": ms, "calls": c} for k, ms, c in rows[:top]])
 
 
@@ -1087,10 +1285,13 @@ def phase_serve_fp32_packed(params, dev):
                          device=dev)
     check(packed.packed is None, "serve_fp32_packed: the packed default is not None")
     pairs = [moving_squares(20 + i, H1080, W1080) for i in range(3)]
-    serve_request(packed, pairs[0])  # warm-up
-    serve_request(plain, pairs[0])
-    # Each request's launches counted from 0, summed by path.
-    counts = {"packed": dict(NO_LAUNCHES), "plain": dict(NO_LAUNCHES)}
+    _, first = counted(lambda: serve_request(packed, pairs[0]))  # prepares
+    check_launches("serve_fp32_packed first request", NO_LAUNCHES, first,
+                   summed(FP32_PACKED_PER_REQUEST, PREPARE))
+    serve_request(plain, pairs[0])  # warm-up
+    # Each request's launches counted from 0, summed by path (the prepare's
+    # with the packed path's).
+    counts = {"packed": first, "plain": dict(NO_LAUNCHES)}
     ms = {"packed": [], "plain": []}
     peaks = {"packed": [], "plain": []}
     agree = []
@@ -1121,19 +1322,61 @@ def phase_serve_fp32_packed(params, dev):
           f"serve_fp32_packed: forward packed against plain max abs {err} > {F32_CASCADE_ATOL}")
     # One float32 request at 4K: K6 in place of K9.
     wide = moving_squares(0, H4K, W4K)
-    serve_request(packed, wide)  # warm-up
+    _, first_4k = counted(lambda: serve_request(packed, wide))  # prepares
+    check_launches("serve_fp32_packed 4K first request", NO_LAUNCHES, first_4k,
+                   summed(FP32_PACKED_4K_PER_REQUEST, PREPARE))
     torch.cuda.reset_peak_memory_stats()
     (m4k, ms4k), counts_4k = counted(lambda: serve_request(packed, wide))
     peak4k = torch.cuda.max_memory_allocated() / 2 ** 30
     check_launches("serve_fp32_packed 4K", NO_LAUNCHES, counts_4k, FP32_PACKED_4K_PER_REQUEST)
+    counts_4k = summed(first_4k, counts_4k)
     check(m4k.shape == (1, 1, H4K, W4K, 3) and m4k.std() > 1.0, "serve_fp32_packed 4K: output")
     emit("serve_fp32_packed", shape=[1, 2, H1080, W1080, 3], compute_dtype="float32",
          tf32=False, requests=len(pairs), ms_per_request=ms, peak_device_gib_per_request=peaks,
          packed_vs_plain_u8=agree, forward_packed_vs_plain_max_abs=err,
          forward_atol=F32_CASCADE_ATOL, launches_per_request=FP32_PACKED_PER_REQUEST,
-         launches=counts, ms_4k_request=ms4k, peak_device_gib_4k_request=peak4k,
+         launches_prepare=PREPARE, launches=counts, ms_4k_request=ms4k,
+         peak_device_gib_4k_request=peak4k,
          launches_4k_request=FP32_PACKED_4K_PER_REQUEST)
     return counts["packed"], counts_4k
+
+
+TRAINED = "benchmarks/trained_synth_f16.npz"
+
+
+def phase_int8_trained(dev):
+    """int8 quality with the trained checkpoint of the repo: on two 1080p
+    pairs, bf16, int8 absmax and int8 at the 99.9th percentile (each
+    Interpolator calibrating on the first pair) against the float32 packed
+    output. The JAX package's bar for int8 against float32 (> 35 dB,
+    tests/test_int8.py) holds absmax; it sets none for the percentile."""
+    import os
+
+    params = load_params(os.path.join(os.path.dirname(os.path.abspath(__file__)), TRAINED),
+                         device=dev)
+    modes = {
+        "float32": dict(compute_dtype="float32"),
+        "bf16": dict(compute_dtype="bfloat16"),
+        "int8_absmax": dict(compute_dtype="bfloat16", int8=True),
+        "int8_p99.9": dict(compute_dtype="bfloat16", int8=True, int8_percentile=99.9),
+    }
+    interps = {m: Interpolator(params, use_pallas=True, device=dev, **kw)
+               for m, kw in modes.items()}
+    scores = {m: [] for m in modes if m != "float32"}
+    for seed in (50, 51):
+        pairs = moving_squares(seed, H1080, W1080)
+        outs = {m: it.step(pairs).cpu().numpy() for m, it in interps.items()}
+        check(outs["float32"].std() > 1.0, "int8_trained: float32 output is constant")
+        for m in scores:
+            scores[m].append(_u8_agreement(outs[m], outs["float32"]))
+    for a in scores["int8_absmax"]:
+        check(a["psnr_db"] > INT8_VS_BF16_PSNR_DB, f"int8_trained: int8 absmax vs float32 {a}")
+    emit("int8_trained", checkpoint=TRAINED, shape=[1, 2, H1080, W1080, 3],
+         against="float32 packed", bar_int8_absmax_db=INT8_VS_BF16_PSNR_DB, **scores,
+         saturation_p99_9=_rates_summary(interps["int8_p99.9"].saturation_rates(
+             moving_squares(50, H1080, W1080))))
+    del interps, params
+    torch.cuda.empty_cache()
 
 
 def _u8_agreement(a: np.ndarray, b: np.ndarray) -> dict:
@@ -1241,25 +1484,19 @@ def _conv_entry(name, source, cases, launches, what, peak_ops=BF16_FLOPS, mode="
 
     t_ops = total("flops") / peak_ops * 1e3
     t_bytes = total("bytes") / HBM_BYTES_PER_S * 1e3
-    return {
+    library = any(c["library_ms"] is not None for c in per_unet)
+    entry = {
         "name": name + mode, "route": "cuda", "source": source,
         "replaces": TPU_KERNEL_LINES[name], "launches": launches,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
         "bound_ms": total("bound_ms"),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": total("library_ms"), "what": what,
+        "library_ms": total("library_ms") if library else None, "what": what,
     }
-
-
-def _int8_entry(cases, launches):
-    """The int8 mode of one packed kernel: its sites as timed above and its
-    launches on the int8 path."""
-    keep = ("site", "out_shape", "cins", "k", "int8_inputs", "int8_output", "max_abs_err",
-            "kernel_ms", "kernel_prepared_ms", "plain_ms", "bound_ms", "bound_by")
-    return {"launches": launches, "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "library_ms": None, "library_null_reason": NO_INT8_LIBRARY,
-            "sites": [{k: c[k] for k in keep} for c in cases]}
+    if not library:
+        entry["library_null_reason"] = NO_INT8_LIBRARY
+    return entry
 
 
 def kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_4k,
@@ -1326,12 +1563,29 @@ def kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_
         entry["prepared_ms"] = sum(c["kernel_prepared_ms"] * c["per_flow_unet"]
                                    for c in cases if c["per_flow_unet"])
         entry["core"] = f"wgmma, mode {SM90_MODE[name]} of conv_sm90.cuh"
-        entry["int8"] = _int8_entry([c for c in int8 if c["kernel"] == name],
-                                    int8_counts[f"{name}_int8"])
-        check(entry["int8"]["launches"] > 0, f"{name}: no int8 launch on the int8 path")
         entries.append(entry)
     check(sorted(e["name"] for e in entries) == sorted(TPU_KERNEL_LINES),
           "the closing line lists the nine TPU kernels")
+    for name in ("conv_packed", "conv_pool_packed", "conv_up_packed", "conv_up_m_packed",
+                 "conv_up_f_packed"):
+        # the int8 mode, launches from serve_int8 (its first requests
+        # calibrate and prepare)
+        cases = [c for c in int8 if c["kernel"] == name]
+        k6 = name == "conv_up_packed"
+        entry = _conv_entry(
+            name, "rrin_tpu_torch/csrc/" + SM90[name], cases, int8_counts[f"{name}_int8"],
+            "int8 mode (s8 wgmma, int32 sums): sum over the "
+            f"{sum(c['per_flow_unet'] for c in cases)} int8 launches of one flow U-Net at "
+            f"{'2160x3840' if k6 else '1088x1920'} with the carry plan's int8 operands and "
+            "outputs; launches from serve_int8", INT8_OPS, "_int8")
+        entry["prepared_ms"] = sum(c["kernel_prepared_ms"] * c["per_flow_unet"]
+                                   for c in cases if c["per_flow_unet"])
+        entry["core"] = f"wgmma m64nNk32.s32.s8.s8, mode {SM90_MODE[name]} of conv_sm90.cuh"
+        entry["sites"] = [{k: c[k] for k in (
+            "site", "out_shape", "cins", "k", "int8_inputs", "int8_output", "max_abs_err",
+            "kernel_ms", "kernel_prepared_ms", "plain_ms", "bound_ms", "bound_by",
+            "per_flow_unet")} for c in cases]
+        entries.append(entry)
     for name in ("conv_packed", "conv_pool_packed", "conv_up_packed", "conv_up_m_packed",
                  "conv_up_f_packed"):
         # the float32 mode on the Hopper core, launches from serve_fp32_packed
@@ -1383,6 +1637,8 @@ def _prep_entry(packed, packed_f32, conv, serve_counts, f32_counts, plain_counts
                          "prep_conv_pool, :1010, prep_conv_up_m, :1642): XLA weight fold "
                          "and layout, not a Pallas kernel",
         "launches": serve_counts["conv_up_prep"],
+        "launches_are": "the prepares of phase serve (once per Interpolator and "
+                        "resolution: 76 each); a prepared request makes none",
         "max_abs_err": max(c["prep_max_abs_err"] for c in cases),
         "ms": total("prep_ms"), "plain_ms": total("prep_plain_ms"),
         "bound_ms": total("prep_bytes") / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
@@ -1392,6 +1648,7 @@ def _prep_entry(packed, packed_f32, conv, serve_counts, f32_counts, plain_counts
                 "prep_conv_up_m / prep_conv_up_f (and to prep_conv_up at K6's sites)",
         "float32": {
             "launches": f32_counts["conv_up_prep"],
+            "launches_are": "the prepare of phase serve_fp32_packed's 1080p Interpolator",
             "max_abs_err": max(c["prep_max_abs_err"] for c in f32),
             "ms": total("prep_ms", f32), "plain_ms": total("prep_plain_ms", f32),
             "bound_ms": total("prep_bytes", f32) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
@@ -1447,12 +1704,14 @@ def main() -> int:
     serve_counts = phase_serve(params, dev)
     counts_4k = phase_serve_4k(params, dev)
     int8_counts = phase_serve_int8(params, dev)
+    phase_prepare_once(params, dev)
     plain_counts = phase_serve_plain(params, dev)
     if "--profile" in sys.argv[1:]:
         phase_profile(params, dev, "packed")
         phase_profile(params, dev, "plain", packed=False)
         phase_profile(params, dev, "int8", n=1, int8=True)
         phase_profile(params, dev, "packed 4K", hw=(H4K, W4K), n=1)
+        phase_profile(params, dev, "int8 4K", hw=(H4K, W4K), n=1, int8=True)
     fp32_counts = phase_serve_fp32(params, dev)
     f32_counts, f32_counts_4k = phase_serve_fp32_packed(params, dev)
     if "--profile" in sys.argv[1:]:
@@ -1461,6 +1720,7 @@ def main() -> int:
                       packed=False)
         phase_profile(params, dev, "float32 packed 4K", compute_dtype="float32", n=1,
                       hw=(H4K, W4K))
+    phase_int8_trained(dev)
     phase_agreement(params, dev)
 
     summary = kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_4k,

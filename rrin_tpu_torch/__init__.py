@@ -22,14 +22,13 @@ from rrin_tpu_torch.models.rrin import (
     forward_saturation,
     init_params,
     merge_quant_stats,
+    prepare_packed_params,
     scale_quant_stats,
 )
 
 __version__ = "0.1.0"
 
-# The JAX package's names but prepare_packed_params (prepare-once params,
-# ROADMAP.md Queue A item 1). forward_saturation raises NotImplementedError
-# (Queue A item 2).
+# The JAX package's names.
 __all__ = [
     "RRIN",
     "ModelConfig",
@@ -39,5 +38,6 @@ __all__ = [
     "forward_saturation",
     "merge_quant_stats",
     "scale_quant_stats",
+    "prepare_packed_params",
     "__version__",
 ]

@@ -21,6 +21,7 @@ sigmoid, blend and residual stay float32 (no autocast anywhere).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 from typing import Any, Dict, Optional, Union
 
@@ -30,9 +31,11 @@ import torch
 from rrin_tpu_torch._device import DeviceLike, resolve_device
 from rrin_tpu_torch.config import ModelConfig
 from rrin_tpu_torch.models.unet import (
-    _PERCENTILE_ITEM,
     packed_bf16_supported,
+    packed_branch_flags,
     packed_supported,
+    prepare_sites,
+    reference_carry_flags,
     unet_apply,
     unet_apply_packed,
     unet_apply_stats,
@@ -161,6 +164,7 @@ def forward(
     remat: bool = False,
     packed: Optional[bool] = False,
     quant_stats: Optional[QuantStats] = None,
+    packed_params: Optional["PackedParams"] = None,
     flows: Optional[torch.Tensor] = None,
     flows_only: bool = False,
     device: DeviceLike = "cuda",
@@ -193,6 +197,15 @@ def forward(
         ``ValueError`` without it); every packed conv but the heads then runs
         int8 x int8 -> int32. Quality bar: > 35 dB PSNR against the float32
         output (the JAX package's).
+      packed_params: the packed convs' weight-side constants from
+        :func:`prepare_packed_params` (built with the same ``compute_dtype``
+        and ``quant_stats``); on the packed path no conv then prepares its
+        weights per call. Raises ``ValueError`` where the prep's shape
+        routes the U-Net otherwise than this call's, where one of the prep
+        and the call has int8 stats and the other not, or where the stats'
+        values differ from the prep's (checked by a host-side hash only
+        when ``quant_stats`` is another object than the one the prep was
+        built with: the same object costs no sync).
       flows: optional precomputed flow-U-Net output (B, H, W, 4) from a
         ``flows_only=True`` call on the same (i0, i1); skips that U-Net.
       flows_only: run only the t-independent flow U-Net and return its
@@ -229,12 +242,18 @@ def forward(
         raise ValueError(
             "quant_stats (int8) requires the packed fast path: pass packed=True "
             "on a supported shape/config")
-    apply_fn = unet_apply_packed if use_packed else unet_apply
+    prep = packed_params if use_packed else None
+    if isinstance(prep, PackedParams):
+        _check_packed_params(prep, i0f.shape[-3], i0f.shape[-2], cfg, quant_stats)
+        prep = prep.tree
 
     def run_unet(name: str, *feats: torch.Tensor) -> torch.Tensor:
         x = torch.cat([f.to(cd) for f in feats], dim=-1)
-        absmax = () if quant_stats is None else (quant_stats[name],)
-        return apply_fn(params[name], x, cfg, *absmax).to(f32)
+        if not use_packed:
+            return unet_apply(params[name], x, cfg).to(f32)
+        return unet_apply_packed(
+            params[name], x, cfg, None if quant_stats is None else quant_stats[name],
+            None if prep is None else prep[name]).to(f32)
 
     with torch.no_grad():
         if flows_only:
@@ -264,12 +283,40 @@ def forward_calibrate(
     stats)`` with stats as device scalars; fold stats over several
     calibration pairs with :func:`merge_quant_stats`, scale them with
     :func:`scale_quant_stats`, then pass them as ``forward(...,
-    quant_stats=...)``. ``quantile`` (percentile clipping) is not ported and
-    raises ``NotImplementedError``.
+    quant_stats=...)``. ``quantile`` (in (0, 1]) records the q-quantile of
+    |x| instead of the maximum: percentile clipping, whose clip rate
+    :func:`forward_saturation` measures.
     """
-    if quantile is not None:
-        raise NotImplementedError(
-            f"forward_calibrate(quantile=) is not ported yet: {_PERCENTILE_ITEM}")
+    return _plain_stats(params, i0, i1, t, cfg, compute_dtype, use_pallas, device,
+                        quantile=quantile)
+
+
+def forward_saturation(
+    params: Params,
+    i0: torch.Tensor,
+    i1: torch.Tensor,
+    quant_stats: QuantStats,
+    t: TimeLike = 0.5,
+    cfg: ModelConfig = ModelConfig(),
+    compute_dtype: torch.dtype = torch.float32,
+    use_pallas: bool = False,
+    device: DeviceLike = "cuda",
+) -> QuantStats:
+    """int8 saturation telemetry: per U-Net and site, the share of
+    activation values that the serving grid clips on this input,
+    ``mean(|x| > range)`` against ``quant_stats`` (pass the serving stats,
+    margin applied). Runs the plain cascade as :func:`forward_calibrate`
+    does; the rates stay on the device. Absmax calibration with a margin
+    reads 0 everywhere on its own calibration input; percentile clipping
+    trades a bounded rate for a finer grid."""
+    return _plain_stats(params, i0, i1, t, cfg, compute_dtype, use_pallas, device,
+                        ranges=quant_stats)[1]
+
+
+def _plain_stats(params, i0, i1, t, cfg, compute_dtype, use_pallas, device, quantile=None,
+                 ranges=None) -> tuple:
+    """The plain cascade with ``unet_apply_stats`` in every U-Net: (out,
+    per-U-Net stats)."""
     dev = resolve_device(device)
     f32 = torch.float32
     i0f = torch.as_tensor(i0).to(device=dev, dtype=f32).contiguous()
@@ -280,7 +327,9 @@ def forward_calibrate(
 
     def run_unet(name: str, *feats: torch.Tensor) -> torch.Tensor:
         x = torch.cat([f.to(cd) for f in feats], dim=-1)
-        out, stats[name] = unet_apply_stats(params[name], x, cfg)
+        out, stats[name] = unet_apply_stats(
+            params[name], x, cfg, quantile=quantile,
+            ranges=None if ranges is None else ranges[name])
         return out.to(f32)
 
     with torch.no_grad():
@@ -289,10 +338,103 @@ def forward_calibrate(
     return out, stats
 
 
-def forward_saturation(*args, **kwargs):
-    """int8 saturation telemetry (the fraction of activations the serving
-    grid clips): not ported yet."""
-    raise NotImplementedError(f"forward_saturation is not ported yet: {_PERCENTILE_ITEM}")
+# --------------------------------------------------------------- prepare once
+
+def _stats_fingerprint(stats: QuantStats) -> str:
+    """A hash of the names and float32 values of a stats tree: one copy of
+    every value to the host, so it is not for the served path."""
+    names = sorted((u, k) for u, sites in stats.items() for k in sites)
+    h = hashlib.sha1(repr(names).encode())
+    h.update(np.array([float(stats[u][k]) for u, k in names], np.float32).tobytes())
+    return h.hexdigest()
+
+
+def _prep_flags(h: int, w: int, cfg: ModelConfig) -> tuple:
+    """What a prep's validity depends on at (h, w): the port's routing of
+    the sites and the JAX package's branch flags that set the int8 carry
+    plan (together, the JAX package's own branch flags)."""
+    return packed_branch_flags(h, w, cfg), reference_carry_flags(h, w, cfg)
+
+
+@dataclasses.dataclass(eq=False)
+class PackedParams:
+    """The packed convs' weight-side constants (U-Net -> site -> the
+    ``prepared=`` of its wrapper), the shape whose routing they were
+    prepared under, the fingerprint of the int8 stats folded into them
+    (None without int8) and those stats themselves, so that :func:`forward`
+    recognises the same object without hashing it."""
+
+    tree: Dict[str, Dict[str, dict]]
+    hw: tuple
+    quant_fp: Optional[str] = None
+    quant_stats: Optional[QuantStats] = None
+
+
+def _check_packed_params(prep: PackedParams, h: int, w: int, cfg: ModelConfig,
+                         quant_stats: Optional[QuantStats]) -> None:
+    """The JAX package's three checks of ``forward(packed_params=)``."""
+    if _prep_flags(*prep.hw, cfg) != _prep_flags(h, w, cfg):
+        raise ValueError(
+            f"packed_params were prepared for shape {prep.hw}, whose kernel-branch "
+            f"configuration differs from {h}x{w}: re-run prepare_packed_params with "
+            "hw matching the serving shape")
+    if (quant_stats is None) != (prep.quant_fp is None):
+        raise ValueError(
+            "packed_params/quant_stats mismatch: the prep was built "
+            + ("with" if prep.quant_fp else "without")
+            + " int8 calibration but forward was called "
+            + ("without" if prep.quant_fp else "with")
+            + " quant_stats; re-run prepare_packed_params with the serving quant_stats")
+    if (quant_stats is not None and quant_stats is not prep.quant_stats
+            and _stats_fingerprint(quant_stats) != prep.quant_fp):
+        raise ValueError(
+            "packed_params were prepared under other quant_stats values than those "
+            "passed to forward: re-run prepare_packed_params with the serving stats")
+
+
+def _prepare_packed_collect(
+    params: Params, cfg: ModelConfig, compute_dtype: torch.dtype,
+    quant_stats: Optional[QuantStats], hw: tuple,
+) -> Dict[str, Dict[str, dict]]:
+    """Every packed site's weight-side constants, U-Net by U-Net
+    (``models.unet.prepare_sites`` at ``hw``), on the device of the
+    weights."""
+    return {
+        name: prepare_sites(params[name], hw[0], hw[1], cfg,
+                            None if quant_stats is None else quant_stats[name],
+                            compute_dtype)
+        for name in UNET_SIGNATURES
+    }
+
+
+def prepare_packed_params(
+    params: Params,
+    cfg: ModelConfig = ModelConfig(),
+    compute_dtype: torch.dtype = torch.bfloat16,
+    quant_stats: Optional[QuantStats] = None,
+    hw: tuple = (320, 64),
+    device: DeviceLike = "cuda",
+) -> PackedParams:
+    """Prepare every packed conv's weight-side constants once: the weight
+    layouts of the Hopper core (bfloat16 or float32 by ``compute_dtype``,
+    laid out on the card by its prep kernel) or, with ``quant_stats``, the
+    int8 codes with their scales and biases folded with the serving ranges.
+    The constants do not depend on the shape, but which kernel serves a site
+    and which sites carry int8 follow the branch flags of ``hw``: prepare
+    with the serving shape (or one with the same flags; the default enables
+    every branch). Pass the result as ``forward(..., packed_params=...)``,
+    with the same ``compute_dtype`` and the same ``quant_stats``. ``params``
+    lie on ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    for name in UNET_SIGNATURES:
+        w = params[name]["conv1"]["w"]
+        if w.device.type != dev.type:
+            raise ValueError(f"params lie on {w.device}, not on {dev}")
+    with torch.no_grad():
+        tree = _prepare_packed_collect(params, cfg, compute_dtype, quant_stats, hw)
+    return PackedParams(
+        tree, tuple(hw), None if quant_stats is None else _stats_fingerprint(quant_stats),
+        quant_stats)
 
 
 def _map_stats(fn, *trees):

@@ -28,16 +28,24 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from rrin_tpu_torch._device import DeviceLike, resolve_device
 from rrin_tpu_torch.config import ModelConfig
 from rrin_tpu_torch.ops.conv_packed import (
+    _is_f32,
+    _prep_on_card,
     conv_packed,
     conv_pool_packed,
     conv_up_f_packed,
     conv_up_m_packed,
     conv_up_packed,
+    prep_conv,
+    prep_conv_pool,
+    prep_conv_up,
+    prep_conv_up_f,
+    prep_conv_up_m,
     supports,
     supports_pool,
     supports_up,
@@ -160,34 +168,76 @@ QUANT_SITES = {
     "u4c1": ("u3c2",), "u4c2": ("u4c1", "c2"),
 }
 
-# What the deferred calibration modes raise with.
-_PERCENTILE_ITEM = (
-    "ROADMAP.md Queue A item 'percentile calibration and saturation telemetry'")
+
+def _f32_quantile(a: torch.Tensor, q: float) -> torch.Tensor:
+    """``jnp.quantile(a.astype(float32).ravel(), q)`` (linear) of a float
+    tensor, bit for bit, as a float32 scalar on the device of ``a``, with no
+    host sync. The order statistics are selected in the dtype of ``a`` (a
+    cast to float32 is exact and keeps the order), then cast.
+
+    The reference's index arithmetic is float32 throughout: ``pos = q *
+    (n - 1)`` with ``n`` and ``q`` float32, ``low``/``high`` its floor and
+    ceil, weight ``pos - low``, result ``lo * (1 - w) + hi * w``. Above 2^24
+    elements the position is a rounded float32 (and the weight 0), so it is
+    computed here in numpy float32, from the static size alone; a float64
+    position picks other order statistics. XLA's CPU backend contracts the
+    last multiply-add into one FMA, ``fma(hi, w, lo * (1 - w))``; float64
+    reproduces it (the product is exact there, the sum rounds once more
+    only where float32 would meet a tie). The two order statistics come
+    from one ``torch.topk`` of the smaller side (``torch.quantile`` refuses
+    more than 2^24 elements; a 1080p activation has 67 M)."""
+    a = a.reshape(-1)
+    n = a.numel()
+    one, nf = np.float32(1), np.float32(n)
+    pos = np.float32(q) * (nf - one)
+    low, high = np.floor(pos), np.ceil(pos)
+    w_hi = pos - low
+    w_lo = one - w_hi
+    lo = int(np.clip(low, np.float32(0), nf - one))
+    hi = int(np.clip(high, np.float32(0), nf - one))
+    if lo >= n // 2:  # the top n - lo values: lo is their least, hi the next
+        side = torch.topk(a, n - lo, sorted=False).values
+        pair = torch.topk(side, min(2, n - lo), largest=False).values
+        v_lo, v_hi = pair[0].float(), pair[hi - lo].float()
+    else:  # the bottom hi + 1 values: hi is their greatest, lo the one before
+        side = torch.topk(a, hi + 1, largest=False, sorted=False).values
+        pair = torch.topk(side, min(2, hi + 1)).values
+        v_lo, v_hi = pair[hi - lo].float(), pair[0].float()
+    return (v_hi.double() * float(w_hi) + (v_lo * float(w_lo)).double()).float()
 
 
 def unet_apply_stats(
     p: Params, x: torch.Tensor, cfg: ModelConfig, quantile=None, ranges=None,
 ) -> tuple:
-    """:func:`unet_apply` + per-tensor |x| maxima for int8 calibration.
+    """:func:`unet_apply` + per-tensor |x| statistics for int8 calibration.
 
     Returns (out, stats): stats maps each conv-output name (plus "in") to a
-    float32 scalar tensor on the device of ``x``, the absmax that the int8
-    packed path consumes (pool and upsample between sites are convex
-    combinations, so a producer's absmax bounds every consumer). Nothing is
-    read back to the host.
+    float32 scalar tensor on the device of ``x``. Nothing is read back to
+    the host. Three modes, as the JAX package's:
 
-    The JAX package's two other modes, ``quantile`` (percentile clipping) and
-    ``ranges`` (saturation rates), are not ported and raise
-    ``NotImplementedError``.
+    - default: the |x| maximum, the range that the int8 packed path consumes
+      (pool and upsample between sites are convex combinations, so a
+      producer's absmax bounds every consumer);
+    - ``quantile`` (in (0, 1]): the q-quantile of |x| in float32, equal to
+      ``jnp.quantile`` bit for bit (:func:`_f32_quantile`): percentile
+      clipping, whose clipped tail saturates;
+    - ``ranges`` (a stats dict of this U-Net, margin applied): the
+      saturation rate ``mean(|x| > range)``, the share of values the int8
+      grid clips. |x| is compared in float32 (a bfloat16 tensor against a
+      float32 scalar compares in bfloat16 in PyTorch, in float32 in JAX).
     """
-    if quantile is not None or ranges is not None:
-        raise NotImplementedError(
-            "unet_apply_stats(quantile=/ranges=) is not ported yet: "
-            f"{_PERCENTILE_ITEM}")
+    if quantile is not None and ranges is not None:
+        raise ValueError("quantile and ranges are mutually exclusive")
     stats = {}
 
     def rec(name, t):
-        stats[name] = t.abs().amax().float()
+        if ranges is not None:
+            r = torch.as_tensor(ranges[name], dtype=torch.float32, device=t.device)
+            stats[name] = torch.count_nonzero(t.abs().float() > r).float() / float(t.numel())
+        elif quantile is not None:
+            stats[name] = _f32_quantile(t.abs(), quantile)
+        else:
+            stats[name] = t.abs().amax().float()
         return t
 
     return _unet(p, x, cfg, rec), stats
@@ -355,6 +405,102 @@ def int8_carry(h: int, w: int, cfg: ModelConfig) -> set:
     return carry
 
 
+# The 19 sites of the packed path in the order of its walk: site -> (params
+# path, kernel, operands). "up" is conv_up_f_packed (K9) or conv_up_packed
+# (K6) as packed_branch_flags routes the site; a two-operand site reads the
+# skip beside the upsampled branch, half of its channels each. The walk of
+# unet_apply_packed and prepare_sites both read their sites from here.
+PACKED_SITES = {
+    "c1": (("conv1",), "conv_packed", 1),
+    "c2": (("conv2",), "conv_packed", 1),
+    "d1c1": (("down1", "conv1"), "conv_pool_packed", 1),
+    "d1c2": (("down1", "conv2"), "conv_packed", 1),
+    "d2c1": (("down2", "conv1"), "conv_pool_packed", 1),
+    "d2c2": (("down2", "conv2"), "conv_packed", 1),
+    "d3c1": (("down3", "conv1"), "conv_packed", 1),
+    "d3c2": (("down3", "conv2"), "conv_packed", 1),
+    "d4c1": (("down4", "conv1"), "conv_packed", 1),
+    "d4c2": (("down4", "conv2"), "conv_packed", 1),
+    "u1c1": (("up1", "conv1"), "conv_packed", 1),
+    "u1c2": (("up1", "conv2"), "conv_packed", 2),
+    "u2c1": (("up2", "conv1"), "conv_up_m_packed", 1),
+    "u2c2": (("up2", "conv2"), "conv_packed", 2),
+    "u3c1": (("up3", "conv1"), "up", 1),
+    "u3c2": (("up3", "conv2"), "conv_packed", 2),
+    "u4c1": (("up4", "conv1"), "up", 1),
+    "u4c2": (("up4", "conv2"), "conv_packed", 2),
+    "head": (("conv3",), "conv_packed", 1),
+}
+
+# kernel (the name of its wrapper in this module) -> its prep_*
+_PREPS = {
+    "conv_packed": prep_conv,
+    "conv_pool_packed": prep_conv_pool,
+    "conv_up_packed": prep_conv_up,
+    "conv_up_m_packed": prep_conv_up_m,
+    "conv_up_f_packed": prep_conv_up_f,
+}
+
+
+def _site_plan(h: int, w: int, cfg: ModelConfig,
+               absmax: Optional[Dict[str, torch.Tensor]]) -> Dict[str, tuple]:
+    """site -> (kernel, params path, operands, in_absmax, out_absmax) at (h,
+    w): the kernel as :func:`packed_branch_flags` routes the site; with
+    ``absmax`` the operands' ranges per ``QUANT_SITES`` and the output's
+    where :func:`int8_carry` keeps it on its int8 grid (Nones in bfloat16
+    and float32, and at the head)."""
+    flags = packed_branch_flags(h, w, cfg)
+    carry = int8_carry(h, w, cfg) if absmax is not None else set()
+    up = {"u3c1": flags[4], "u4c1": flags[5]}
+    plan = {}
+    for site, (path, kernel, n_ops) in PACKED_SITES.items():
+        if kernel == "up":
+            kernel = {2: "conv_up_f_packed", 1: "conv_up_packed"}[up[site]]
+        am = oam = None
+        if absmax is not None and site in QUANT_SITES:
+            am = tuple(absmax[n] for n in QUANT_SITES[site])
+            oam = absmax[site] if site in carry else None
+        plan[site] = (kernel, path, n_ops, am, oam)
+    return plan
+
+
+def _site_params(p: Params, path) -> Params:
+    for key in path:
+        p = p[key]
+    return p
+
+
+def prepare_sites(
+    p: Params, h: int, w: int, cfg: ModelConfig,
+    absmax: Optional[Dict[str, torch.Tensor]] = None,
+    dtype: torch.dtype = torch.bfloat16,
+) -> Dict[str, dict]:
+    """The weight-side constants of every site of :func:`unet_apply_packed`
+    at (h, w) (site -> the ``prepared=`` of its wrapper), built once from
+    the site table, on the device of the weights.
+
+    A bfloat16 or float32 site (``dtype``; the head also in int8) is
+    prepared on the card by the Hopper core's prep kernel, the launch its
+    wrapper makes per call without ``prepared=``, so prepared and
+    unprepared calls are bit-equal; on the CPU by its plain version
+    ``prep_*``. An int8 site (``absmax`` given) by ``prep_*`` in PyTorch:
+    codes, scale and bias folded with the ranges of its operands and, where
+    :func:`int8_carry` keeps its output int8, of its output."""
+    out = {}
+    for site, (kernel, path, n_ops, am, oam) in _site_plan(h, w, cfg, absmax).items():
+        prm = _site_params(p, path)
+        wt, b = prm["w"], prm["b"]
+        cins = (wt.shape[2] // n_ops,) * n_ops
+        prep = _PREPS[kernel]
+        if am is None and wt.device.type == "cuda":
+            out[site] = _prep_on_card(kernel, wt, b, cins, f32=_is_f32(dtype))
+        elif kernel == "conv_packed":
+            out[site] = prep(wt, b, cins, am, oam, dtype=dtype)
+        else:
+            out[site] = prep(wt, b, None if am is None else am[0], oam, dtype=dtype)
+    return out
+
+
 def unet_apply_packed(
     p: Params,
     x: torch.Tensor,
@@ -377,57 +523,51 @@ def unet_apply_packed(
     :func:`int8_carry` emit int8 for their consumers; the head stays in the
     dtype of ``x``. On the card int8 takes a bfloat16 ``x``.
 
-    ``prep``/``collect`` (prepare-once weight constants) are not ported yet
-    and raise ``NotImplementedError``.
+    ``prep``: every site's weight-side constants from :func:`prepare_sites`
+    (built with the same ``absmax`` and the dtype of ``x``), handed to the
+    wrappers as ``prepared=``: no conv then prepares its weights per call.
+    ``collect``: a dict that receives them (site -> constants), built here
+    from the site table without running a U-Net; this call then uses them.
     """
-    if prep is not None or collect is not None:
-        raise NotImplementedError(
-            "prep=/collect= (prepare-once packed params) are not ported yet: "
-            "ROADMAP.md Queue A item 1, 'Prepare-once params'")
     _, h, w, _ = x.shape
     if not packed_supported(h, w, cfg):
         raise ValueError(
             f"unet_apply_packed does not apply to {h}x{w} with {cfg}: check "
             "packed_supported first")
-    flags = packed_branch_flags(h, w, cfg)
+    if collect is not None:
+        collect.update(prepare_sites(p, h, w, cfg, absmax, x.dtype))
+        prep = collect
+    plan = _site_plan(h, w, cfg, absmax)
     s = cfg.leaky_slope
     dt = x.dtype
-    carry = int8_carry(h, w, cfg) if absmax is not None else set()
 
-    def q(site):
-        """(in_absmax, out_absmax) of a site, or Nones in bfloat16."""
-        if absmax is None or site not in QUANT_SITES:
-            return None, None
-        return (tuple(absmax[n] for n in QUANT_SITES[site]),
-                absmax[site] if site in carry else None)
+    def conv(site, *parts, slope=s):
+        kernel, path, _, am, oam = plan[site]
+        prm = _site_params(p, path)
+        pr = None if prep is None else prep[site]
+        if kernel == "conv_packed":
+            return conv_packed(list(parts), prm["w"], prm["b"], slope, prepared=pr,
+                               in_absmax=am, out_absmax=oam, out_dtype=dt)
+        return globals()[kernel](
+            parts[0], prm["w"], prm["b"], slope, prepared=pr,
+            in_absmax=None if am is None else am[0], out_absmax=oam, out_dtype=dt)
 
-    def conv(parts, prm, site, slope=s):
-        am, oam = q(site)
-        return conv_packed(parts, prm["w"], prm["b"], slope, in_absmax=am,
-                           out_absmax=oam, out_dtype=dt)
-
-    def fused(fn, t, prm, site):
-        am, oam = q(site)
-        return fn(t, prm["w"], prm["b"], s, in_absmax=None if am is None else am[0],
-                  out_absmax=oam, out_dtype=dt)
-
-    up_fn = {2: conv_up_f_packed, 1: conv_up_packed}
-    t = conv([x.contiguous()], p["conv1"], "c1")
-    s1 = conv([t], p["conv2"], "c2")
-    t = fused(conv_pool_packed, s1, p["down1"]["conv1"], "d1c1")
-    s2 = conv([t], p["down1"]["conv2"], "d1c2")
-    t = fused(conv_pool_packed, s2, p["down2"]["conv1"], "d2c1")
-    s3 = conv([t], p["down2"]["conv2"], "d2c2")
-    t = conv([avg_pool_2x(s3)], p["down3"]["conv1"], "d3c1")
-    s4 = conv([t], p["down3"]["conv2"], "d3c2")
-    t = conv([avg_pool_2x(s4)], p["down4"]["conv1"], "d4c1")
-    t = conv([t], p["down4"]["conv2"], "d4c2")
-    t = conv([upsample_2x_bilinear(t)], p["up1"]["conv1"], "u1c1")
-    t = conv([t, s4], p["up1"]["conv2"], "u1c2")
-    t = fused(conv_up_m_packed, t, p["up2"]["conv1"], "u2c1")
-    t = conv([t, s3], p["up2"]["conv2"], "u2c2")
-    t = fused(up_fn[flags[4]], t, p["up3"]["conv1"], "u3c1")
-    t = conv([t, s2], p["up3"]["conv2"], "u3c2")
-    t = fused(up_fn[flags[5]], t, p["up4"]["conv1"], "u4c1")
-    t = conv([t, s1], p["up4"]["conv2"], "u4c2")
-    return conv([t], p["conv3"], "head", slope=None)
+    t = conv("c1", x.contiguous())
+    s1 = conv("c2", t)
+    t = conv("d1c1", s1)
+    s2 = conv("d1c2", t)
+    t = conv("d2c1", s2)
+    s3 = conv("d2c2", t)
+    t = conv("d3c1", avg_pool_2x(s3))
+    s4 = conv("d3c2", t)
+    t = conv("d4c1", avg_pool_2x(s4))
+    t = conv("d4c2", t)
+    t = conv("u1c1", upsample_2x_bilinear(t))
+    t = conv("u1c2", t, s4)
+    t = conv("u2c1", t)
+    t = conv("u2c2", t, s3)
+    t = conv("u3c1", t)
+    t = conv("u3c2", t, s2)
+    t = conv("u4c1", t)
+    t = conv("u4c2", t, s1)
+    return conv("head", t, slope=None)

@@ -96,11 +96,12 @@ is no gate on H, W or M. Each wrapper launches its kernel for a CUDA tensor
 or raises; it takes the plain version beside it only for a CPU tensor.
 Forward only. ``prepared=`` takes the result of the matching
 ``prep_*`` (built with the same absmax and ``dtype``) and skips the per-call
-weight re-layout, split and quantisation. Without it, K5-K9 in bfloat16
+weight re-layout, split and quantisation; ``models.unet.prepare_sites``
+builds one for every site of a U-Net, once. Without it, K5-K9 in bfloat16
 and float32 lay out (and K9 folds) their weights on the card in one launch
 of the Hopper core's prep kernel (launch count ``conv_up_prep``); the
-``prep_*`` functions are its plain version. int8 weights are prepared in
-PyTorch on every call.
+``prep_*`` functions are its plain version. int8 weights are then prepared
+in PyTorch on every call.
 """
 
 from __future__ import annotations
@@ -454,17 +455,21 @@ def _sm90_weights(
 
 
 def _prepared(wt, bias, cins, k, cout, plan, scale=None, out_q=False,
-              f32=False) -> Prepared:
+              f32=False, absmax=None) -> Prepared:
     """``scale`` is None for bfloat16 (``f32``: float32) weights and the
     per-channel int8 dequantisation for int8 codes ``wt``, which are laid
-    out in the Hopper core's layout (:func:`_sm90_weights`). The layout's
-    dtype (``wfrag``) says which calls it serves."""
+    out in the Hopper core's layout (:func:`_sm90_weights`); then
+    ``absmax`` (one per operand) are kept as the clamped device scalars that
+    the launch passes (``axs``). The layout's dtype (``wfrag``) says which
+    calls it serves."""
     cchunk, n_tiles, _ = plan
     q = scale is not None
     return {
         "wfrag": _sm90_weights(wt, cins, cchunk, n_tiles, F32 if f32 else q),
         "bias": bias.to(torch.float32).contiguous(),
         "scale": None if scale is None else scale.contiguous(),
+        "axs": None if absmax is None else tuple(
+            _clamp_ax(a, wt.device).reshape(()) for a in absmax),
         "cins": tuple(cins), "k": k, "cout": cout, "plan": plan,
         "q": q, "out_q": out_q,
     }
@@ -546,7 +551,7 @@ def _prep_sm90(name, w, bias, cins, absmax, out_absmax, dtype) -> Prepared:
     scale, b = _q_fold(absmax[0], sw, bias, out_absmax)
     return _prepared(torch.cat(wqs, dim=2).float(), b, cins, k, cout,
                      _sm90_plan(k, cins, cout, q=True, resident=res),
-                     scale, out_absmax is not None)
+                     scale, out_absmax is not None, absmax=absmax)
 
 
 def _prep_single(name, ok, w, bias, absmax, out_absmax, dtype) -> Prepared:
@@ -659,7 +664,7 @@ def prep_conv_up_f(w: torch.Tensor, bias: torch.Tensor, absmax: Optional[Absmax]
     return _prepared(
         codes, torch.cat([b, b]), (cin,), k, cout,
         _sm90_plan(3, cin, 2 * cout, q=True, folded=True),
-        torch.cat([scale, scale]), out_absmax is not None)
+        torch.cat([scale, scale]), out_absmax is not None, absmax=(absmax,))
 
 
 # ----------------------------------------------------------- plain versions
@@ -1014,10 +1019,12 @@ def _counter(name: str, et: int) -> str:
 
 
 def _q_launch_args(prepared, axs, dev):
-    """(ax tensors, scale pointer) of an int8 launch; the tensors are kept
-    alive by the caller until the launch has been enqueued."""
-    axs = [_clamp_ax(a, dev).reshape(()) for a in axs]
-    return axs, prepared["scale"].data_ptr()
+    """(ax tensors, scale pointer) of an int8 launch: the clamped scalars
+    that ``prepared`` holds (built from the same absmax), so a prepared call
+    makes no launch but its kernel's; the tensors are kept alive by the
+    caller until the launch has been enqueued."""
+    axs = prepared.get("axs") or [_clamp_ax(a, dev).reshape(()) for a in axs]
+    return list(axs), prepared["scale"].data_ptr()
 
 
 # ---------------------------------------------------------------- wrappers

@@ -15,9 +15,10 @@ decode -> normalize -> pad16 -> interpolate -> unpad -> quantize -> encode:
 
 Serves the packed path (``packed=None`` follows ``use_pallas``, whatever
 the ``compute_dtype``, as in the JAX package), in bfloat16, float32 or
-calibrated int8 (``int8=True``), or the plain path on one device; the
-options that belong to paths not ported yet raise ``NotImplementedError``
-(see ROADMAP.md).
+calibrated int8 (``int8=True``, absmax or percentile calibration, with
+saturation telemetry), its weights prepared once per resolution, or the
+plain path on one device; the options that belong to paths not ported yet
+raise ``NotImplementedError`` (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -35,12 +36,15 @@ import torch
 from rrin_tpu_torch._device import DeviceLike, resolve_device
 from rrin_tpu_torch.config import ModelConfig
 from rrin_tpu_torch.models.rrin import (
+    PackedParams,
     QuantStats,
     forward,
     forward_calibrate,
+    forward_saturation,
+    prepare_packed_params,
     scale_quant_stats,
 )
-from rrin_tpu_torch.models.unet import _PERCENTILE_ITEM, packed_supported
+from rrin_tpu_torch.models.unet import packed_bf16_supported, packed_supported
 from rrin_tpu_torch.ops.pad import _edge_pad_hw, padded_size
 
 
@@ -73,6 +77,7 @@ def _step_body(
     packed: Optional[bool] = None,
     ts: Optional[torch.Tensor] = None,
     quant_stats: Optional[QuantStats] = None,
+    packed_params: Optional[PackedParams] = None,
 ) -> torch.Tensor:
     """One device step: (B, 2, H, W, 3) uint8 -> (B, m, H, W, 3) uint8 with
     m = 2^exp - 1 (direct/cascade) or ts.shape[1] (times). ``pairs_u8`` (and
@@ -83,7 +88,9 @@ def _step_body(
     floats in (0, 1)) instead of the 2^k midpoint grid: the arbitrary-fps
     retiming step. ``packed=None`` follows ``use_pallas``: the packed serving
     path is the inference configuration (``models.unet.unet_apply_packed``).
-    ``quant_stats`` (from :func:`device_calibrate`) runs it in int8.
+    ``quant_stats`` (from :func:`device_calibrate`) runs it in int8;
+    ``packed_params`` (``models.rrin.prepare_packed_params``) hands every
+    packed conv its weight-side constants.
     """
     dev = pairs_u8.device
     b, _, h, w, _ = pairs_u8.shape
@@ -100,7 +107,7 @@ def _step_body(
             params, a, c, t, cfg=cfg, compute_dtype=compute_dtype,
             use_pallas=use_pallas,
             packed=use_pallas if packed is None else packed,
-            quant_stats=quant_stats, device=dev, **kw)
+            quant_stats=quant_stats, packed_params=packed_params, device=dev, **kw)
 
     def _run_times(tm: torch.Tensor) -> torch.Tensor:
         """Interpolate every pair at its (B, m) times -> (B, m, H, W, 3)
@@ -160,6 +167,7 @@ def device_step(
     packed: Optional[bool] = None,
     ts=None,
     quant_stats: Optional[QuantStats] = None,
+    packed_params: Optional[PackedParams] = None,
     device: DeviceLike = "cuda",
 ) -> torch.Tensor:
     """:func:`_step_body` on ``device`` (default: the card): moves the uint8
@@ -172,7 +180,7 @@ def device_step(
     return _step_body(
         params, pairs, exp=exp, mode=mode, cfg=cfg,
         compute_dtype=compute_dtype, use_pallas=use_pallas, pad_hw=pad_hw,
-        packed=packed, ts=ts, quant_stats=quant_stats,
+        packed=packed, ts=ts, quant_stats=quant_stats, packed_params=packed_params,
     )
 
 
@@ -197,8 +205,8 @@ def _calibrate_body(
     """int8 calibration pass: (B, 2, H, W, 3) uint8 on the device -> the
     activation stats. The preprocessing of :func:`_step_body`, then the plain
     cascade at t = 0.5 (where the flow-projection magnitudes peak) recording
-    every U-Net's activation |x| maxima. ``quantile`` is not ported and
-    raises."""
+    every U-Net's activation |x| maxima, or with ``quantile`` their
+    q-quantiles (``models.unet.unet_apply_stats``)."""
     _, _, h, w, _ = pairs_u8.shape
     ph, pw = pad_hw if pad_hw is not None else (
         padded_size(h, cfg.pad_multiple) - h,
@@ -314,6 +322,10 @@ class PipelineReport:
     # compile time sits in the same field).
     compile_seconds: float = 0.0
     timers: Dict[str, float] = field(default_factory=dict)
+    # int8 clip telemetry ("unet/site" -> clip rate) of the first batch,
+    # filled only by interpolate_video(int8_saturation=True): see
+    # Interpolator.saturation_rates.
+    int8_saturation: Optional[Dict[str, float]] = None
 
     def to_json(self) -> str:
         return json.dumps(self.__dict__, indent=2)
@@ -327,11 +339,18 @@ class Interpolator:
     whose ranges, scaled by ``int8_margin``, quantise every later batch of
     that resolution; preset ``quant_stats`` (e.g. from
     ``params.load_calibration``, margin already applied) skip it.
+    ``int8_percentile`` (in (50, 100]) calibrates on that percentile of |x|
+    instead of its maximum; :meth:`saturation_rates` says what the grid
+    clips.
+
+    On the packed path the first batch at each padded resolution also
+    prepares every conv's weight-side constants for it and its calibration
+    (``models.rrin.prepare_packed_params``); later batches make no weight
+    work at all.
 
     The options of paths that are not ported yet are accepted by name and
-    raise ``NotImplementedError``: ``int8_percentile``,
-    ``data_parallel != 1``, ``spatial != 1``. ``packed=None`` follows
-    ``use_pallas``.
+    raise ``NotImplementedError``: ``data_parallel != 1``, ``spatial != 1``.
+    ``packed=None`` follows ``use_pallas``.
     """
 
     def __init__(
@@ -363,8 +382,16 @@ class Interpolator:
                 "the spatial path is the plain path by design, where int8 would "
                 "only add fake-quant noise")
         if int8_percentile is not None:
-            raise NotImplementedError(
-                f"int8_percentile is not ported yet: {_PERCENTILE_ITEM}")
+            if not int8:
+                raise ValueError("int8_percentile requires int8=True")
+            if quant_stats is not None:
+                raise ValueError(
+                    "int8_percentile shapes calibration: it cannot apply to preset "
+                    "quant_stats (ranges already calibrated)")
+            if not 50.0 < int8_percentile <= 100.0:
+                raise ValueError(
+                    "int8_percentile must be in (50, 100] (percent of |activation| "
+                    "mass kept inside the grid; 100 = absmax)")
         if data_parallel != 1:
             raise _not_ported(f"data_parallel={data_parallel}", "parallel/")
         if spatial != 1:
@@ -388,9 +415,13 @@ class Interpolator:
         self.packed = True if int8 else packed
         self.int8 = int8
         self.int8_margin = int8_margin
+        # None: absmax calibration
+        self._calib_quantile = None if int8_percentile is None else int8_percentile / 100.0
         self._preset_stats = quant_stats
         # padded (H, W) -> the stats that serve it
         self._quant_stats: Dict[Tuple[int, int], QuantStats] = {}
+        # padded (H, W) -> its prepared constants (None: not on the packed path)
+        self._packed_params: Dict[Tuple[int, int], Optional[PackedParams]] = {}
 
     def _ensure_quant_stats(self, pairs_u8, pad_hw, hw_key) -> None:
         """Calibrate (or install the preset) for this padded resolution if
@@ -408,13 +439,58 @@ class Interpolator:
         else:
             stats = scale_quant_stats(device_calibrate(
                 self.params, pairs_u8, cfg=self.cfg, compute_dtype=self.compute_dtype,
-                use_pallas=self.use_pallas, pad_hw=pad_hw, device=self.device),
+                use_pallas=self.use_pallas, pad_hw=pad_hw, quantile=self._calib_quantile,
+                device=self.device),
                 self.int8_margin)
         self._quant_stats[hw_key] = stats
 
+    def _prepared(self, hw_key) -> Optional[PackedParams]:
+        """The prepared constants of this padded resolution and its
+        calibration, built at its first batch; None where ``forward`` would
+        take the plain path (the routing of ``forward`` exactly)."""
+        if hw_key not in self._packed_params:
+            prep = None
+            stats = self._quant_stats.get(hw_key)
+            use_packed = self.use_pallas if self.packed is None else self.packed
+            if use_packed and packed_supported(hw_key[0], hw_key[1], self.cfg) and (
+                    stats is not None or packed_bf16_supported(hw_key[1])):
+                prep = prepare_packed_params(
+                    self.params, self.cfg, self.compute_dtype, quant_stats=stats, hw=hw_key,
+                    device=self.device)
+            self._packed_params[hw_key] = prep
+        return self._packed_params[hw_key]
+
+    def _pad(self, pairs_u8) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+        """((pad_h, pad_w), padded (H, W)) of a (B, 2, H, W, 3) batch."""
+        _, _, h, w, _ = pairs_u8.shape
+        pad_hw = (
+            padded_size(h, self.cfg.pad_multiple) - h,
+            padded_size(w, self.cfg.pad_multiple) - w,
+        )
+        return pad_hw, (h + pad_hw[0], w + pad_hw[1])
+
     def saturation_rates(self, pairs_u8: np.ndarray) -> Dict[str, float]:
-        """int8 clip telemetry: not ported yet."""
-        raise NotImplementedError(f"saturation_rates is not ported yet: {_PERCENTILE_ITEM}")
+        """int8 clip telemetry: the share of |activation| values this batch
+        puts above the serving ranges, per site (``"unet/site"`` keys in
+        sorted order, e.g. ``"flow/d1c1"``). Calibrates first if this
+        resolution has not been seen, so the rates are those of the grid the
+        requests are served on (margin applied). Absmax calibration reads
+        0.0 everywhere on its own batch; ``int8_percentile=P`` about
+        ``1 - P/100``. Runs the plain cascade once: telemetry, not the served
+        path."""
+        if not self.int8:
+            raise ValueError("saturation_rates requires int8=True")
+        pad_hw, hw_key = self._pad(pairs_u8)
+        pairs = _pairs_on(pairs_u8, self.device)
+        self._ensure_quant_stats(pairs, pad_hw, hw_key)
+        x = _normalize_pad(pairs, *pad_hw)
+        rates = forward_saturation(
+            self.params, x[:, 0].contiguous(), x[:, 1].contiguous(),
+            self._quant_stats[hw_key], 0.5, cfg=self.cfg, compute_dtype=self.compute_dtype,
+            use_pallas=self.use_pallas, device=self.device)
+        keys = [(u, k) for u in sorted(rates) for k in sorted(rates[u])]
+        vals = torch.stack([rates[u][k] for u, k in keys]).cpu().tolist()
+        return {f"{u}/{k}": v for (u, k), v in zip(keys, vals)}
 
     @property
     def mids_per_pair(self) -> int:
@@ -435,16 +511,12 @@ class Interpolator:
         interpolation times in (0, 1) (padded slots are computed and
         host-dropped, see :func:`retime_plan`).
 
-        In int8 mode the first batch at each padded resolution also runs the
-        calibration pass (see the class docstring)."""
+        The first batch at each padded resolution also runs the calibration
+        pass (int8) and prepares the packed convs' constants (see the class
+        docstring)."""
         if (ts is not None) != (self.mode == "times"):
             raise ValueError("ts is required (exactly) when mode='times'")
-        _, _, h, w, _ = pairs_u8.shape
-        pad_hw = (
-            padded_size(h, self.cfg.pad_multiple) - h,
-            padded_size(w, self.cfg.pad_multiple) - w,
-        )
-        hw_key = (h + pad_hw[0], w + pad_hw[1])
+        pad_hw, hw_key = self._pad(pairs_u8)
         pairs = _pairs_on(pairs_u8, self.device)
         if self.int8:
             self._ensure_quant_stats(pairs, pad_hw, hw_key)
@@ -452,7 +524,8 @@ class Interpolator:
             self.params, pairs, exp=self.exp, mode=self.mode, cfg=self.cfg,
             compute_dtype=self.compute_dtype, use_pallas=self.use_pallas,
             pad_hw=pad_hw, packed=self.packed, ts=ts,
-            quant_stats=self._quant_stats.get(hw_key), device=self.device,
+            quant_stats=self._quant_stats.get(hw_key),
+            packed_params=self._prepared(hw_key), device=self.device,
         )
 
 
@@ -510,18 +583,18 @@ def interpolate_video(
     the last one writes the trailing source frame.
 
     ``packed`` selects the U-Net path (``None`` follows ``use_pallas``).
-    ``int8``, ``int8_margin`` and ``quant_stats`` are the
-    :class:`Interpolator`'s; ``save_calib`` writes the ranges the run
+    ``int8``, ``int8_margin``, ``int8_percentile`` and ``quant_stats`` are
+    the :class:`Interpolator`'s; ``save_calib`` writes the ranges the run
     calibrated (``params.save_calibration``) for later runs to pass back as
-    ``quant_stats``. ``int8_saturation`` (clip telemetry) is not ported and
-    raises. ``device`` defaults to the card and raises without one.
+    ``quant_stats``. ``int8_saturation`` (with ``int8``) puts the clip rates
+    of the first batch (:meth:`Interpolator.saturation_rates`) into the
+    report's ``int8_saturation``. ``device`` defaults to the card and raises
+    without one.
     """
     from rrin_tpu_torch.io.video import VideoReader, VideoWriter
 
     if retime_fps is not None and slowmo is not None:
         raise ValueError("retime_fps and slowmo are mutually exclusive")
-    if int8_saturation:
-        raise NotImplementedError(f"int8_saturation is not ported yet: {_PERCENTILE_ITEM}")
     if retime_fps is not None:
         if retime_fps <= 0:
             raise ValueError("retime_fps must be > 0")
@@ -679,6 +752,12 @@ def interpolate_video(
         if first_dispatch:
             report.compile_seconds = round(dt, 3)
             first_dispatch = False
+            if int8_saturation and int8:
+                # the calibrated grid on its own first batch: 0.0 everywhere
+                # with absmax and a margin, the served clip rates with
+                # int8_percentile
+                report.int8_saturation = {
+                    k: round(v, 6) for k, v in interp.saturation_rates(batch).items()}
         else:
             timers.dispatch += dt
         inflight.append((lefts, plans, dev))

@@ -23,16 +23,19 @@ CFG = ModelConfig()
 
 
 def test_top_level_names():
-    """The two packages export the same names but prepare_packed_params
-    (prepare-once params, ROADMAP.md Queue A item 1)."""
-    assert set(rrin_tpu.__all__) - set(rrin_tpu_torch.__all__) == {"prepare_packed_params"}
-    assert set(rrin_tpu_torch.__all__) <= set(rrin_tpu.__all__)
+    """The two packages export the same names, and the port's entry points
+    of them run on the card unless given ``device="cpu"``."""
+    assert set(rrin_tpu.__all__) == set(rrin_tpu_torch.__all__)
     from rrin_tpu_torch import (  # noqa: F401
-        forward_calibrate, forward_saturation, merge_quant_stats, scale_quant_stats)
+        forward_calibrate, forward_saturation, merge_quant_stats, prepare_packed_params,
+        scale_quant_stats)
     for name in rrin_tpu_torch.__all__:
         assert getattr(rrin_tpu_torch, name) is not None
-    with pytest.raises(NotImplementedError, match="Queue A item 'percentile calibration"):
-        forward_saturation()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            prepare_packed_params({})
+        with pytest.raises(RuntimeError, match="is_available"):
+            forward_saturation({}, np.zeros((1, 16, 16, 3)), np.zeros((1, 16, 16, 3)), {})
 
 
 def _reference_carry(flags):

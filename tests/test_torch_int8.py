@@ -125,20 +125,26 @@ def test_calibration_files_load_in_both_packages(tmp_path):
 
 
 def test_deferred_options_raise(cascade):
+    """The percentile and saturation options once deferred are ported: each
+    runs on the CPU, with the JAX package's checks. Quantiles lie below the
+    maxima, and the rates of a margin-free percentile grid are the clipped
+    share, of the order of 1 - q."""
     tp, i0, i1 = cascade
-    x = torch.zeros((1, 16, 16, 6))
-    item = "percentile calibration and saturation telemetry"
-    for call in (
-        lambda: tunet.unet_apply_stats(tp["flow"], x, CFG, quantile=0.999),
-        lambda: tunet.unet_apply_stats(tp["flow"], x, CFG, ranges={}),
-        lambda: trrin.forward_calibrate(tp, i0, i1, quantile=0.99, device="cpu"),
-        lambda: trrin.forward_saturation(tp, i0, i1, {}),
-        lambda: tpipe.Interpolator(tp, int8=True, int8_percentile=99.9, device="cpu"),
-        lambda: tpipe.Interpolator(tp, int8=True, device="cpu").saturation_rates(None),
-        lambda: tpipe.interpolate_video("in.mp4", "out.mp4", tp, int8=True,
-                                        int8_saturation=True, device="cpu"),
-    ):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    x = torch.from_numpy(
+        np.random.default_rng(9).standard_normal((1, 16, 16, 6)).astype(np.float32))
+    _, amax = tunet.unet_apply_stats(tp["flow"], x, CFG)
+    _, qs = tunet.unet_apply_stats(tp["flow"], x, CFG, quantile=0.999)
+    _, rates = tunet.unet_apply_stats(tp["flow"], x, CFG, ranges=qs)
+    assert sorted(qs) == sorted(rates) == sorted(amax)
+    assert all(0 < float(qs[k]) <= float(amax[k]) for k in amax)
+    assert all(0.0 <= float(r) <= 0.01 for r in rates.values())
+    _, stats = trrin.forward_calibrate(tp, i0, i1, quantile=0.99, device="cpu")
+    sat = trrin.forward_saturation(tp, i0, i1, stats, device="cpu")
+    assert sorted(sat) == sorted(stats)
+    assert all(0.0 <= float(v) <= 0.05 for s in sat.values() for v in s.values())
+    it = tpipe.Interpolator(tp, int8=True, int8_percentile=99.9, device="cpu")
+    assert it._calib_quantile == pytest.approx(0.999)
+    with pytest.raises(ValueError, match="requires int8"):
+        tpipe.Interpolator(tp, int8=False, device="cpu").saturation_rates(None)
     with pytest.raises(ValueError, match="spatial"):
         tpipe.Interpolator(tp, int8=True, spatial=2, device="cpu")

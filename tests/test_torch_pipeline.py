@@ -101,8 +101,11 @@ class TestInterpolator:
         assert tm.step(pairs, ts=np.full((2, 1), 0.5, np.float32)).shape == (2, 1, 40, 72, 3)
         assert tpipe.Interpolator(tp, exp=3, device="cpu").mids_per_pair == 7
 
+    # int8_percentile is ported: the first two cases pair a valid one with
+    # an option that is not
     @pytest.mark.parametrize("kw", [
-        dict(int8=True, int8_percentile=99.9), dict(int8_percentile=99.9),
+        dict(int8=True, int8_percentile=99.9, data_parallel=2),
+        dict(int8_percentile=99.9, int8=True, data_parallel=4),
         dict(data_parallel=2), dict(data_parallel=0), dict(spatial=2)])
     def test_unported_options_raise(self, kw):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -77,14 +77,21 @@ class TestUnetApplyPacked:
         assert 10 * np.log10(peak * peak / mse) > 40.0
 
     def test_unported_options_raise(self, weights):
+        """The options once deferred are ported: ``collect`` fills every
+        site's constants and serves the call from them, ``prep`` takes
+        them, and the two statistics modes exclude each other, as in the
+        JAX package. A shape off the packed path still raises."""
         _, tp = weights
-        x = torch.zeros((1, 16, 16, 6))
-        with pytest.raises(NotImplementedError, match="percentile calibration"):
-            tunet.unet_apply_stats(tp["flow"], x, CFG, quantile=0.999)
-        with pytest.raises(NotImplementedError, match="Queue A item 1"):
-            tunet.unet_apply_packed(tp["flow"], x, CFG, collect={})
-        with pytest.raises(NotImplementedError, match="Queue A item 1"):
-            tunet.unet_apply_packed(tp["flow"], x, CFG, prep={})
+        x = torch.from_numpy(
+            np.random.default_rng(8).standard_normal((1, 16, 16, 6)).astype(np.float32))
+        with torch.no_grad():
+            want = tunet.unet_apply_packed(tp["flow"], x, CFG)
+            col = {}
+            assert torch.equal(tunet.unet_apply_packed(tp["flow"], x, CFG, collect=col), want)
+            assert sorted(col) == sorted(tunet.PACKED_SITES)
+            assert torch.equal(tunet.unet_apply_packed(tp["flow"], x, CFG, prep=col), want)
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            tunet.unet_apply_stats(tp["flow"], x, CFG, quantile=0.999, ranges={})
         with pytest.raises(ValueError, match="packed_supported"):
             tunet.unet_apply_packed(tp["flow"], torch.zeros((1, 24, 16, 6)), CFG)
 
