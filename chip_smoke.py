@@ -49,6 +49,20 @@ and numpy; nothing else and no network. It builds the CUDA kernels of
                plain path on the card, int8 card against int8 CPU, float32
                packed card against CPU, and the K6 route at a 4K width, on
                one request each
+  tools        the user-facing tools through their ``main`` with the
+               trained checkpoint (needs OpenCV): the CLI on a 9-frame
+               1080p clip (bf16 ``--exp 1`` and ``2``, int8 ``--save-calib``
+               and ``--calib``, ``--segment-pairs 3`` and ``--status``,
+               ``--retime 60``; frame counts, fps, launches per source pair,
+               stage timers), bf16 ``--exp 1`` on a 241-frame clip (the
+               loop's steady state: the encode queue fills), the pair
+               packer (native and numpy) alone, the image tool with
+               ``--gt``, the eval harness on synthesized triplets in bf16,
+               int8 and float32
+  quality      the trained checkpoint on two synthetic 1088x1920 triplets:
+               float32, bf16, int8 absmax and p99.9 against the ground
+               truth and float32 (int8 absmax > 35 dB, bf16 >= 40 dB), ssim
+               and the triplets on the card against the CPU
 
 Any failed check raises, so the exit code is non-zero and the closing lines
 are not printed. The closing lines are: the card's name and power limit, one
@@ -66,6 +80,8 @@ time of a request goes).
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import re
 import subprocess
@@ -788,14 +804,16 @@ def warp_cases(rng, dev):
 
 # ------------------------------------------------------------------- serving
 
-def moving_squares(seed: int, h: int, w: int) -> np.ndarray:
-    """One uint8 frame pair (1, 2, h, w, 3): squares moving over a gradient."""
+def moving_squares(seed: int, h: int, w: int, shifts=(0, 1)) -> np.ndarray:
+    """One uint8 frame pair (1, 2, h, w, 3): squares moving over a gradient;
+    with ``shifts`` the frames of a clip (1, len(shifts), h, w, 3), the
+    squares moved by ``shift`` steps in each."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     base = np.stack([xx / w, yy / h, 0.5 + 0.0 * xx], axis=-1) * 160.0 + 40.0
     base += rng.normal(0.0, 2.0, base.shape)
     pair = []
-    for shift in (0, 1):
+    for shift in shifts:
         f = base.copy()
         sq = np.random.default_rng(seed + 1)
         for _ in range(8):
@@ -1458,6 +1476,263 @@ def phase_agreement(params, dev):
          k6_route_shape=[1, 2, hk, wk, 3], **out)
 
 
+# --------------------------------------------------------- tools, quality
+
+CLIP_FRAMES, CLIP_FPS = 9, 30.0
+# Long enough that the writer's queue (16 frames) fills many times over: the
+# loop's steady state, not its ramp and the encoder's final drain.
+LONG_CLIP_FRAMES = 241
+RETIME_FPS = 60.0
+SEGMENT_PAIRS = 3
+EVAL_TRIPLETS = 4
+# ssim and the synthetic triplets on the card against the CPU on the same
+# inputs: float32 on both sides, TF32 off for ssim's blur (with TF32 its
+# variance cancellation breaks at the scale of C2).
+QUALITY_CPU_ATOL = 1e-5
+
+
+def _repo_path(rel: str) -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+
+
+def _times(d: dict, k: int) -> dict:
+    return {key: v * k for key, v in d.items()}
+
+
+def _per_pair(exp: int) -> dict:
+    """Launches of one source pair at ``exp``: the flow U-Net once, the other
+    three and the warp pair once per time (as phase serve's exp=2 request)."""
+    m = (1 << exp) - 1
+    return {k: (v // 4 * (1 + 3 * m) if k not in WARP_PAIR else m * v)
+            for k, v in PACKED_PER_REQUEST.items()}
+
+
+def _stdout_json(fn):
+    """``fn()``'s return value and the JSON object it printed last."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn()
+    text = buf.getvalue()
+    return rc, json.loads(text[text.index("{"):]) if "{" in text else None
+
+
+def _write_clip(cv2, path, frames, fps) -> None:
+    h, w = frames[0].shape[:2]
+    wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    for f in frames:
+        wr.write(np.ascontiguousarray(f))
+    wr.release()
+
+
+def _frames_and_fps(path):
+    """Frames decoded from ``path`` by the port's reader, and its fps."""
+    from rrin_tpu_torch.io import video as tvideo
+
+    reader = tvideo.VideoReader(path)
+    try:
+        return sum(1 for _ in reader), reader.meta.fps
+    finally:
+        reader.close()
+
+
+def _time_pack(frames, use_native: bool) -> float:
+    """ms per source pair to swap and pack the clip's pairs into fresh batch
+    buffers, as ``interpolate_video``'s dispatch does."""
+    from rrin_tpu_torch import native
+
+    t0 = time.perf_counter()
+    for a, b in zip(frames[:-1], frames[1:]):
+        batch = np.empty((1, 2) + a.shape, np.uint8)
+        if not (use_native and native.pack_pair_bgr(a, b, batch, 0)):
+            batch[0, 0] = a[..., ::-1]
+            batch[0, 1] = b[..., ::-1]
+    return (time.perf_counter() - t0) * 1e3 / (len(frames) - 1)
+
+
+def phase_tools(dev, hw=(H1080, W1080)):
+    """The user-facing tools on the card, each through its ``main``: the CLI
+    (``rrin-tpu-torch``) on a 9-frame 30 fps clip with the trained checkpoint
+    in bf16 at ``--exp 1`` and ``--exp 2``, in int8 (``--save-calib``, then
+    ``--calib``), as a segmented job (``--segment-pairs 3``, then
+    ``--status``) and retimed to 60 fps: frame counts, fps, launches per
+    source pair and the report's stage timers; bf16 ``--exp 1`` on a
+    241-frame clip, the ping-pong of 24 positions of the same squares; the
+    pair packer with and without the native library over the same pairs;
+    the image tool with
+    ``--gt``; the eval harness on synthesized triplets in bf16, int8 and
+    float32."""
+    import os
+    import tempfile
+
+    from rrin_tpu_torch import cli, interp_image, native
+    from rrin_tpu_torch import eval as teval
+
+    check(native.available(), "tools: the native pair packer did not build")
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError("chip_smoke check failed: tools needs OpenCV (cv2) for the "
+                           "clip, the image tool and the eval triplets") from e
+
+    h, w = hw
+    ckpt = _repo_path(TRAINED)
+    # 24 positions of the squares: the short clip is the first 9, the long
+    # one sweeps them back and forth.
+    sweep = moving_squares(60, h, w, shifts=range(24))[0]
+    clip = list(sweep[:CLIP_FRAMES])
+    n = CLIP_FRAMES - 1
+    out: dict = {"codec": "cv2", "shape": [CLIP_FRAMES, h, w, 3], "fps_in": CLIP_FPS,
+                 "checkpoint": TRAINED}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.mp4")
+        _write_clip(cv2, src, clip, CLIP_FPS)
+
+        def run(name, extra, want, frames, fps, src=src):
+            dst, rep = os.path.join(tmp, f"{name}.mp4"), os.path.join(tmp, f"{name}.json")
+            rc, got = counted(lambda: cli.main(
+                ["-i", src, "-o", dst, "--ckpt", ckpt, "-q", "--report", rep,
+                 "--device", str(dev), *extra]))
+            check(rc == 0, f"tools {name}: exit {rc}")
+            check_launches(f"tools {name}", NO_LAUNCHES, got, want)
+            n_out, fps_out = _frames_and_fps(dst)
+            check(n_out == frames and abs(fps_out - fps) < 1e-3,
+                  f"tools {name}: {n_out} frames at {fps_out} fps, want {frames} at {fps}")
+            with open(rep) as f:
+                report = json.load(f)
+            keep = ("frames_out", "interp_fps", "output_fps_rate", "compile_seconds", "timers")
+            out[name] = {"argv": extra, "frames": n_out, "fps": fps_out,
+                         "launches": {k: v for k, v in got.items() if v},
+                         **{k: report[k] for k in keep if k in report}}
+            return dst, report
+
+        run("bf16_exp1", [], summed(PREPARE, _times(_per_pair(1), n)), 2 * n + 1,
+            2 * CLIP_FPS)
+        run("bf16_exp2", ["--exp", "2"], summed(PREPARE, _times(_per_pair(2), n)), 4 * n + 1,
+            4 * CLIP_FPS)
+        calib = os.path.join(tmp, "calib.npz")
+        run("int8_save_calib", ["--int8", "--save-calib", calib],
+            summed(CALIBRATION_LAUNCHES, PREPARE_INT8, _times(INT8_PER_REQUEST, n)),
+            2 * n + 1, 2 * CLIP_FPS)
+        run("int8_calib", ["--int8", "--calib", calib],
+            summed(PREPARE_INT8, _times(INT8_PER_REQUEST, n)), 2 * n + 1, 2 * CLIP_FPS)
+        segs = -(-n // SEGMENT_PAIRS)
+        seg_out, manifest = run(
+            "segments", ["--segment-pairs", str(SEGMENT_PAIRS)],
+            summed(_times(PREPARE, segs), _times(PACKED_PER_REQUEST, n)), 2 * n + 1,
+            2 * CLIP_FPS)
+        check(manifest["finished"] and manifest["n_segments"] == segs,
+              f"tools segments: manifest {manifest}")
+        out["segments"]["segment_frames"] = [s["frames"] for s in manifest["segments"]]
+        out["segments"]["segment_interp_fps"] = [s["interp_fps"] for s in manifest["segments"]]
+        rc, status = _stdout_json(lambda: cli.main(["-i", src, "-o", seg_out, "--status"]))
+        check(rc == 0 and status["finished"] and status["segments_done"] == segs,
+              f"tools --status: {rc} {status}")
+        out["segments"]["status"] = status
+        run("retime_60", ["--retime", str(RETIME_FPS)],
+            summed(PREPARE, _times(PACKED_PER_REQUEST, n)),
+            int(n * RETIME_FPS / CLIP_FPS) + 1, RETIME_FPS)
+
+        # The loop's steady state: a clip long enough that the encode queue
+        # fills, so a slow encoder shows as encode_wait.
+        long_src = os.path.join(tmp, "long.mp4")
+        _write_clip(cv2, long_src, [sweep[abs((i + 23) % 46 - 23)]
+                                    for i in range(LONG_CLIP_FRAMES)], CLIP_FPS)
+        nl = LONG_CLIP_FRAMES - 1
+        run("bf16_exp1_long", [], summed(PREPARE, _times(_per_pair(1), nl)), 2 * nl + 1,
+            2 * CLIP_FPS, src=long_src)
+
+        # The packer alone over the clip's pairs, in turns.
+        bgr = [np.ascontiguousarray(f) for f in clip]
+        a, b = np.empty((1, 2, h, w, 3), np.uint8), np.empty((1, 2, h, w, 3), np.uint8)
+        check(native.pack_pair_bgr(bgr[0], bgr[1], a, 0), "tools: native pack refused")
+        b[0, 0], b[0, 1] = bgr[0][..., ::-1], bgr[1][..., ::-1]
+        check(np.array_equal(a, b), "tools: the native packer differs from numpy")
+        out["pack_ms_per_pair"] = {"native": [], "numpy": []}
+        for name, use in (("native", True), ("numpy", False), ("numpy", False),
+                          ("native", True)):
+            out["pack_ms_per_pair"][name].append(_time_pack(bgr, use))
+
+        # The image tool on one pair, its middle frame as ground truth.
+        ims = [os.path.join(tmp, f"im{j + 1}.png") for j in range(3)]
+        for path, frame in zip(ims, clip):
+            cv2.imwrite(path, frame)
+        (rc, scores), got = counted(lambda: _stdout_json(lambda: interp_image.main(
+            ["--im1", ims[0], "--im3", ims[2], "--gt", ims[1], "-o",
+             os.path.join(tmp, "mid.png"), "--ckpt", ckpt, "--device", str(dev)])))
+        check(rc == 0 and np.isfinite(scores["psnr"]) and 0.0 < scores["ssim"] <= 1.0,
+              f"tools image: exit {rc}, {scores}")
+        check(all(got[k] > 0 for k in PACKED_PER_REQUEST), f"tools image: launches {got}")
+        out["image"] = {**scores, "launches": {k: v for k, v in got.items() if v}}
+
+        # The eval harness: synthesize, then score in bf16, int8 and float32.
+        data = os.path.join(tmp, "trips")
+        rc, _ = _stdout_json(lambda: teval.main(
+            ["--synthesize", str(EVAL_TRIPLETS), "--data", data]))
+        check(rc == 0, "tools eval --synthesize")
+        out["eval"] = {}
+        for name, extra in (("bf16", []), ("int8", ["--int8"]), ("fp32", ["--fp32"])):
+            rc, summary = _stdout_json(lambda: teval.main(
+                ["--data", data, "--ckpt", ckpt, "--device", str(dev), *extra]))
+            check(rc == 0 and summary["count"] == EVAL_TRIPLETS
+                  and np.isfinite(summary["psnr_mean"]), f"tools eval {name}: {summary}")
+            out["eval"][name] = summary
+    emit("tools", **out)
+
+
+def phase_quality(dev, hw=(HP, WP)):
+    """The trained checkpoint on the port's synthetic 1080p triplets
+    (``data.synthetic_triplet_batch``, made on the card): float32 packed,
+    bf16, int8 absmax and int8 at the 99.9th percentile, each calibrating on
+    the batch, scored by the port's metrics on the card against the ground
+    truth and against the float32 output; ``ssim`` and the triplets on the
+    card against the CPU on the same inputs."""
+    from rrin_tpu_torch.data import synthetic_triplet_batch
+    from rrin_tpu_torch.metrics import psnr, ssim
+    from rrin_tpu_torch.models.rrin import forward_calibrate
+
+    params = load_params(_repo_path(TRAINED), device=dev)
+    i0, gt, i1 = synthetic_triplet_batch(torch.Generator().manual_seed(0), 2, hw, device=dev)
+    cpu = synthetic_triplet_batch(torch.Generator().manual_seed(0), 2, hw, device="cpu")
+    trip_err = max(float((a.cpu() - b).abs().max()) for a, b in zip((i0, gt, i1), cpu))
+
+    def run(cd, quantile=False):
+        stats = None
+        if quantile is not False:
+            _, st = forward_calibrate(params, i0, i1, 0.5, compute_dtype=cd, use_pallas=True,
+                                      quantile=quantile, device=dev)
+            stats = scale_quant_stats(st, 1.2)
+        return forward(params, i0, i1, 0.5, compute_dtype=cd, use_pallas=True, packed=True,
+                       quant_stats=stats, device=dev).clamp(0.0, 1.0)
+
+    outs = {"float32": run(torch.float32), "bf16": run(torch.bfloat16),
+            "int8_absmax": run(torch.bfloat16, None),
+            "int8_p99.9": run(torch.bfloat16, 0.999)}
+    f32 = outs["float32"]
+    table = {}
+    for name, y in outs.items():
+        check(bool(torch.isfinite(y).all()) and y.shape == gt.shape, f"quality {name}: output")
+        table[name] = {"psnr_vs_gt": psnr(y, gt).tolist(), "ssim_vs_gt": ssim(y, gt).tolist()}
+        if name != "float32":
+            table[name]["psnr_vs_float32"] = psnr(y, f32).tolist()
+            table[name]["ssim_vs_float32"] = ssim(y, f32).tolist()
+    table["naive_average"] = {"psnr_vs_gt": psnr(0.5 * (i0 + i1), gt).tolist()}
+    ssim_err = float((ssim(f32, gt).cpu() - ssim(f32.cpu(), gt.cpu())).abs().max())
+    for v in table["int8_absmax"]["psnr_vs_float32"]:
+        check(v > INT8_VS_BF16_PSNR_DB, f"quality: int8 absmax vs float32 {v} dB")
+    for v in table["bf16"]["psnr_vs_float32"]:
+        check(v >= BF16_PSNR_DB, f"quality: bf16 vs float32 {v} dB")
+    check(ssim_err <= QUALITY_CPU_ATOL, f"quality: ssim card vs CPU {ssim_err}")
+    check(trip_err <= QUALITY_CPU_ATOL, f"quality: triplets card vs CPU {trip_err}")
+    emit("quality", checkpoint=TRAINED, shape=list(gt.shape), seed=0, table=table,
+         bars={"int8_absmax_vs_float32_db": INT8_VS_BF16_PSNR_DB,
+               "bf16_vs_float32_db": BF16_PSNR_DB, "card_vs_cpu_atol": QUALITY_CPU_ATOL},
+         ssim_card_vs_cpu_max_abs=ssim_err, triplets_card_vs_cpu_max_abs=trip_err)
+    del params, outs
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------- summary
 
 TPU_KERNEL_LINES = {
@@ -1722,6 +1997,8 @@ def main() -> int:
                       hw=(H4K, W4K))
     phase_int8_trained(dev)
     phase_agreement(params, dev)
+    phase_tools(dev)
+    phase_quality(dev)
 
     summary = kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_4k,
                               int8_counts, plain_counts, fp32_counts, f32_counts,

@@ -5,8 +5,8 @@ decode overlaps device compute; encode runs on its own thread likewise.
 
 Frames cross these APIs as RGB uint8 HWC numpy arrays by default; the
 streaming pipeline opts into raw-BGR mode on both ends so original frames
-pass through with no swap and the one needed swap (device input) happens
-while the pair batch is packed.
+pass through with no swap and the one needed swap (device input) fuses into
+the native pair packer.
 
 ``cv2`` is imported inside the functions that need it, so the package and
 the model path import and run on a machine without OpenCV.
@@ -22,9 +22,12 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from rrin_tpu_torch import native
+
+
 def _swap_rb(frame: np.ndarray) -> np.ndarray:
-    """BGR <-> RGB as a contiguous copy."""
-    return np.ascontiguousarray(frame[..., ::-1])
+    """BGR <-> RGB as a contiguous copy (the native swap; numpy without it)."""
+    return native.swap_rb(frame)
 
 
 @dataclass

@@ -33,6 +33,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from rrin_tpu_torch import native
 from rrin_tpu_torch._device import DeviceLike, resolve_device
 from rrin_tpu_torch.config import ModelConfig
 from rrin_tpu_torch.models.rrin import (
@@ -727,13 +728,14 @@ def interpolate_video(
                 drain_one()
             return
         t0 = time.perf_counter()
-        # BGR->RGB + pack into the batch buffer. A fresh buffer per
-        # dispatch: the previous one may still be staging for an in-flight
-        # device transfer.
+        # Fused BGR->RGB + pack into the batch buffer (threaded C++; numpy
+        # fallback). A fresh buffer per dispatch: the previous one may still
+        # be staging for an in-flight device transfer.
         batch = np.empty((batch_size, 2) + pairs[0][0].shape, np.uint8)
         for i, (a, b) in enumerate(pairs):
-            batch[i, 0] = a[..., ::-1]
-            batch[i, 1] = b[..., ::-1]
+            if not native.pack_pair_bgr(a, b, batch, i):
+                batch[i, 0] = a[..., ::-1]
+                batch[i, 1] = b[..., ::-1]
         timers.pack += time.perf_counter() - t0
         t0 = time.perf_counter()
         if plans is not None:
