@@ -63,6 +63,16 @@ and numpy; nothing else and no network. It builds the CUDA kernels of
                float32, bf16, int8 absmax and p99.9 against the ground
                truth and float32 (int8 absmax > 35 dB, bf16 >= 40 dB), ssim
                and the triplets on the card against the CPU
+  train        training at full width on the synthetic feed (crop 256x448,
+               batch 4, Adamax 1e-4, Charbonnier): bf16 (K1), bf16 with
+               use_pallas (K1 + K2), float32 with use_pallas (K3) and bf16
+               with remat, each 3 warm-up and 10 timed steps (ms per step,
+               peak memory, launches per step, no host sync in a step; bf16
+               to 20 steps, a held-out batch's loss falls); then
+               ``train_checks``: one step on the card against the CPU (loss
+               and gradient per U-Net, float32 and bf16) and
+               ``rrin-tpu-torch-train --synthetic --steps 5`` through its
+               ``main``, its checkpoint loaded back
 
 Any failed check raises, so the exit code is non-zero and the closing lines
 are not printed. The closing lines are: the card's name and power limit, one
@@ -75,7 +85,10 @@ served paths, times measured in this run), and ``{"ok": true, "device":
 int8 1080p request (fewer than 600 kernels), of one int8 and one bfloat16
 4K request, of one float32 1080p request on each U-Net path and of one
 float32 4K request, printed as device time by group of kernels (where the
-time of a request goes).
+time of a request goes); and after ``train`` a trace of one bf16 training
+step with use_pallas, by kind of work (K1 forward and prep, cuDNN forward
+convs, conv dgrad and wgrad, warp forward and backward, elementwise,
+optimizer).
 """
 
 from __future__ import annotations
@@ -200,18 +213,21 @@ def smi_line() -> str:
 
 # --------------------------------------------------------------- kernels: K1
 
-def conv_case(rng, dev, name, h, w, cin, cout, k, slope):
+def conv_case(rng, dev, name, h, w, cin, cout, k, slope, batch=1, train=False):
     """One K1 site through ``conv2d_fused``: on the Hopper core (k 3/5/7, one
     weight-prep launch beside it), else on the mma.sync kernel; the core's
     sites also through the mma.sync kernel, held to the same plain version
-    and timed beside it."""
+    and timed beside it. ``train``: inputs that require grad, as a training
+    step hands them over, and no timing."""
     x = torch.from_numpy(
-        rng.standard_normal((1, h, w, cin)).astype(np.float32)).to(dev).to(torch.bfloat16)
+        rng.standard_normal((batch, h, w, cin)).astype(np.float32)).to(dev).to(torch.bfloat16)
     bound = 1.0 / np.sqrt(k * k * cin)  # the init bound of the model's convs
     wt = torch.from_numpy(
         rng.uniform(-bound, bound, (k, k, cin, cout)).astype(np.float32)).to(dev)
     bias = torch.from_numpy(rng.uniform(-bound, bound, (cout,)).astype(np.float32)).to(dev)
     sm90 = k in conv_phase.SM90_K
+    for t in (x, wt, bias):
+        t.requires_grad_(train)
 
     before = _build.launch_counts()
     got = conv_phase.conv2d_fused(x, wt, bias, slope)
@@ -221,6 +237,8 @@ def conv_case(rng, dev, name, h, w, cin, cout, k, slope):
           f"{name}: conv2d_fused did not launch the kernel")
     check(after["conv_up_prep"] - before["conv_up_prep"] == int(sm90),
           f"{name}: conv2d_fused did not take the {'Hopper core' if sm90 else 'mma.sync'} route")
+    check(got.requires_grad == train, f"{name}: the output's requires_grad is not {train}")
+    x, wt, bias, got = x.detach(), wt.detach(), bias.detach(), got.detach()
     want = conv_phase._conv_plain(x, wt, bias, slope)
 
     def held(y, route):
@@ -233,6 +251,10 @@ def conv_case(rng, dev, name, h, w, cin, cout, k, slope):
         return float(diff.max())
 
     err = held(got, "wgmma" if sm90 else "mma.sync")
+    if train:
+        return {"site": name, "shape": [batch, h, w, cin], "cout": cout, "k": k,
+                "route": "wgmma" if sm90 else "mma.sync", "slope": slope,
+                "max_abs_err": err, "atol": CONV_ATOL, "rtol": CONV_RTOL}
 
     # The library yardstick: one F.conv2d call, bf16 channels-last with bias
     # (no activation); timed here and used nowhere in the port.
@@ -271,23 +293,30 @@ def conv_case(rng, dev, name, h, w, cin, cout, k, slope):
     return out
 
 
-def conv_cases(rng, dev):
+def _k1_sites(h, w):
+    """The K1 sites of the model's U-Nets at an h x w frame: (name, h, w,
+    cin, cout, k, slope, launches of this class in the flow U-Net)."""
     s = ModelConfig().leaky_slope
-    h2, w2 = HP // 2, WP // 2
-    specs = [
-        # (name, h, w, cin, cout, k, slope, launches of this class in the flow U-Net)
-        ("conv1_flow_cin6", HP, WP, 6, 32, 7, s, 1),
-        ("conv1_refine_cin10", HP, WP, 10, 32, 7, s, 0),
-        ("conv1_mask_cin16", HP, WP, 16, 32, 7, s, 0),
-        ("conv1_final_cin9", HP, WP, 9, 32, 7, s, 0),
-        ("conv2", HP, WP, 32, 32, 7, s, 1),
-        ("up4_conv", HP, WP, 64, 32, 3, s, 2),
-        ("head_cout4", HP, WP, 32, 4, 3, None, 1),
-        ("head_cout2", HP, WP, 32, 2, 3, None, 0),
-        ("head_cout3", HP, WP, 32, 3, 3, None, 0),
+    h2, w2 = h // 2, w // 2
+    return [
+        ("conv1_flow_cin6", h, w, 6, 32, 7, s, 1),
+        ("conv1_refine_cin10", h, w, 10, 32, 7, s, 0),
+        ("conv1_mask_cin16", h, w, 16, 32, 7, s, 0),
+        ("conv1_final_cin9", h, w, 9, 32, 7, s, 0),
+        ("conv2", h, w, 32, 32, 7, s, 1),
+        ("up4_conv", h, w, 64, 32, 3, s, 2),
+        ("head_cout4", h, w, 32, 4, 3, None, 1),
+        ("head_cout2", h, w, 32, 2, 3, None, 0),
+        ("head_cout3", h, w, 32, 3, 3, None, 0),
         ("down1_conv1", h2, w2, 32, 64, 5, s, 1),
         ("down1_conv2", h2, w2, 64, 64, 5, s, 1),
         ("up3_conv", h2, w2, 128, 64, 3, s, 2),
+    ]
+
+
+def conv_cases(rng, dev):
+    s = ModelConfig().leaky_slope
+    specs = _k1_sites(HP, WP) + [
         ("ragged_width_485", 270, 485, 32, 32, 7, s, 0),
         # a k that the Hopper core is not built for: the mma.sync kernel
         ("k9_mma_sync_272x480", 272, 480, 32, 32, 9, s, 0),
@@ -702,24 +731,27 @@ def grid_for_grid_sample(flow: torch.Tensor) -> torch.Tensor:
     return torch.stack([gx, gy], dim=-1)
 
 
-def warp_case(rng, dev, pairs, h, w, align_corners, scale, bias, atol, timed):
+def warp_case(rng, dev, pairs, h, w, align_corners, scale, bias, atol, timed, batch=1,
+              train=False):
     """One warp case, through ``warp_one`` and through the pair launch with
     both flow layouts: the halves of one 4-channel tensor, as the cascade
-    hands them over, and two separate tensors; NHWC and planar."""
-    imgs = [torch.from_numpy(rng.random((1, h, w, 3), dtype=np.float32)).to(dev)
+    hands them over, and two separate tensors; NHWC and planar. ``train``: a
+    flow that requires grad, as a training step hands it over."""
+    imgs = [torch.from_numpy(rng.random((batch, h, w, 3), dtype=np.float32)).to(dev)
             for _ in range(2)]
-    fl = (rng.standard_normal((1, h, w, 4)) * scale).astype(np.float32)
+    fl = (rng.standard_normal((batch, h, w, 4)) * scale).astype(np.float32)
     fl[..., 0::2] += bias[0]
     fl[..., 1::2] += bias[1]
-    ftc = torch.from_numpy(fl).to(dev)
+    ftc = torch.from_numpy(fl).to(dev).requires_grad_(train)
     halves = [ftc[..., :2], ftc[..., 2:]]
     separate = [f.contiguous() for f in halves]
     check(warp_kernel._flow_halves(*halves) and not warp_kernel._flow_halves(*separate),
           "the flow halves are not recognised as one 4-channel tensor")
     kernel, _ = warp_kernel._variant(pairs)
-    case = f"{kernel} {h}x{w} ac={align_corners} flow~{scale}+{bias}"
-    want = [warp_kernel._warp_plain(i, f, align_corners, pairs, False)
-            for i, f in zip(imgs, halves)]
+    case = f"{kernel} {batch}x{h}x{w} ac={align_corners} flow~{scale}+{bias}"
+    with torch.no_grad():
+        want = [warp_kernel._warp_plain(i, f, align_corners, pairs, False)
+                for i, f in zip(imgs, halves)]
 
     def launched(fn, n_kernel):
         before = _build.launch_counts()
@@ -728,7 +760,10 @@ def warp_case(rng, dev, pairs, h, w, align_corners, scale, bias, atol, timed):
         after = _build.launch_counts()
         check(after[kernel] - before[kernel] == n_kernel,
               f"{case}: {after[kernel] - before[kernel]} {kernel} launches, want {n_kernel}")
-        return got
+        outs = got if isinstance(got, (list, tuple)) else [got]
+        check(all(o.requires_grad == train for o in outs),
+              f"{case}: the output's requires_grad is not {train}")
+        return [o.detach() for o in outs] if isinstance(got, (list, tuple)) else got.detach()
 
     errs = {}
     one = launched(lambda: warp_kernel.warp_one(imgs[0], halves[0], align_corners, pairs), 1)
@@ -751,7 +786,7 @@ def warp_case(rng, dev, pairs, h, w, align_corners, scale, bias, atol, timed):
                   for p, g in zip(planar_pair, routes["pair_flow_halves"])),
           f"{case}: planar output differs")
 
-    out = {"kernel": kernel, "shape": [1, h, w, 3], "align_corners": align_corners,
+    out = {"kernel": kernel, "shape": [batch, h, w, 3], "align_corners": align_corners,
            "flow_sigma": scale, "flow_bias": list(bias), "max_abs_err": max(errs.values()),
            "max_abs_err_by_route": errs, "atol": atol}
     if timed:
@@ -1733,6 +1768,315 @@ def phase_quality(dev, hw=(HP, WP)):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ training
+
+# The reference CLI's defaults: crop 256x448, batch 4, Adamax at lr 1e-4,
+# Charbonnier loss; each variant 3 warm-up steps (the third under PyTorch's
+# sync debug mode: a step makes no host sync), then 10 timed; the bf16
+# default variant goes on to 20 steps. Each step's loss is of another batch
+# of the feed and varies by batch, so the fall is read on one held-out
+# batch: its loss after the 20 steps must lie below its loss before them.
+TRAIN_HW, TRAIN_BATCH = (256, 448), 4
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_FALL_STEPS = 3, 10, 20
+# name: (compute dtype, use_pallas, remat). The CLI trains with
+# use_pallas=False (K1 at the bf16 conv sites); use_pallas adds the warp
+# pair (K2 in bf16, K3 in float32); remat recomputes each U-Net's forward in
+# the backward, K1 included.
+TRAIN_VARIANTS = {
+    "bf16": (torch.bfloat16, False, False),
+    "bf16_pallas": (torch.bfloat16, True, False),
+    "fp32_pallas": (torch.float32, True, False),
+    "bf16_remat": (torch.bfloat16, False, True),
+}
+# Launches of one step: K1 and its weight prep at the 36 bf16 sites it takes
+# (weights change every step, so each call prepares them), the warp pair
+# once, nothing in the backward (cuDNN and PyTorch) but remat's recompute.
+_K1_STEP = {"conv_phase": 36, "conv_up_prep": 36}
+TRAIN_PER_STEP = {
+    "bf16": _K1_STEP,
+    "bf16_pallas": {**_K1_STEP, **WARP_PAIR},
+    "fp32_pallas": F32_WARP_PAIR,
+    "bf16_remat": _times(_K1_STEP, 2),
+}
+# One step's loss and gradients on the card against the CPU (kernels against
+# plain versions, cuDNN against oneDNN) from the same numpy params and batch,
+# full width at 1x64x96; the gradient as its relative norm error per U-Net.
+# Fixed before any run.
+TRAIN_CPU_HW = (64, 96)
+TRAIN_CPU_BARS = {"float32": {"loss_rel": 1e-5, "grad_rel": 1e-4},
+                  "bfloat16": {"loss_rel": 1e-3, "grad_rel": 5e-2}}
+TRAIN_CLI_STEPS = 5
+
+
+def _train_step_fn(trainer):
+    from rrin_tpu_torch.train import train_step
+
+    def step(batch):
+        return train_step(trainer.params, trainer.optimizer, *batch, 0.5, cfg=trainer.cfg,
+                          compute_dtype=trainer.compute_dtype, use_pallas=trainer.use_pallas,
+                          remat=trainer.remat, device=trainer.device)
+    return step
+
+
+def _host_syncs(fn) -> list:
+    """Where ``fn()`` made a synchronising CUDA call (file:line of the
+    Python caller), by PyTorch's sync debug mode."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{w.filename}:{w.lineno}: {str(w.message)[:80]}" for w in seen
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def _train_variant(dev, name, steps):
+    """A full-width ``Trainer`` on the synthetic feed: ms per step (CUDA
+    events over the timed steps), peak memory, launches per step, the losses,
+    host syncs in a step, and a held-out batch's loss before and after."""
+    from rrin_tpu_torch.data import synthetic_triplet_batch
+    from rrin_tpu_torch.train import Trainer, loss_fn
+
+    cd, use_pallas, remat = TRAIN_VARIANTS[name]
+    trainer = Trainer.create(torch.Generator().manual_seed(0), compute_dtype=cd,
+                             use_pallas=use_pallas, remat=remat, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    held = synthetic_triplet_batch(gen, TRAIN_BATCH, TRAIN_HW, device=dev)
+    batches = [synthetic_triplet_batch(gen, TRAIN_BATCH, TRAIN_HW, device=dev)
+               for _ in range(steps)]
+
+    def held_loss():
+        with torch.no_grad():
+            return float(loss_fn(trainer.params, *held, 0.5, compute_dtype=cd,
+                                 use_pallas=use_pallas, device=dev))
+
+    step = _train_step_fn(trainer)
+    held_before = held_loss()
+    losses = [step(b) for b in batches[:TRAIN_WARMUP - 1]]
+    syncs = _host_syncs(lambda: losses.append(step(batches[TRAIN_WARMUP - 1])))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    _build.reset_launch_counts()
+    start.record()
+    losses += [step(b) for b in batches[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_TIMED]]
+    stop.record()
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    check_launches(f"train {name}", NO_LAUNCHES, counts, TRAIN_PER_STEP[name], TRAIN_TIMED)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses += [step(b) for b in batches[TRAIN_WARMUP + TRAIN_TIMED:]]
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), f"train {name}: non-finite loss {losses}")
+    out = {"variant": name, "compute_dtype": str(cd).replace("torch.", ""),
+           "use_pallas": use_pallas, "remat": remat, "steps": len(losses),
+           "ms_per_step": start.elapsed_time(stop) / TRAIN_TIMED, "peak_device_gib": peak,
+           "launches_per_step": {k: v // TRAIN_TIMED for k, v in counts.items() if v},
+           "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+           "host_syncs_in_a_step": syncs, "held_out_loss_before": held_before,
+           "held_out_loss_after": held_loss()}
+    del trainer, batches
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def _train_card_vs_cpu(dev):
+    """One step's loss and gradients from the same numpy params and batch on
+    the card and on the CPU, float32 and bf16, both with use_pallas."""
+    from rrin_tpu_torch.train import Trainer, loss_fn, param_leaves
+
+    tree = unflatten_params(flatten_params(
+        init_params(torch.Generator().manual_seed(0), device="cpu")))
+    rng = np.random.default_rng(0)
+    h, w = TRAIN_CPU_HW
+    i0 = rng.integers(0, 256, (1, h, w, 3)).astype(np.float32) / np.float32(255)
+    i1 = np.clip(np.roll(i0, 2, axis=2) + 0.05, 0, 1).astype(np.float32)
+    gt = ((i0 + i1) / 2).astype(np.float32)
+    out = {}
+    for cd in (torch.float32, torch.bfloat16):
+        got = {}
+        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            params = Trainer.create(params=params_from_numpy(tree, device=device),
+                                    device=device).params
+            loss = loss_fn(params, *(torch.from_numpy(a) for a in (i0, gt, i1)), 0.5,
+                           compute_dtype=cd, use_pallas=True, device=device)
+            loss.backward()
+            got[where] = (float(loss.detach()), {
+                name: torch.cat([t.grad.double().cpu().flatten()
+                                 for t in param_leaves(params[name])])
+                for name in params})
+        (lc, gc), (lh, gh) = got["card"], got["cpu"]
+        key = str(cd).replace("torch.", "")
+        bars = TRAIN_CPU_BARS[key]
+        res = {"loss_card": lc, "loss_cpu": lh, "loss_rel": abs(lc - lh) / abs(lh),
+               "grad_rel_norm": {n: float((gc[n] - gh[n]).norm() / gh[n].norm()) for n in gh}}
+        check(res["loss_rel"] <= bars["loss_rel"], f"train {key} card vs CPU loss {res}")
+        for n, e in res["grad_rel_norm"].items():
+            check(e <= bars["grad_rel"], f"train {key} card vs CPU gradient of {n}: {e}")
+        out[key] = res
+    return out
+
+
+def _train_cli(dev):
+    """``rrin-tpu-torch-train --synthetic --steps 5`` through its ``main`` at
+    the defaults; the checkpoint loads again with ``load_params``."""
+    import os
+    import tempfile
+
+    from rrin_tpu_torch import train
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "trained.npz")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = train.main(["--synthetic", "--steps", str(TRAIN_CLI_STEPS), "--log-every", "1",
+                             "--ckpt-out", ckpt, "--device", str(dev)])
+        seconds = time.perf_counter() - t0
+        check(rc == 0, f"train CLI: exit {rc}")
+        back = flatten_params(load_params(ckpt, device=dev))
+    lines = buf.getvalue().splitlines()
+    check(len(back) == 152 and all(np.isfinite(v).all() for v in back.values()),
+          "train CLI: the checkpoint does not load back whole and finite")
+    check(f"after {TRAIN_CLI_STEPS} steps" in lines[-1], f"train CLI: {lines[-1:]}")
+    return {"argv": ["--synthetic", "--steps", str(TRAIN_CLI_STEPS)], "exit": rc,
+            "seconds": seconds, "log": lines, "checkpoint_leaves": len(back)}
+
+
+def train_kernel_cases(rng, dev):
+    """K1 at every site it takes in a training step's U-Nets and the warp
+    pair of the use_pallas variants (K2 in bf16, K3 in float32), each at the
+    step's batch and crop, on inputs that require grad, against its plain
+    version."""
+    b, (h, w) = TRAIN_BATCH, TRAIN_HW
+    conv = []
+    for name, ch, cw, cin, cout, k, slope, _ in _k1_sites(h, w):
+        check(conv_phase.supports((b, ch, cw, cin), (k, k, cin, cout)) is not None,
+              f"train {name} is not routed to the kernel")
+        conv.append(conv_case(rng, dev, name, ch, cw, cin, cout, k, slope, batch=b, train=True))
+    warps = [warp_case(rng, dev, pairs, h, w, ac, 3.0, (0.0, 0.0), WARP_ATOL, timed=False,
+                       batch=b, train=True)
+             for pairs in ("u8", False) for ac in (False, True)]
+    emit("train_kernels", conv_phase=conv, warp=warps)
+    return conv, warps
+
+
+def phase_train(dev):
+    """Training on the card: four full-width variants on the synthetic feed,
+    one step on the card against the CPU, the CLI."""
+    variants, counts = [], {}
+    for name in TRAIN_VARIANTS:
+        steps = TRAIN_FALL_STEPS if name == "bf16" else TRAIN_WARMUP + TRAIN_TIMED
+        v, counts[name] = _train_variant(dev, name, steps)
+        variants.append(v)
+    probe = _host_syncs(lambda: torch.ones(1, device=dev).item())
+    emit("train", shape=[TRAIN_BATCH, *TRAIN_HW, 3], optimizer="adamax", lr=1e-4,
+         loss="charbonnier", variants=variants, sync_probe=probe)
+    check(len(probe) == 1, f"train: the sync detector missed an .item(): {probe}")
+    fall = variants[0]
+    check(fall["held_out_loss_after"] < fall["held_out_loss_before"],
+          f"train: the bf16 loss did not fall over {TRAIN_FALL_STEPS} steps")
+    for v in variants:
+        check(not v["host_syncs_in_a_step"],
+              f"train {v['variant']}: host syncs in a step: {v['host_syncs_in_a_step']}")
+    emit("train_checks", card_vs_cpu=_train_card_vs_cpu(dev), card_vs_cpu_bars=TRAIN_CPU_BARS,
+         cli=_train_cli(dev))
+    return counts
+
+
+def _train_profile_group(name: str, ancestors) -> str:
+    """A training step's kernel by kind of work, from its name and the names
+    of the CPU ops it was launched under."""
+    low = name.lower()
+    backward = any(a.startswith("autograd::engine::evaluate_function") for a in ancestors)
+    if any(a.startswith("Optimizer.step") for a in ancestors):
+        return "optimizer"
+    group = _profile_group(name, plain=True)
+    if group.startswith("conv_phase"):
+        return "K1 forward (remat recompute)" if backward else "K1 forward"
+    if group == "K5-K9 weight prep":
+        return "K1 prep"
+    if group == "warp (K2-K4)":
+        return "warp forward"
+    if any("_WarpBackward" in a for a in ancestors):
+        return "warp backward"
+    if "dgrad" in low:
+        return "conv dgrad"
+    if "wgrad" in low:
+        return "conv wgrad"
+    if any("convolution_backward" in a for a in ancestors):
+        return "conv backward, other kernels"
+    if group == "library convs":
+        return ("cuDNN forward convs (recomputed in the backward)" if backward
+                else "cuDNN forward convs")
+    if group == "copies host<->device":
+        return group
+    return "elementwise backward" if backward else "elementwise forward"
+
+
+def phase_profile_train(dev, top=16):
+    """Device time of one bf16 ``use_pallas`` training step by kind of work,
+    after warm-up steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rrin_tpu_torch.data import synthetic_triplet_batch
+    from rrin_tpu_torch.train import Trainer
+
+    name = "bf16_pallas"
+    cd, use_pallas, remat = TRAIN_VARIANTS[name]
+    trainer = Trainer.create(torch.Generator().manual_seed(0), compute_dtype=cd,
+                             use_pallas=use_pallas, remat=remat, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = synthetic_triplet_batch(gen, TRAIN_BATCH, TRAIN_HW, device=dev)
+    step = _train_step_fn(trainer)
+    for _ in range(TRAIN_WARMUP):
+        step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(batch)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
+    groups: dict = {}
+    kernels: dict = {}
+    for e in prof.events():
+        if not e.kernels:
+            continue
+        ancestors, p = [e.name], e.cpu_parent
+        while p is not None:
+            ancestors.append(p.name)
+            p = p.cpu_parent
+        for k in e.kernels:
+            g = _train_profile_group(k.name, ancestors)
+            groups[g] = groups.get(g, 0.0) + k.duration / 1e3
+            key = (g, k.name[:90])
+            ms, n = kernels.get(key, (0.0, 0))
+            kernels[key] = (ms + k.duration / 1e3, n + 1)
+    check(len(groups) > 0, "profile train: the profiler recorded no device time")
+    busy = sum(groups.values())
+    tops = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]
+    # The idle share is read against the profiled step's own wall time (the
+    # profiler slows the step), unclamped: kernels of one stream cannot sum
+    # to more than the wall, so a negative share would show overlapping
+    # streams or a profiler fault.
+    emit("profile_train", variant=name, shape=[TRAIN_BATCH, *TRAIN_HW, 3],
+         ms_per_step_unprofiled=plain_ms, ms_per_step_profiled=profiled_ms,
+         device_busy_ms=busy, device_idle_share=1.0 - busy / profiled_ms,
+         kernels=sum(n for _, n in kernels.values()),
+         by_group=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+         top=[{"group": g, "kernel": k, "ms": ms, "calls": n} for (g, k), (ms, n) in tops])
+    del trainer
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------- summary
 
 TPU_KERNEL_LINES = {
@@ -1774,18 +2118,31 @@ def _conv_entry(name, source, cases, launches, what, peak_ops=BF16_FLOPS, mode="
     return entry
 
 
+def _train_launches(train_counts, kernel) -> dict:
+    """A kernel's launches in each training variant's timed steps."""
+    return {v: c[kernel] for v, c in train_counts.items() if c.get(kernel)}
+
+
 def kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_4k,
-                    int8_counts, plain_counts, fp32_counts, f32_counts, f32_counts_4k):
-    """The per-kernel closing object: launches from the served paths (each
-    kernel from the path it belongs to, counted from 0 over that path's
-    requests alone), every other number measured above in this run; each
-    entry names its core and the source of its entry point."""
+                    int8_counts, plain_counts, fp32_counts, f32_counts, f32_counts_4k,
+                    train_counts, train_conv, train_warps):
+    """The per-kernel closing object: launches from the served paths and the
+    training path (each kernel from the paths it belongs to, counted from 0
+    over each path's requests or timed steps alone), every other number
+    measured above in this run; each entry names its core and the source of
+    its entry point. ``max_abs_err`` covers the served and the training
+    shapes."""
     on_core = [c for c in conv if c["route"] == "wgmma"]
+    k1_train = _train_launches(train_counts, "conv_phase")
     k1 = _conv_entry(
         "conv_phase", "rrin_tpu_torch/csrc/conv_packed_sm90.cu", on_core,
-        plain_counts["conv_phase"],
+        plain_counts["conv_phase"] + sum(k1_train.values()),
         "sum over the 9 launches of one flow U-Net at 1088x1920 (plain path), each with its "
-        "weight prep on the card; launches from serve_plain")
+        "weight prep on the card; launches from serve_plain and the training steps")
+    k1["launches_by_path"] = {"serve_plain": plain_counts["conv_phase"],
+                              f"train ({TRAIN_TIMED} steps)": k1_train}
+    k1["max_abs_err"] = max([k1["max_abs_err"]] + [c["max_abs_err"] for c in train_conv])
+    k1["max_abs_err_train_shapes"] = max(c["max_abs_err"] for c in train_conv)
     mma = [c for c in conv if c["route"] == "mma.sync"]
     k1.update({
         "core": "wgmma, mode DIRECT of conv_sm90.cuh with one bf16 operand "
@@ -1806,12 +2163,15 @@ def kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_
     for name in ("warp_u8", "warp_f32", "warp_bf16"):
         timed = next(c for c in warps if c["kernel"] == name and "kernel_ms" in c)
         counts = {"warp_u8": serve_counts, "warp_f32": f32_counts}.get(name, fp32_counts)
+        trained = _train_launches(train_counts, name)
         entries.append({
             "name": name, "route": "cuda", "source": "rrin_tpu_torch/csrc/warp.cu",
             "core": "CUDA cores, one launch a pair",
             "replaces": TPU_KERNEL_LINES[name],
-            "launches": counts[name],
-            "max_abs_err": max(c["max_abs_err"] for c in warps if c["kernel"] == name),
+            "launches": counts[name] + sum(trained.values()),
+            "launches_by_path": {"served": counts[name], f"train ({TRAIN_TIMED} steps)": trained},
+            "max_abs_err": max(c["max_abs_err"] for c in warps + train_warps
+                               if c["kernel"] == name),
             "ms": timed["kernel_ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
             "library_ms": timed["library_ms"], "warp_one_ms": timed["warp_one_ms"],
@@ -1884,6 +2244,7 @@ def kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_
         entries.append(entry)
     entries.append(_prep_entry(packed, packed_f32, conv, serve_counts, f32_counts,
                                plain_counts))
+    entries[-1]["plain_path"]["train_launches"] = _train_launches(train_counts, "conv_up_prep")
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was never launched by the path it belongs to")
     return {"kernels": entries, "not_ported": []}
@@ -1999,10 +2360,14 @@ def main() -> int:
     phase_agreement(params, dev)
     phase_tools(dev)
     phase_quality(dev)
+    train_conv, train_warps = train_kernel_cases(rng, dev)
+    train_counts = phase_train(dev)
+    if "--profile" in sys.argv[1:]:
+        phase_profile_train(dev)
 
     summary = kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_4k,
                               int8_counts, plain_counts, fp32_counts, f32_counts,
-                              f32_counts_4k)
+                              f32_counts_4k, train_counts, train_conv, train_warps)
     next(e for e in summary["kernels"] if e["name"] == "conv_packed_f32")["promotion"] = promotion
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)

@@ -204,11 +204,12 @@ def evaluate(
                         device=dev,
                     )
                     quant_stats = scale_quant_stats(st, int8_margin)
-            pred = forward(
-                params, i0p, i1p, 0.5, cfg=cfg, compute_dtype=cd,
-                use_pallas=use_pallas, packed=use_pallas or int8,
-                quant_stats=quant_stats, device=dev,
-            )
+            with torch.no_grad():
+                pred = forward(
+                    params, i0p, i1p, 0.5, cfg=cfg, compute_dtype=cd,
+                    use_pallas=use_pallas, packed=use_pallas or int8,
+                    quant_stats=quant_stats, device=dev,
+                )
             pred = unpad(pred, hw)
             p = psnr(pred, gt).cpu().tolist()
             s = ssim(pred, gt).cpu().tolist()

@@ -50,9 +50,10 @@ def interpolate_pair(params, im1, im3, t=0.5, cfg=None, compute_dtype="float32",
         _, st = forward_calibrate(params, i0p, i1p, t, cfg=cfg,
                                   compute_dtype=cd, use_pallas=use_pallas, device=dev)
         quant_stats = scale_quant_stats(st, int8_margin)
-    pred = forward(params, i0p, i1p, t, cfg=cfg, compute_dtype=cd,
-                   use_pallas=use_pallas, packed=use_pallas or int8,
-                   quant_stats=quant_stats, device=dev)
+    with torch.no_grad():
+        pred = forward(params, i0p, i1p, t, cfg=cfg, compute_dtype=cd,
+                       use_pallas=use_pallas, packed=use_pallas or int8,
+                       quant_stats=quant_stats, device=dev)
     pred = unpad(pred, hw)[0]
     # torch.round rounds half to even, as jnp.round does.
     return torch.round(pred.clamp(0, 1) * 255.0).to(torch.uint8).cpu().numpy()

@@ -20,6 +20,7 @@ sigmoid, blend and residual stay float32 (no autocast anywhere).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import os
@@ -27,6 +28,7 @@ from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from rrin_tpu_torch._device import DeviceLike, resolve_device
 from rrin_tpu_torch.config import ModelConfig
@@ -86,7 +88,10 @@ def init_params(
 
 
 def _as_t(t: TimeLike, batch: int, device: torch.device) -> torch.Tensor:
-    """Broadcast t (scalar or per-example (B,)) to (B, 1, 1, 1) float32."""
+    """Broadcast t (scalar or per-example (B,)) to (B, 1, 1, 1) float32. A
+    Python number is filled on the device (no copy from the host)."""
+    if isinstance(t, (int, float)):
+        return torch.full((batch, 1, 1, 1), float(t), dtype=torch.float32, device=device)
     t = torch.as_tensor(t, dtype=torch.float32, device=device)
     if t.ndim == 0:
         t = t.expand(batch)
@@ -169,8 +174,14 @@ def forward(
     flows_only: bool = False,
     device: DeviceLike = "cuda",
 ) -> torch.Tensor:
-    """Interpolate the frame at time t between i0 and i1 (inference; runs
-    under ``torch.no_grad()``).
+    """Interpolate the frame at time t between i0 and i1.
+
+    The plain U-Net path runs in the caller's grad mode and is differentiable
+    (training): the kernels' wrappers are autograd Functions whose backward is
+    the reference's VJP formulation. The serving entry points (``pipeline``,
+    :class:`RRIN`, the eval and image tools) call it under
+    ``torch.no_grad()``, so they build no graph. The packed path is
+    inference-only and runs under ``torch.no_grad()``.
 
     Args:
       params: dict from :func:`init_params` / ``params_from_numpy`` /
@@ -183,15 +194,19 @@ def forward(
         blend stay float32.
       use_pallas: route the double warp through the hand-written warp kernel
         (the flag keeps the JAX package's name).
-      remat: training-time rematerialization; not ported yet (ROADMAP Queue
-        A, "training") and raises ``NotImplementedError`` when set.
+      remat: rematerialize each U-Net under autograd
+        (``torch.utils.checkpoint``, as the JAX package's ``jax.checkpoint``):
+        its activations are recomputed in the backward instead of kept, so
+        larger training crops fit device memory. Same values and gradients.
       packed: run the U-Nets through the packed-path kernels
         (``models.unet.unet_apply_packed``): the serving path, inference
-        only. ``None`` follows ``use_pallas``. A shape or config that
-        ``packed_supported`` rejects takes the plain path (routing by shape,
-        as in the JAX package). On the card the packed kernels run in
-        bfloat16 and in float32 (split-TF32 products that keep float32
-        accuracy), as the JAX package serves both dtypes packed.
+        only (raises ``ValueError`` with ``remat``, and when grad is enabled
+        and a param or input requires grad). ``None`` follows
+        ``use_pallas``. A shape or config that ``packed_supported`` rejects
+        takes the plain path (routing by shape, as in the JAX package). On
+        the card the packed kernels run in bfloat16 and in float32
+        (split-TF32 products that keep float32 accuracy), as the JAX package
+        serves both dtypes packed.
       quant_stats: calibration stats from :func:`forward_calibrate` (per
         U-Net |x| maxima, on ``device``). Requires the packed path (raises
         ``ValueError`` without it); every packed conv but the heads then runs
@@ -219,10 +234,6 @@ def forward(
         packed = use_pallas
     if packed and remat:
         raise ValueError("packed=True is inference-only (no remat/VJP)")
-    if remat:
-        raise NotImplementedError(
-            "remat=True belongs to training, which is not ported yet: "
-            "ROADMAP.md Queue A item 'training'")
     f32 = torch.float32
     i0f = torch.as_tensor(i0).to(device=dev, dtype=f32).contiguous()
     i1f = torch.as_tensor(i1).to(device=dev, dtype=f32).contiguous()
@@ -242,20 +253,30 @@ def forward(
         raise ValueError(
             "quant_stats (int8) requires the packed fast path: pass packed=True "
             "on a supported shape/config")
+    if use_packed and torch.is_grad_enabled() and (
+            i0f.requires_grad or i1f.requires_grad or _any_requires_grad(params)):
+        raise ValueError(
+            "packed=True is inference-only (no VJP): run it under torch.no_grad() "
+            "or pass packed=False to train")
     prep = packed_params if use_packed else None
     if isinstance(prep, PackedParams):
         _check_packed_params(prep, i0f.shape[-3], i0f.shape[-2], cfg, quant_stats)
         prep = prep.tree
 
+    def apply_plain(p: Params, x: torch.Tensor) -> torch.Tensor:
+        if remat:
+            return checkpoint(unet_apply, p, x, cfg, use_reentrant=False)
+        return unet_apply(p, x, cfg)
+
     def run_unet(name: str, *feats: torch.Tensor) -> torch.Tensor:
         x = torch.cat([f.to(cd) for f in feats], dim=-1)
         if not use_packed:
-            return unet_apply(params[name], x, cfg).to(f32)
+            return apply_plain(params[name], x).to(f32)
         return unet_apply_packed(
             params[name], x, cfg, None if quant_stats is None else quant_stats[name],
             None if prep is None else prep[name]).to(f32)
 
-    with torch.no_grad():
+    with torch.no_grad() if use_packed else contextlib.nullcontext():
         if flows_only:
             return run_unet("flow", i0f, i1f)
         return _cascade(
@@ -263,6 +284,12 @@ def forward(
             flows=None if flows is None else torch.as_tensor(flows).to(
                 device=dev, dtype=f32),
         )
+
+
+def _any_requires_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_any_requires_grad(v) for v in tree.values())
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
 
 
 def forward_calibrate(
@@ -459,7 +486,8 @@ def scale_quant_stats(stats: QuantStats, margin: float) -> QuantStats:
 class RRIN:
     """Convenience object bundling params + config (mirrors the reference
     ``Net.forward(frame0, frame1, t)`` surface); the compute stays in the
-    plain function :func:`forward`."""
+    plain function :func:`forward`. Inference: its calls build no autograd
+    graph (train through :mod:`rrin_tpu_torch.train`)."""
 
     params: Params
     cfg: ModelConfig = ModelConfig()
@@ -486,6 +514,7 @@ class RRIN:
         return dataclasses.replace(
             self, packed=True, quant_stats=scale_quant_stats(stats, margin))
 
+    @torch.no_grad()
     def __call__(self, i0, i1, t: TimeLike = 0.5) -> torch.Tensor:
         return forward(
             self.params, i0, i1, t, cfg=self.cfg,

@@ -37,8 +37,15 @@ Routing (:func:`supports`): odd k, cout <= 64 and a tile of the ``mma.sync``
 kernel that fits shared memory, bfloat16 only. Everything else (float32, cout >=
 128) is ``F.conv2d``, as the JAX package leaves those sites to XLA. The plain
 version of both kernels is :func:`_conv_plain`; the wrapper takes it only
-for CPU tensors, and on the card launches a kernel or raises. Forward only:
-inputs that require grad are refused on the card.
+for CPU tensors, and on the card launches a kernel or raises.
+
+Gradients: :func:`conv2d_fused` is a ``torch.autograd.Function`` at every
+site, as the JAX package's is a ``custom_vjp``. Its backward is the JAX
+package's ``_conv_bwd``: the autograd of :func:`_conv_plain`, recomputed from
+the saved ``(x, w, bias)`` and run without TF32 (cuDNN's dgrad and wgrad on
+the card), since the reference has no backward kernel. The kernels themselves
+are forward-only: their launchers refuse inputs that require grad, and the
+Function hands them detached tensors.
 """
 
 from __future__ import annotations
@@ -242,18 +249,8 @@ def _conv_kernel(x, w, bias, slope, plan) -> torch.Tensor:
     return out
 
 
-def conv2d_fused(
-    x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-    slope: Optional[float] = None,
-) -> torch.Tensor:
-    """conv2d(stride 1, SAME) + bias + optional LeakyReLU.
-
-    x: (B, H, W, cin) NHWC; w: (kh, kw, cin, cout) HWIO; bias: (cout,).
-    A bfloat16 input at a site :func:`supports` accepts goes to a CUDA
-    kernel when it lies on the card (launch or raise): the Hopper core for k
-    in :data:`SM90_K`, else ``csrc/conv_phase.cu``; to the plain version when
-    it lies on the CPU. float32 inputs and the other sites are ``F.conv2d``.
-    """
+def _conv_forward(x, w, bias, slope) -> torch.Tensor:
+    """The forward's routing (see :func:`conv2d_fused`)."""
     if supports(tuple(x.shape), tuple(w.shape)) is None or x.dtype != torch.bfloat16:
         return _conv_plain(x, w, bias, slope)
     if x.device.type == "cpu":
@@ -263,3 +260,42 @@ def conv2d_fused(
     if w.shape[0] in SM90_K:
         return _conv_sm90(x, w, bias, slope)
     return _conv_kernel(x, w, bias, slope, _plan(w.shape[0], w.shape[2], w.shape[3]))
+
+
+class _ConvFused(torch.autograd.Function):
+    """Forward: the kernel or the plain version, on detached tensors.
+    Backward: the JAX package's ``_conv_bwd``, the autograd of
+    :func:`_conv_plain` recomputed from the saved ``(x, w, bias)``, without
+    TF32 (the reference's float32 VJP runs at HIGHEST precision)."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, slope):
+        ctx.slope = slope
+        ctx.save_for_backward(x, w, bias)
+        return _conv_forward(x.detach(), w.detach(), bias.detach(), slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        needs = ctx.needs_input_grad[:3]
+        res = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
+        wanted = [t for t, n in zip(res, needs) if n]
+        with torch.enable_grad(), no_tf32():
+            y = _conv_plain(*res, ctx.slope)
+            grads = iter(torch.autograd.grad(y, wanted, g))
+        return (*(next(grads) if n else None for n in needs), None)
+
+
+def conv2d_fused(
+    x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+    slope: Optional[float] = None,
+) -> torch.Tensor:
+    """conv2d(stride 1, SAME) + bias + optional LeakyReLU, differentiable.
+
+    x: (B, H, W, cin) NHWC; w: (kh, kw, cin, cout) HWIO; bias: (cout,).
+    A bfloat16 input at a site :func:`supports` accepts goes to a CUDA
+    kernel when it lies on the card (launch or raise): the Hopper core for k
+    in :data:`SM90_K`, else ``csrc/conv_phase.cu``; to the plain version when
+    it lies on the CPU. float32 inputs and the other sites are ``F.conv2d``.
+    The gradient is that of the plain version, recomputed (``_ConvFused``).
+    """
+    return _ConvFused.apply(x, w, bias, slope)

@@ -23,8 +23,16 @@ no second path for large displacements.
 
 The plain version of all three is :func:`rrin_tpu_torch.ops.warp.warp_bilinear`
 on the equally rounded source (:func:`_rounded_source`); the wrappers take it
-only for CPU tensors. Forward only: inputs that require grad are refused on
-the card.
+only for CPU tensors.
+
+Gradients: :func:`warp_one` and :func:`warp_pair_kernel` are one
+``torch.autograd.Function`` (``_Warp``, one launch for the pair), as the JAX
+package's ``warp_one_pallas`` is a ``custom_vjp``. Its backward is the JAX
+package's ``_warp_one_bwd``: the autograd of ``warp_bilinear`` on the
+**unrounded** source and the flow (gather and scatter-add on the card), since
+the reference has no backward kernel. The kernel itself is forward-only
+(:func:`_check_cuda_inputs` refuses inputs that require grad); the Function
+hands it detached tensors.
 """
 
 from __future__ import annotations
@@ -155,6 +163,46 @@ def _warp_cuda(
     return outs
 
 
+class _Warp(torch.autograd.Function):
+    """Forward: one launch of the kernel for one frame or a pair (CUDA), or
+    the plain version of each (CPU), on detached tensors. Backward: the JAX
+    package's ``_warp_one_bwd`` for each frame, the autograd of
+    ``warp_bilinear`` on the unrounded ``img`` and the flow (a planar
+    cotangent is moved back to NHWC first). The flows may be views of one
+    tensor (``_flow_halves``); autograd carries their gradients back to it."""
+
+    @staticmethod
+    def forward(ctx, align_corners, pairs, planar_out, *imgs_and_flows):
+        ctx.align_corners, ctx.planar_out = align_corners, planar_out
+        ctx.save_for_backward(*imgs_and_flows)
+        imgs = [t.detach() for t in imgs_and_flows[0::2]]
+        flows = [t.detach() for t in imgs_and_flows[1::2]]
+        if imgs[0].device.type == "cpu":
+            return tuple(_warp_plain(img, flow, align_corners, pairs, planar_out)
+                         for img, flow in zip(imgs, flows))
+        if imgs[0].device.type != "cuda":
+            raise RuntimeError(f"no warp kernel for device {imgs[0].device}")
+        return tuple(_warp_cuda(imgs, flows, align_corners, pairs, planar_out))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        needs = ctx.needs_input_grad[3:]
+        res = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
+        grads = []
+        with torch.enable_grad():
+            for img, flow, g in zip(res[0::2], res[1::2], gs):
+                wanted = [t for t in (img, flow) if t.requires_grad]
+                if not wanted:
+                    grads += [None, None]
+                    continue
+                if ctx.planar_out:  # the cotangent arrives planar; the math is NHWC
+                    g = g.movedim(1, -1)
+                out = warp_bilinear(img, flow, align_corners=ctx.align_corners)
+                got = iter(torch.autograd.grad(out, wanted, g.to(out.dtype)))
+                grads += [next(got) if t.requires_grad else None for t in (img, flow)]
+        return (None, None, None, *grads)
+
+
 def warp_one(
     img: torch.Tensor, flow: torch.Tensor, align_corners: bool = False,
     pairs=False, planar_out: bool = False,
@@ -168,15 +216,12 @@ def warp_one(
     ``planar_out=True`` returns (B, 3, H, W).
 
     A tensor on the card launches the kernel or raises; a CPU tensor runs the
-    plain version (``warp_bilinear`` on the same rounded source).
+    plain version (``warp_bilinear`` on the same rounded source). The
+    gradient is that of ``warp_bilinear`` on the unrounded source.
     """
     _variant(pairs)
     _check_shapes(img, flow)
-    if img.device.type == "cpu":
-        return _warp_plain(img, flow, align_corners, pairs, planar_out)
-    if img.device.type != "cuda":
-        raise RuntimeError(f"no warp kernel for device {img.device}")
-    return _warp_cuda([img], [flow], align_corners, pairs, planar_out)[0]
+    return _Warp.apply(align_corners, pairs, planar_out, img, flow)[0]
 
 
 def warp_pair_kernel(
@@ -191,7 +236,7 @@ def warp_pair_kernel(
     """Both warps of the cascade, ``warp_one(i0, flow_t0)`` and
     ``warp_one(i1, flow_t1)``, in one launch of the CUDA kernel (arguments
     as :func:`warp_one`; the frames share one shape and device). A CPU
-    tensor runs the plain version of each."""
+    tensor runs the plain version of each; gradients as :func:`warp_one`."""
     _variant(pairs)
     _check_shapes(i0, flow_t0)
     _check_shapes(i1, flow_t1)
@@ -199,10 +244,5 @@ def warp_pair_kernel(
         raise ValueError(
             f"the frames of a pair must agree in shape and device, got {tuple(i0.shape)} on "
             f"{i0.device} and {tuple(i1.shape)} on {i1.device}")
-    if i0.device.type == "cpu":
-        return (_warp_plain(i0, flow_t0, align_corners, pairs, planar_out),
-                _warp_plain(i1, flow_t1, align_corners, pairs, planar_out))
-    if i0.device.type != "cuda":
-        raise RuntimeError(f"no warp kernel for device {i0.device}")
-    g0, g1 = _warp_cuda([i0, i1], [flow_t0, flow_t1], align_corners, pairs, planar_out)
+    g0, g1 = _Warp.apply(align_corners, pairs, planar_out, i0, flow_t0, i1, flow_t1)
     return g0, g1

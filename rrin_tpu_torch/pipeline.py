@@ -66,6 +66,7 @@ def _normalize_pad(pairs_u8: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
     return x
 
 
+@torch.no_grad()
 def _step_body(
     params: Dict[str, Any],
     pairs_u8: torch.Tensor,
@@ -91,7 +92,9 @@ def _step_body(
     path is the inference configuration (``models.unet.unet_apply_packed``).
     ``quant_stats`` (from :func:`device_calibrate`) runs it in int8;
     ``packed_params`` (``models.rrin.prepare_packed_params``) hands every
-    packed conv its weight-side constants.
+    packed conv its weight-side constants. Runs under ``torch.no_grad()``:
+    serving builds no autograd graph, whatever the params' ``requires_grad``
+    (an Interpolator built on a ``Trainer``'s params).
     """
     dev = pairs_u8.device
     b, _, h, w, _ = pairs_u8.shape
@@ -194,6 +197,7 @@ def _pairs_on(pairs_u8, dev: torch.device) -> torch.Tensor:
     return pairs.to(dev, non_blocking=True)
 
 
+@torch.no_grad()
 def _calibrate_body(
     params: Dict[str, Any],
     pairs_u8: torch.Tensor,

@@ -114,8 +114,9 @@ class TestForwardFp32:
         # packed=True is ported: it runs, and equals the plain path in float32
         assert torch.equal(forward(tp, x, x, packed=True, device="cpu"),
                            forward(tp, x, x, packed=False, device="cpu"))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            forward(tp, x, x, remat=True, device="cpu")
+        # remat is ported (training): it runs and equals remat=False
+        assert torch.equal(forward(tp, x, x, remat=True, device="cpu"),
+                           forward(tp, x, x, device="cpu"))
         with pytest.raises(ValueError, match="inference-only"):
             forward(tp, x, x, packed=True, remat=True, device="cpu")
 
