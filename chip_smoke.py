@@ -73,6 +73,21 @@ and numpy; nothing else and no network. It builds the CUDA kernels of
                and gradient per U-Net, float32 and bf16) and
                ``rrin-tpu-torch-train --synthetic --steps 5`` through its
                ``main``, its checkpoint loaded back
+  parallel     ``parallel/`` on two shards of the one card: (a)
+               ``Interpolator(data_parallel=0)`` is the one-device route;
+               (b) data-parallel bf16, int8 and float32 requests of two
+               1080p pairs against the one-device request on the same batch
+               (frames, ms, launches), the absmax calibration fold bit-equal
+               to the full batch's, the 99.9th percentile's fold beside the
+               full batch's; (c) spatial requests (rows cut over two shards)
+               at 2176x3840 bf16 and 1088x1920 float32 against the
+               one-device plain request; (d) one data-parallel and one
+               spatial training step at 4x256x448, bf16 and float32, and
+               one data-parallel bf16 use_pallas step (a warp pair, K2, per
+               shard), against the one-device step (loss, gradients, largest
+               parameter difference, ms); (e) (b) and (d) again on two
+               distinct cards where the machine has them. Two shards of one
+               card show what sharding costs, not a speedup
 
 Any failed check raises, so the exit code is non-zero and the closing lines
 are not printed. The closing lines are: the card's name and power limit, one
@@ -85,10 +100,11 @@ served paths, times measured in this run), and ``{"ok": true, "device":
 int8 1080p request (fewer than 600 kernels), of one int8 and one bfloat16
 4K request, of one float32 1080p request on each U-Net path and of one
 float32 4K request, printed as device time by group of kernels (where the
-time of a request goes); and after ``train`` a trace of one bf16 training
-step with use_pallas, by kind of work (K1 forward and prep, cuDNN forward
-convs, conv dgrad and wgrad, warp forward and backward, elementwise,
-optimizer).
+time of a request goes); and after ``train`` traces of one bf16 training
+step with use_pallas and of one float32 step with use_pallas at batch 4 and
+at batch 2, by kind of work (K1 forward and prep, cuDNN forward convs, conv
+dgrad and wgrad, warp forward and backward, elementwise, optimizer), with
+the kernels that took the most time by name.
 """
 
 from __future__ import annotations
@@ -2018,20 +2034,19 @@ def _train_profile_group(name: str, ancestors) -> str:
     return "elementwise backward" if backward else "elementwise forward"
 
 
-def phase_profile_train(dev, top=16):
-    """Device time of one bf16 ``use_pallas`` training step by kind of work,
-    after warm-up steps."""
+def phase_profile_train(dev, name="bf16_pallas", batch_size=TRAIN_BATCH, top=16):
+    """Device time of one training step of a variant by kind of work, after
+    warm-up steps, with the kernels that took the most of it by name."""
     from torch.profiler import ProfilerActivity, profile
 
     from rrin_tpu_torch.data import synthetic_triplet_batch
     from rrin_tpu_torch.train import Trainer
 
-    name = "bf16_pallas"
     cd, use_pallas, remat = TRAIN_VARIANTS[name]
     trainer = Trainer.create(torch.Generator().manual_seed(0), compute_dtype=cd,
                              use_pallas=use_pallas, remat=remat, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    batch = synthetic_triplet_batch(gen, TRAIN_BATCH, TRAIN_HW, device=dev)
+    batch = synthetic_triplet_batch(gen, batch_size, TRAIN_HW, device=dev)
     step = _train_step_fn(trainer)
     for _ in range(TRAIN_WARMUP):
         step(batch)
@@ -2067,7 +2082,7 @@ def phase_profile_train(dev, top=16):
     # profiler slows the step), unclamped: kernels of one stream cannot sum
     # to more than the wall, so a negative share would show overlapping
     # streams or a profiler fault.
-    emit("profile_train", variant=name, shape=[TRAIN_BATCH, *TRAIN_HW, 3],
+    emit("profile_train", variant=name, shape=[batch_size, *TRAIN_HW, 3],
          ms_per_step_unprofiled=plain_ms, ms_per_step_profiled=profiled_ms,
          device_busy_ms=busy, device_idle_share=1.0 - busy / profiled_ms,
          kernels=sum(n for _, n in kernels.values()),
@@ -2075,6 +2090,260 @@ def phase_profile_train(dev, top=16):
          top=[{"group": g, "kernel": k, "ms": ms, "calls": n} for (g, k), (ms, n) in tops])
     del trainer
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------- parallel
+
+PAR_BATCH = 2
+PAR_TIMED = 3
+# Bars of phase parallel, fixed before any run. A data-parallel request on
+# two shards against the one-device request on the same batch: equal frames
+# (each kernel computes one image alone), or else the bf16 card-vs-card bar
+# (BF16_PSNR_DB), its largest difference stated. Data-parallel absmax
+# calibration: the full batch's, bit for bit. The spatial requests against
+# the one-device plain request (the plain warp on both sides): bf16 >= 40 dB
+# with its largest difference stated; float32 frames within one u8 step on
+# < 1e-3 of the values and the float32 forward within F32_CASCADE_ATOL. A
+# mesh training step against the one-device step on the same batch: the
+# loss and every U-Net's gradient within the card-vs-CPU bars
+# (TRAIN_CPU_BARS).
+PAR_U8_SHARE = 1e-3
+
+
+def _requests_ms(interp, pairs, n=PAR_TIMED):
+    """``n`` requests after the one already made: ms each (host clock), the
+    last frames, and the launches of the last request."""
+    times = []
+    for _ in range(n):
+        (mids, ms), launches = counted(lambda: serve_request(interp, pairs))
+        times.append(ms)
+    return mids, times, launches
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _same_or_bf16(what, got, want):
+    agree = _u8_agreement(got, want)
+    agree["bit_equal"] = bool(np.array_equal(got, want))
+    check(got.shape == want.shape, f"{what}: shapes {got.shape} {want.shape}")
+    check(agree["bit_equal"] or agree["psnr_db"] >= BF16_PSNR_DB, f"{what}: {agree}")
+    return agree
+
+
+def _dp_serve(params, devices):
+    """(b): bf16 packed, int8 (absmax; the 99.9th percentile's fold printed)
+    and float32 packed batches of two 1080p pairs, on two shards against one
+    device; the calibration folds against the full batch's."""
+    from rrin_tpu_torch.parallel.sharding import make_mesh
+
+    dev = devices[0]
+    mesh = make_mesh(n_data=2, devices=devices)
+    pairs = np.concatenate([moving_squares(i, H1080, W1080) for i in range(PAR_BATCH)])
+    per_shard = {"bfloat16": PACKED_PER_REQUEST, "int8": INT8_PER_REQUEST,
+                 "float32": FP32_PACKED_PER_REQUEST}
+    out = {}
+    for name, kw in (("bfloat16", {}), ("int8", {"int8": True}),
+                     ("float32", {"compute_dtype": "float32"})):
+        kw = {"compute_dtype": "bfloat16", "use_pallas": True, **kw}
+        one = Interpolator(params, device=dev, **kw)
+        dp = Interpolator(params, mesh=mesh, **kw)
+        check(dp.shard_count == 2 and dp._dp_fast, f"parallel {name}: not the DP route")
+        serve_request(one, pairs)  # calibrates and prepares
+        _, first = counted(lambda: serve_request(dp, pairs))
+        want, one_ms, one_launch = _requests_ms(one, pairs)
+        got, dp_ms, dp_launch = _requests_ms(dp, pairs)
+        check_launches(f"parallel one-device {name}", NO_LAUNCHES, one_launch, per_shard[name])
+        check_launches(f"parallel DP {name}", NO_LAUNCHES, dp_launch, per_shard[name], times=2)
+        if name == "bfloat16":  # one prepare: both shards lie on one device
+            check_launches("parallel DP first request", NO_LAUNCHES, first,
+                           summed(_times(PACKED_PER_REQUEST, 2), PREPARE))
+        res = {"ms_one_device": one_ms, "ms_dp": dp_ms,
+               "launches_one_device": _nonzero(one_launch), "launches_dp": _nonzero(dp_launch),
+               "launches_dp_first_request": _nonzero(first),
+               "agreement": _same_or_bf16(f"parallel DP {name}", got, want)}
+        if name == "int8":
+            full = device_calibrate(params, pairs, compute_dtype=torch.bfloat16,
+                                    use_pallas=True, pad_hw=(HP - H1080, 0), device=dev)
+            folded = dp._dp_calibrate(pairs, (HP - H1080, 0))
+            res["absmax_fold_bit_equal"] = all(
+                torch.equal(folded[u][k].to(dev), full[u][k]) for u in full for k in full[u])
+            check(res["absmax_fold_bit_equal"],
+                  "parallel: DP absmax calibration differs from the full batch's")
+            q = 0.999
+            fullq = device_calibrate(params, pairs, compute_dtype=torch.bfloat16,
+                                     use_pallas=True, pad_hw=(HP - H1080, 0), quantile=q,
+                                     device=dev)
+            dpq = Interpolator(params, mesh=mesh, int8_percentile=q * 100, **kw)
+            foldq = dpq._dp_calibrate(pairs, (HP - H1080, 0))
+            ratio = np.array([float(foldq[u][k]) / float(fullq[u][k])
+                              for u in fullq for k in fullq[u]])
+            res["p99.9_fold_over_full_batch"] = {"min": float(ratio.min()),
+                                                 "max": float(ratio.max()),
+                                                 "mean": float(ratio.mean())}
+        out[name] = res
+        del one, dp
+        torch.cuda.empty_cache()
+    return out
+
+
+def _spatial_serve(params, devices):
+    """(c): a 2176x3840 bf16 request and a 1088x1920 float32 request with the
+    rows cut over two shards, against the one-device plain request."""
+    from rrin_tpu_torch.parallel.sharding import make_mesh
+    from rrin_tpu_torch.parallel.spatial import forward_spatial
+
+    dev = devices[0]
+    mesh = make_mesh(n_data=1, n_spatial=2, devices=devices)
+    out = {}
+    for name, (h, w), cd in (("bfloat16_4k", (H4K + 16, W4K), "bfloat16"),
+                             ("float32_1080p", (HP, WP), "float32")):
+        pairs = moving_squares(3, h, w)
+        one = Interpolator(params, compute_dtype=cd, packed=False, device=dev)
+        sp = Interpolator(params, compute_dtype=cd, use_pallas=True, mesh=mesh)
+        check(not sp._dp_fast, f"parallel spatial {name}: not the spatial route")
+        want, first = counted(lambda: serve_request(one, pairs)[0])
+        got, sp_first = counted(lambda: serve_request(sp, pairs)[0])
+        want2, one_ms, one_launch = _requests_ms(one, pairs, 2)
+        got2, sp_ms, sp_launch = _requests_ms(sp, pairs, 2)
+        check(np.array_equal(got, got2) and np.array_equal(want, want2),
+              f"parallel spatial {name}: requests not repeatable")
+        k1 = {"conv_phase": 36, "conv_up_prep": 36} if cd == "bfloat16" else {}
+        check_launches(f"parallel spatial one-device {name}", NO_LAUNCHES, first, k1)
+        check_launches(f"parallel spatial {name}", NO_LAUNCHES, sp_first, k1, times=2)
+        agree = _u8_agreement(got, want)
+        res = {"shape": [1, 2, h, w, 3], "ms_one_device_plain": one_ms, "ms_spatial": sp_ms,
+               "launches_one_device": _nonzero(one_launch),
+               "launches_spatial": _nonzero(sp_launch), "agreement": agree}
+        if cd == "bfloat16":
+            check(agree["psnr_db"] >= BF16_PSNR_DB, f"parallel spatial {name}: {agree}")
+        else:
+            check(agree["max_u8_steps"] <= 1 and agree["share_differing"] < PAR_U8_SHARE,
+                  f"parallel spatial {name}: {agree}")
+            x = torch.from_numpy(pairs).to(dev).float() * (1.0 / 255.0)
+            with torch.no_grad():
+                a = forward(params, x[:, 0], x[:, 1], 0.5, device=dev)
+                b = forward_spatial({dev: params}, x[:, 0], x[:, 1], 0.5, list(devices))
+            res["forward_max_abs"] = float((a - b).abs().max())
+            check(res["forward_max_abs"] <= F32_CASCADE_ATOL,
+                  f"parallel spatial {name}: forward {res['forward_max_abs']}")
+        out[name] = res
+        del one, sp
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_train(params, devices):
+    """(d): one data-parallel and one spatial training step at 4x256x448, bf16
+    and float32, and one data-parallel bf16 ``use_pallas`` step (the warp
+    pair, K2, on each shard), against the one-device step of the same
+    variant on the same batch; then the ms of two more steps of each."""
+    from rrin_tpu_torch.data import synthetic_triplet_batch
+    from rrin_tpu_torch.parallel.sharding import make_mesh
+    from rrin_tpu_torch.train import Trainer, mesh_train_step, param_leaves
+
+    dev = devices[0]
+    meshes = {"data_parallel": (make_mesh(n_data=2, devices=devices), None),
+              "spatial": (make_mesh(n_data=1, n_spatial=2, devices=devices), 1)}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = [synthetic_triplet_batch(gen, TRAIN_BATCH, TRAIN_HW, device=dev)
+               for _ in range(3)]
+
+    def grads(tr):
+        return {u: torch.cat([t.grad.double().flatten() for t in param_leaves(tr.params[u])])
+                for u in tr.params}
+
+    def steps_ms(tr):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            tr.step(*b)
+        return (time.perf_counter() - t0) * 1e3 / (len(batches) - 1)
+
+    # (key, compute dtype, use_pallas, meshes): the spatial step takes the
+    # plain warp whatever use_pallas says, so use_pallas runs on DP only
+    variants = (("bfloat16", torch.bfloat16, False, ("data_parallel", "spatial")),
+                ("bfloat16_pallas", torch.bfloat16, True, ("data_parallel",)),
+                ("float32", torch.float32, False, ("data_parallel", "spatial")))
+    out = {}
+    for key, cd, use_pallas, names in variants:
+        bars = TRAIN_CPU_BARS[str(cd).replace("torch.", "")]
+        one = Trainer.create(params=params, compute_dtype=cd, use_pallas=use_pallas, device=dev)
+        loss_one = one.step(*batches[0])
+        g_one = grads(one)
+        p_one = torch.cat([t.detach().flatten() for t in param_leaves(one.params)])
+        one_ms = steps_ms(one)
+        del one
+        for name in names:
+            mesh, sd = meshes[name]
+            tr = Trainer.create(params=params, compute_dtype=cd, use_pallas=use_pallas,
+                                mesh=mesh, spatial_dim=sd)
+            loss, launches = counted(lambda: tr.step(*batches[0]))
+            g = grads(tr)
+            p = torch.cat([t.detach().flatten() for t in param_leaves(tr.params)])
+            res = {"loss_one_device": loss_one, "loss": loss,
+                   "loss_rel": abs(loss - loss_one) / abs(loss_one),
+                   "grad_rel_norm": {u: float((g[u] - g_one[u]).norm() / g_one[u].norm())
+                                     for u in g},
+                   "max_param_diff_after_step": float((p - p_one).abs().max()),
+                   "launches_per_step": _nonzero(launches)}
+            check(res["loss_rel"] <= bars["loss_rel"], f"parallel train {name} {key}: {res}")
+            for u, e in res["grad_rel_norm"].items():
+                check(e <= bars["grad_rel"], f"parallel train {name} {key} gradient {u}: {e}")
+            # per shard: K1 and its prep at the 36 bf16 sites, the warp pair
+            # with use_pallas
+            per_shard = summed(_K1_STEP if cd == torch.bfloat16 else {},
+                               WARP_PAIR if use_pallas else {})
+            check_launches(f"parallel train {name} {key}", NO_LAUNCHES, launches, per_shard,
+                           times=2)
+            if name == "data_parallel":
+                gen_b = batches[0]
+                res["host_syncs_in_a_step"] = _host_syncs(lambda: mesh_train_step(
+                    tr.params, tr.optimizer, mesh, *gen_b, compute_dtype=cd,
+                    use_pallas=use_pallas))
+                check(not res["host_syncs_in_a_step"],
+                      f"parallel train: host syncs in a DP step {res['host_syncs_in_a_step']}")
+            res["ms_per_step"], res["ms_per_step_one_device"] = steps_ms(tr), one_ms
+            out[f"{name}_{key}"] = res
+            del tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_parallel(params, dev):
+    """``parallel/`` on the card: (a) data_parallel=0 on one card is the
+    one-device route; (b) data-parallel serving and (d) mesh training on two
+    shards of one card, (c) spatial serving; (e) (b) and (d) on two cards
+    where there are two. Two shards on one card show the cost of sharding,
+    not a speedup."""
+    pairs = moving_squares(0, H1080, W1080)
+    base = Interpolator(params, use_pallas=True, device=dev)
+    dp0 = Interpolator(params, use_pallas=True, data_parallel=0, device=dev)
+    one_card = torch.cuda.device_count() == 1
+    check(dp0.mesh is None or not one_card, "parallel: data_parallel=0 on one card built a mesh")
+    serve_request(base, pairs)
+    serve_request(dp0, pairs)
+    (want, _), a = counted(lambda: serve_request(base, pairs))
+    (got, _), b = counted(lambda: serve_request(dp0, pairs))
+    check(np.array_equal(got, want) and a == b,
+          "parallel: data_parallel=0 differs from the default Interpolator")
+    check_launches("parallel data_parallel=0", NO_LAUNCHES, b, PACKED_PER_REQUEST)
+    del base, dp0
+    same_card = [dev, dev]
+    res = {"one_device_route": {"bit_equal": True, "launches": _nonzero(b)},
+           "dp_serve_two_shards_one_card": _dp_serve(params, same_card),
+           "spatial_serve_two_shards_one_card": _spatial_serve(params, same_card),
+           "train_two_shards_one_card": _mesh_train(params, same_card)}
+    if one_card:
+        res["two_cards"] = "not run: torch.cuda.device_count() is 1"
+    else:
+        two = [torch.device("cuda", 0), torch.device("cuda", 1)]
+        res["dp_serve_two_cards"] = _dp_serve(params, two)
+        res["train_two_cards"] = _mesh_train(params, two)
+    emit("parallel", batch=PAR_BATCH, train_shape=[TRAIN_BATCH, *TRAIN_HW, 3],
+         bars={"bf16_psnr_db": BF16_PSNR_DB, "float32_forward_atol": F32_CASCADE_ATOL,
+               "u8_one_step_share": PAR_U8_SHARE, "train": TRAIN_CPU_BARS}, **res)
 
 
 # ------------------------------------------------------------------- summary
@@ -2364,6 +2633,11 @@ def main() -> int:
     train_counts = phase_train(dev)
     if "--profile" in sys.argv[1:]:
         phase_profile_train(dev)
+        # the float32 step at the batch of phase train and at half of it,
+        # the shard of a data-parallel step on two devices
+        phase_profile_train(dev, "fp32_pallas", TRAIN_BATCH)
+        phase_profile_train(dev, "fp32_pallas", TRAIN_BATCH // 2)
+    phase_parallel(params, dev)
 
     summary = kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_4k,
                               int8_counts, plain_counts, fp32_counts, f32_counts,

@@ -41,12 +41,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", "-b", type=int, default=1,
                    help="frame pairs per device step")
     p.add_argument("--data-parallel", "-d", type=int, default=1,
-                   help="shard frame-pair batches over N devices (not ported "
-                   "yet: values other than 1 raise)")
+                   help="shard frame-pair batches over N devices (0 = all; "
+                   "with --device cpu the CPU is listed N times); the batch "
+                   "size rounds up to a multiple of N")
     p.add_argument("--spatial", type=int, default=1,
                    help="additionally shard frame HEIGHT over N devices for "
-                   "very large frames (not ported yet: values other than 1 "
-                   "raise)")
+                   "very large frames (the plain path; excludes --int8)")
     p.add_argument(
         "--mode", choices=("direct", "cascade"), default="direct",
         help="direct: each intermediate at its own t in one pass; "

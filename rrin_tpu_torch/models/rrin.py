@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import os
 from typing import Any, Dict, Optional, Union
@@ -98,64 +99,97 @@ def _as_t(t: TimeLike, batch: int, device: torch.device) -> torch.Tensor:
     return t.reshape(-1, 1, 1, 1)
 
 
+def _project(flows: torch.Tensor, tb: torch.Tensor):
+    """Stage 2, linear motion quadratic in t: (Ft0, Ft1) from the flow
+    U-Net's (F01 | F10)."""
+    f01, f10 = flows[..., :2], flows[..., 2:]
+    ft0 = -(1.0 - tb) * tb * f01 + tb * tb * f10
+    ft1 = (1.0 - tb) * (1.0 - tb) * f01 - tb * (1.0 - tb) * f10
+    return ft0, ft1
+
+
+def _blend(m: torch.Tensor, g0: torch.Tensor, g1: torch.Tensor, tb: torch.Tensor,
+           eps: float, planar: bool = False) -> torch.Tensor:
+    """Stage 5's normalized blend of the two warped frames by the weight map
+    ``m`` (NHWC). With ``planar`` the warped frames are (B, C, H, W) and the
+    blend runs planar; only the result moves back to NHWC. Same math."""
+    w0 = (1.0 - tb) * m[..., 0:1]
+    w1 = tb * m[..., 1:2]
+    if planar:
+        w0, w1 = w0.movedim(-1, 1), w1.movedim(-1, 1)  # (B,1,H,W)
+        return ((w0 * g0 + w1 * g1) / (w0 + w1 + eps)).movedim(1, -1)
+    return (w0 * g0 + w1 * g1) / (w0 + w1 + eps)
+
+
+def _whole(stage, *xs):
+    """``_cascade``'s ``each`` on one device: the stage on the whole frames."""
+    return stage(*xs)
+
+
+def _cat(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.cat([a, b], dim=-1)
+
+
+def _refined(ft0: torch.Tensor, ft1: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
+    return torch.cat([ft0, ft1], dim=-1) + res
+
+
+def _finish(coarse: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
+    return (coarse + res).clamp(0.0, 1.0)
+
+
 def _cascade(
     run_unet,
     i0f: torch.Tensor,
     i1f: torch.Tensor,
     tb: torch.Tensor,
     cfg: ModelConfig,
-    use_pallas: bool,
-    pairs,
+    use_pallas: bool = False,
+    pairs=False,
     flows: Optional[torch.Tensor] = None,
     planar: bool = False,
+    warp=None,
+    each=_whole,
 ) -> torch.Tensor:
     """The shared 4-U-Net dataflow; ``run_unet(name, *feats)`` applies one
-    U-Net to the channel-concat of ``feats``."""
+    U-Net to the channel-concat of ``feats``. ``each(stage, *xs)`` applies
+    a stage that is local in H and W to the frames, and ``warp(ftc)`` gives
+    the two warped frames: on one device the whole frames and
+    ``ops.warp.warp_pair``; ``parallel.spatial`` passes its row shards, a
+    map over them and its own warp."""
     # 1. coarse bidirectional flow: the only t-independent stage, so callers
     # that want m times of one pair compute it once (``flows_only``) and pass
     # it back in.
     if flows is None:
         flows = run_unet("flow", i0f, i1f)
-    f01, f10 = flows[..., :2], flows[..., 2:]
 
     # 2. flow-to-time projection (float32)
-    ft0 = -(1.0 - tb) * tb * f01 + tb * tb * f10
-    ft1 = (1.0 - tb) * (1.0 - tb) * f01 - tb * (1.0 - tb) * f10
+    ft0, ft1 = each(_project, flows, tb)
 
     # 3. residual flow refinement; I0|I1 and Ft0|Ft1 are carried as single
     # tensors so no U-Net entry concatenates more than four operands.
-    i01 = torch.cat([i0f, i1f], dim=-1)
-    res = run_unet("refine", ft0, ft1, i01)
-    ftc = torch.cat([ft0, ft1], dim=-1) + res
-    ft0, ft1 = ftc[..., :2], ftc[..., 2:]
+    i01 = each(_cat, i0f, i1f)
+    ftc = each(_refined, ft0, ft1, run_unet("refine", ft0, ft1, i01))
 
-    # 4. backward bilinear warp of both frames (float32 accumulation)
+    # 4. backward bilinear warp of both frames (float32 accumulation). With
+    # ``planar`` the warps return (B, C, H, W): the blend runs planar and
+    # the mask U-Net takes them as NHWC views.
     planar = use_pallas and planar
-    g0, g1 = warp_pair(
-        i0f, i1f, ft0, ft1, align_corners=cfg.align_corners,
-        use_pallas=use_pallas, pairs=pairs, planar_out=planar,
-    )
+    if warp is None:
+        g0, g1 = warp_pair(
+            i0f, i1f, ftc[..., :2], ftc[..., 2:], align_corners=cfg.align_corners,
+            use_pallas=use_pallas, pairs=pairs, planar_out=planar,
+        )
+    else:
+        g0, g1 = warp(ftc)
+    g0n, g1n = (g0.movedim(1, -1), g1.movedim(1, -1)) if planar else (g0, g1)
 
-    # 5. adaptive weight map + normalized blend (float32). With ``planar``
-    # the warps return (B, C, H, W) and the blend runs planar; only `coarse`
-    # moves back to NHWC. Same math either way.
-    if planar:
-        g0n, g1n = g0.movedim(1, -1), g1.movedim(1, -1)
-    else:
-        g0n, g1n = g0, g1
-    m = torch.sigmoid(run_unet("mask", ftc, i01, g0n, g1n))
-    if planar:
-        w0 = ((1.0 - tb) * m[..., 0:1]).movedim(-1, 1)  # (B,1,H,W)
-        w1 = (tb * m[..., 1:2]).movedim(-1, 1)
-        coarse = ((w0 * g0 + w1 * g1) / (w0 + w1 + cfg.blend_eps)).movedim(1, -1)
-    else:
-        w0 = (1.0 - tb) * m[..., 0:1]
-        w1 = tb * m[..., 1:2]
-        coarse = (w0 * g0 + w1 * g1) / (w0 + w1 + cfg.blend_eps)
+    # 5. adaptive weight map + normalized blend (float32)
+    m = each(torch.sigmoid, run_unet("mask", ftc, i01, g0n, g1n))
+    coarse = each(functools.partial(_blend, eps=cfg.blend_eps, planar=planar), m, g0, g1, tb)
 
     # 6. residue refinement
-    out = coarse + run_unet("final", i01, coarse)
-    return out.clamp(0.0, 1.0)
+    return each(_finish, coarse, run_unet("final", i01, coarse))
 
 
 def forward(

@@ -103,32 +103,35 @@ def unet_init(
     }
 
 
-def _conv(x: torch.Tensor, p: Params) -> torch.Tensor:
-    """conv + bias, no activation (head convs)."""
-    return conv2d_fused(x, p["w"], p["b"], None)
+class PlainOps:
+    """The tensor ops of :func:`_unet` on whole frames. ``parallel.spatial``
+    has their counterparts on frames cut into row shards."""
+
+    conv = staticmethod(conv2d_fused)  # (x, w, b, slope)
+    pool = staticmethod(avg_pool_2x)
+    up = staticmethod(upsample_2x_bilinear)
+
+    @staticmethod
+    def cat(ts):
+        return torch.cat(ts, dim=-1)
 
 
-def _conv_act(x: torch.Tensor, p: Params, slope: Optional[float]) -> torch.Tensor:
-    """conv + bias + LeakyReLU, fused on the kernel path."""
-    return conv2d_fused(x, p["w"], p["b"], slope)
-
-
-def _unet(p: Params, x: torch.Tensor, cfg: ModelConfig, rec) -> torch.Tensor:
+def _unet(p: Params, x: torch.Tensor, cfg: ModelConfig, rec, ops=PlainOps) -> torch.Tensor:
     """The plain U-Net; ``rec(name, t)`` sees the input ("in") and every
     conv's output (c1, c2, d1c1 ... u4c2) and returns the tensor to go on
-    with."""
+    with. ``ops`` holds the conv, pool, upsample and channel concat."""
     s = cfg.leaky_slope
 
     def conv(name, t, prm):
-        return rec(name, _conv_act(t, prm, s))
+        return rec(name, ops.conv(t, prm["w"], prm["b"], s))
 
     def down(i, t):
-        t = conv(f"d{i}c1", avg_pool_2x(t), p[f"down{i}"]["conv1"])
+        t = conv(f"d{i}c1", ops.pool(t), p[f"down{i}"]["conv1"])
         return conv(f"d{i}c2", t, p[f"down{i}"]["conv2"])
 
     def up(i, t, skip):
-        t = conv(f"u{i}c1", upsample_2x_bilinear(t), p[f"up{i}"]["conv1"])
-        return conv(f"u{i}c2", torch.cat([t, skip], dim=-1), p[f"up{i}"]["conv2"])
+        t = conv(f"u{i}c1", ops.up(t), p[f"up{i}"]["conv1"])
+        return conv(f"u{i}c2", ops.cat([t, skip]), p[f"up{i}"]["conv2"])
 
     t = conv("c1", rec("in", x), p["conv1"])
     s1 = conv("c2", t, p["conv2"])
@@ -140,7 +143,7 @@ def _unet(p: Params, x: torch.Tensor, cfg: ModelConfig, rec) -> torch.Tensor:
     t = up(2, t, s3)
     t = up(3, t, s2)
     t = up(4, t, s1)
-    return _conv(t, p["conv3"])
+    return ops.conv(t, p["conv3"]["w"], p["conv3"]["b"], None)
 
 
 def unet_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -23,11 +23,13 @@ import torch
 
 
 def _sample_coords(
-    flow: torch.Tensor, height: int, width: int, align_corners: bool
+    flow: torch.Tensor, height: int, width: int, align_corners: bool, row0: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Absolute bilinear sample positions (sy, sx) for each output pixel."""
+    """Absolute bilinear sample positions (sy, sx) for each output pixel of
+    the flow's rows, the first of which is row ``row0`` of a frame
+    ``height`` rows high."""
     xs = torch.arange(width, dtype=flow.dtype, device=flow.device)
-    ys = torch.arange(height, dtype=flow.dtype, device=flow.device)[:, None]
+    ys = torch.arange(row0, row0 + flow.shape[-3], dtype=flow.dtype, device=flow.device)[:, None]
     px = xs + flow[..., 0]
     py = ys + flow[..., 1]
     if align_corners:
@@ -42,28 +44,34 @@ def _sample_coords(
 def _gather_2d(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     """Gather img[b, yi, xi, :] with in-bounds integer indices.
 
-    img: (B, H, W, C); yi/xi: (B, H, W) int64.
+    img: (B, H, W, C); yi/xi: (B, Ho, W) int64 (Ho output rows).
     """
     b, h, w, c = img.shape
-    flat = (yi * w + xi).reshape(b, h * w, 1).expand(b, h * w, c)
-    return torch.gather(img.reshape(b, h * w, c), 1, flat).reshape(b, h, w, c)
+    ho = yi.shape[1]
+    flat = (yi * w + xi).reshape(b, ho * w, 1).expand(b, ho * w, c)
+    return torch.gather(img.reshape(b, h * w, c), 1, flat).reshape(b, ho, w, c)
 
 
 def warp_bilinear(
-    img: torch.Tensor, flow: torch.Tensor, align_corners: bool = False
+    img: torch.Tensor, flow: torch.Tensor, align_corners: bool = False, row0: int = 0,
 ) -> torch.Tensor:
     """Backward-warp ``img`` by ``flow`` with bilinear sampling, zeros outside.
 
     Args:
       img:  (B, H, W, C) source frame.
-      flow: (B, H, W, 2) displacement field; channel 0 = dx, 1 = dy.
+      flow: (B, H, W, 2) displacement field; channel 0 = dx, 1 = dy. Or the
+        (B, Ho, W, 2) field of rows ``row0 .. row0 + Ho - 1`` only (one
+        shard of an H-sharded frame, ``parallel.spatial``): the positions
+        are normalised by the whole frame's H as ever.
       align_corners: grid_sample normalization variant (see module doc).
+      row0: the frame row of the flow's first row.
 
-    Returns (B, H, W, C): img sampled at p + flow(p).
+    Returns (B, Ho, W, C): img sampled at p + flow(p).
     """
     b, h, w, c = img.shape
+    ho = flow.shape[1]
     f32 = torch.float32
-    sy, sx = _sample_coords(flow.to(f32), h, w, align_corners)
+    sy, sx = _sample_coords(flow.to(f32), h, w, align_corners, row0)
 
     x0f = torch.floor(sx)
     y0f = torch.floor(sy)
@@ -75,7 +83,7 @@ def warp_bilinear(
     y0 = y0f.clamp(-2.0, float(h)).to(torch.int64)
 
     imgf = img.to(f32)
-    out = torch.zeros((b, h, w, c), dtype=f32, device=img.device)
+    out = torch.zeros((b, ho, w, c), dtype=f32, device=img.device)
     for dy, dx, wgt in (
         (0, 0, (1 - wy) * (1 - wx)),
         (0, 1, (1 - wy) * wx),

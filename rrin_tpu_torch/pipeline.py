@@ -17,8 +17,9 @@ Serves the packed path (``packed=None`` follows ``use_pallas``, whatever
 the ``compute_dtype``, as in the JAX package), in bfloat16, float32 or
 calibrated int8 (``int8=True``, absmax or percentile calibration, with
 saturation telemetry), its weights prepared once per resolution, or the
-plain path on one device; the options that belong to paths not ported yet
-raise ``NotImplementedError`` (see ROADMAP.md).
+plain path; on one device, data-parallel over several (each runs the
+one-device step on its shard of the batch) or with each frame's rows cut
+over several (``parallel.spatial``).
 """
 
 from __future__ import annotations
@@ -39,23 +40,29 @@ from rrin_tpu_torch.config import ModelConfig
 from rrin_tpu_torch.models.rrin import (
     PackedParams,
     QuantStats,
+    _map_stats,
     forward,
     forward_calibrate,
     forward_saturation,
+    merge_quant_stats,
     prepare_packed_params,
     scale_quant_stats,
 )
 from rrin_tpu_torch.models.unet import packed_bf16_supported, packed_supported
 from rrin_tpu_torch.ops.pad import _edge_pad_hw, padded_size
+from rrin_tpu_torch.parallel.sharding import (
+    DATA_AXIS,
+    SPATIAL_AXIS,
+    Mesh,
+    Sharded,
+    make_mesh,
+    replicate_params,
+    shard_pairs,
+)
 
 
 def _dtype_from_name(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md Queue A item '{item}'")
 
 
 def _normalize_pad(pairs_u8: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
@@ -80,10 +87,16 @@ def _step_body(
     ts: Optional[torch.Tensor] = None,
     quant_stats: Optional[QuantStats] = None,
     packed_params: Optional[PackedParams] = None,
+    spatial: Optional[List[torch.device]] = None,
 ) -> torch.Tensor:
     """One device step: (B, 2, H, W, 3) uint8 -> (B, m, H, W, 3) uint8 with
     m = 2^exp - 1 (direct/cascade) or ts.shape[1] (times). ``pairs_u8`` (and
     ``ts``) already lie on the device the step runs on.
+
+    ``spatial`` lists the devices each frame's rows are cut over: the cascade
+    then runs ``parallel.spatial.forward_spatial`` (the plain path),
+    ``params`` maps each of those devices to its copy of the params, and the
+    step's result lies on the first of them.
 
     ``pad_hw`` is the (pad_h, pad_w) bottom/right padding to /16.
     ``mode="times"`` interpolates each pair at the times ``ts`` ((B, m)
@@ -107,6 +120,11 @@ def _step_body(
     m = (1 << exp) - 1
 
     def run(a, c, t, **kw):
+        if spatial is not None:
+            from rrin_tpu_torch.parallel.spatial import forward_spatial
+
+            return forward_spatial(params, a, c, t, spatial, cfg=cfg,
+                                   compute_dtype=compute_dtype, **kw)
         return forward(
             params, a, c, t, cfg=cfg, compute_dtype=compute_dtype,
             use_pallas=use_pallas,
@@ -188,13 +206,17 @@ def device_step(
     )
 
 
-def _pairs_on(pairs_u8, dev: torch.device) -> torch.Tensor:
+def _as_pairs(pairs_u8) -> torch.Tensor:
     pairs = torch.as_tensor(pairs_u8)
     if pairs.dtype != torch.uint8 or pairs.ndim != 5 or pairs.shape[1] != 2:
         raise ValueError(
             "pairs_u8 must be uint8 (B, 2, H, W, 3), got "
             f"{pairs.dtype} {tuple(pairs.shape)}")
-    return pairs.to(dev, non_blocking=True)
+    return pairs
+
+
+def _pairs_on(pairs_u8, dev: torch.device) -> torch.Tensor:
+    return _as_pairs(pairs_u8).to(dev, non_blocking=True)
 
 
 @torch.no_grad()
@@ -351,11 +373,24 @@ class Interpolator:
     On the packed path the first batch at each padded resolution also
     prepares every conv's weight-side constants for it and its calibration
     (``models.rrin.prepare_packed_params``); later batches make no weight
-    work at all.
+    work at all. ``packed=None`` follows ``use_pallas``.
 
-    The options of paths that are not ported yet are accepted by name and
-    raise ``NotImplementedError``: ``data_parallel != 1``, ``spatial != 1``.
-    ``packed=None`` follows ``use_pallas``.
+    With ``data_parallel > 1`` (or 0 = every device), frame-pair batches are
+    cut over the ``data`` axis of a mesh (``parallel.sharding``) and each
+    device runs the one-device step on its shard, the full fast path:
+    packed kernels, int8 with its own copy of the stats, its own prepared
+    constants. The batch must divide over the axis (``interpolate_video``
+    rounds its batch up). The result is gathered on the mesh's first device.
+    int8 calibration runs per shard and folds by elementwise max.
+
+    ``spatial > 1`` also cuts each frame's height over a ``spatial`` axis
+    (``parallel.spatial``): that path is the plain path (no packed kernels
+    across cut rows; K1 at the bf16 convs on the card, the plain warp) and
+    refuses int8, as in the JAX package. ``mesh`` (``make_mesh``) replaces
+    ``data_parallel``/``spatial`` and ``device`` (its first device is the
+    Interpolator's); a mesh of one device is dropped. Without one, the mesh
+    is built of the CUDA devices, or, for ``device="cpu"``, of the CPU
+    listed once per shard.
     """
 
     def __init__(
@@ -373,6 +408,7 @@ class Interpolator:
         int8_margin: float = 1.2,
         int8_percentile: Optional[float] = None,
         quant_stats: Optional[QuantStats] = None,
+        mesh: Optional[Mesh] = None,
         device: DeviceLike = "cuda",
     ):
         if mode not in ("direct", "cascade", "times"):
@@ -397,11 +433,28 @@ class Interpolator:
                 raise ValueError(
                     "int8_percentile must be in (50, 100] (percent of |activation| "
                     "mass kept inside the grid; 100 = absmax)")
-        if data_parallel != 1:
-            raise _not_ported(f"data_parallel={data_parallel}", "parallel/")
-        if spatial != 1:
-            raise _not_ported(f"spatial={spatial}", "parallel/")
-        self.device = resolve_device(device)
+        # a mesh of more than one device, else None (the one-device route)
+        self.mesh: Optional[Mesh] = None
+        self.spatial = spatial
+        if mesh is not None:
+            self.device = mesh.devices[0, 0]
+        else:
+            self.device = resolve_device(device)
+            if data_parallel != 1 or spatial > 1:
+                n = data_parallel if data_parallel > 0 else 0
+                devices = None if self.device.type == "cuda" else (
+                    [self.device] * (max(n, 1) * spatial))
+                mesh = make_mesh(n_data=n, n_spatial=spatial, devices=devices)
+        if mesh is not None and mesh.devices.size > 1:
+            n_sp = mesh.shape[SPATIAL_AXIS]
+            if int8 and n_sp > 1:
+                raise ValueError(
+                    "int8 composes with data_parallel but not with spatial "
+                    f"sharding (mesh has a {n_sp}-way '{SPATIAL_AXIS}' axis)")
+            self.mesh = mesh
+        # device -> its copy of the params (one device: the caller's params)
+        self._replicas = (replicate_params(self.mesh, params) if self.mesh is not None
+                          else {self.device: params})
         if mode == "cascade" and exp >= 3:
             import warnings
 
@@ -411,7 +464,7 @@ class Interpolator:
                 "times one after the other at batch B instead",
                 stacklevel=2,
             )
-        self.params = params
+        self.params = self._replicas[self.device]
         self.cfg = cfg
         self.exp = exp
         self.mode = mode
@@ -427,6 +480,17 @@ class Interpolator:
         self._quant_stats: Dict[Tuple[int, int], QuantStats] = {}
         # padded (H, W) -> its prepared constants (None: not on the packed path)
         self._packed_params: Dict[Tuple[int, int], Optional[PackedParams]] = {}
+        # (device, padded (H, W)) -> (stats, prepared constants) on a mesh's
+        # other devices
+        self._replica_state: Dict[tuple, tuple] = {}
+
+    @property
+    def _dp_fast(self) -> bool:
+        """True when the mesh step is the one-device fast path per data
+        shard (no spatial axis in use), derived from the mesh as in the JAX
+        package."""
+        return (self.mesh is not None and self.spatial == 1
+                and self.mesh.shape[SPATIAL_AXIS] == 1)
 
     def _ensure_quant_stats(self, pairs_u8, pad_hw, hw_key) -> None:
         """Calibrate (or install the preset) for this padded resolution if
@@ -441,6 +505,8 @@ class Interpolator:
             stats = {u: {k: torch.as_tensor(v, dtype=torch.float32).to(self.device)
                          for k, v in sites.items()}
                      for u, sites in self._preset_stats.items()}
+        elif self.mesh is not None:
+            stats = scale_quant_stats(self._dp_calibrate(pairs_u8, pad_hw), self.int8_margin)
         else:
             stats = scale_quant_stats(device_calibrate(
                 self.params, pairs_u8, cfg=self.cfg, compute_dtype=self.compute_dtype,
@@ -448,6 +514,23 @@ class Interpolator:
                 device=self.device),
                 self.int8_margin)
         self._quant_stats[hw_key] = stats
+
+    def _dp_calibrate(self, pairs_u8, pad_hw) -> QuantStats:
+        """int8 calibration over the data axis: each device runs the
+        one-device calibration pass on its batch shard, and the per-site
+        statistics fold by elementwise max on the first device. For absmax
+        that is the full-batch calibration; for a percentile, the largest of
+        the per-shard quantiles (as the JAX package's ``pmax``)."""
+        batch = pairs_u8 if isinstance(pairs_u8, Sharded) else shard_pairs(self.mesh, pairs_u8)
+        folded = None
+        for shard in batch.data_shards():
+            stats = _calibrate_body(
+                self._replicas[shard.device], shard, cfg=self.cfg,
+                compute_dtype=self.compute_dtype, use_pallas=self.use_pallas,
+                pad_hw=pad_hw, quantile=self._calib_quantile)
+            stats = _map_stats(lambda v: v.to(self.device), stats)
+            folded = stats if folded is None else merge_quant_stats(folded, stats)
+        return folded
 
     def _prepared(self, hw_key) -> Optional[PackedParams]:
         """The prepared constants of this padded resolution and its
@@ -464,6 +547,25 @@ class Interpolator:
                     device=self.device)
             self._packed_params[hw_key] = prep
         return self._packed_params[hw_key]
+
+    def _state_on(self, dev: torch.device, hw_key) -> tuple:
+        """(stats, prepared constants) of this padded resolution on ``dev``:
+        the first device's own, or copies of the stats and constants
+        prepared from ``dev``'s params, made at its first batch there."""
+        if dev == self.device:
+            return self._quant_stats.get(hw_key), self._prepared(hw_key)
+        key = (dev, hw_key)
+        if key not in self._replica_state:
+            stats = self._quant_stats.get(hw_key)
+            if stats is not None:
+                stats = _map_stats(lambda v: v.to(dev), stats)
+            prep = None
+            if self._prepared(hw_key) is not None:
+                prep = prepare_packed_params(
+                    self._replicas[dev], self.cfg, self.compute_dtype, quant_stats=stats,
+                    hw=hw_key, device=dev)
+            self._replica_state[key] = (stats, prep)
+        return self._replica_state[key]
 
     def _pad(self, pairs_u8) -> Tuple[Tuple[int, int], Tuple[int, int]]:
         """((pad_h, pad_w), padded (H, W)) of a (B, 2, H, W, 3) batch."""
@@ -482,7 +584,7 @@ class Interpolator:
         requests are served on (margin applied). Absmax calibration reads
         0.0 everywhere on its own batch; ``int8_percentile=P`` about
         ``1 - P/100``. Runs the plain cascade once: telemetry, not the served
-        path."""
+        path; under a mesh it runs on the mesh's first device."""
         if not self.int8:
             raise ValueError("saturation_rates requires int8=True")
         pad_hw, hw_key = self._pad(pairs_u8)
@@ -503,8 +605,9 @@ class Interpolator:
 
     @property
     def shard_count(self) -> int:
-        """Devices the batch dim shards over: one in this slice."""
-        return 1
+        """Devices the batch dim shards over (the data axis only: the
+        spatial axis cuts H, not B)."""
+        return 1 if self.mesh is None else self.mesh.shape[DATA_AXIS]
 
     def step(
         self, pairs_u8: np.ndarray, ts: Optional[np.ndarray] = None
@@ -518,10 +621,13 @@ class Interpolator:
 
         The first batch at each padded resolution also runs the calibration
         pass (int8) and prepares the packed convs' constants (see the class
-        docstring)."""
+        docstring). Under a mesh the result is gathered on its first
+        device."""
         if (ts is not None) != (self.mode == "times"):
             raise ValueError("ts is required (exactly) when mode='times'")
         pad_hw, hw_key = self._pad(pairs_u8)
+        if self.mesh is not None:
+            return self._mesh_step(pairs_u8, pad_hw, hw_key, ts)
         pairs = _pairs_on(pairs_u8, self.device)
         if self.int8:
             self._ensure_quant_stats(pairs, pad_hw, hw_key)
@@ -532,6 +638,36 @@ class Interpolator:
             quant_stats=self._quant_stats.get(hw_key),
             packed_params=self._prepared(hw_key), device=self.device,
         )
+
+    def _mesh_step(self, pairs_u8, pad_hw, hw_key, ts) -> torch.Tensor:
+        """:meth:`step` under a mesh: every shard is copied to its device
+        first, then each data shard's step is enqueued (one after the other
+        from the host, with no sync between them), then the results are
+        gathered on the first device."""
+        batch = shard_pairs(self.mesh, _as_pairs(pairs_u8))
+        tss = None if ts is None else shard_pairs(
+            self.mesh, torch.as_tensor(np.asarray(ts, np.float32))).data_shards()
+        kw = dict(exp=self.exp, mode=self.mode, cfg=self.cfg,
+                  compute_dtype=self.compute_dtype, pad_hw=pad_hw)
+        outs = []
+        if self._dp_fast:
+            if self.int8:
+                self._ensure_quant_stats(batch, pad_hw, hw_key)
+            for d, shard in enumerate(batch.data_shards()):
+                stats, prep = self._state_on(shard.device, hw_key)
+                outs.append(_step_body(
+                    self._replicas[shard.device], shard, use_pallas=self.use_pallas,
+                    packed=self.packed, ts=None if tss is None else tss[d],
+                    quant_stats=stats, packed_params=prep, **kw))
+        else:
+            # the spatial path: the plain path, each frame's rows cut over the
+            # devices of its row of the mesh
+            for d, shard in enumerate(batch.data_shards()):
+                outs.append(_step_body(
+                    self._replicas, shard, use_pallas=False, packed=False,
+                    ts=None if tss is None else tss[d],
+                    spatial=list(self.mesh.devices[d]), **kw))
+        return torch.cat([o.to(self.device) for o in outs])
 
 
 def interpolate_video(

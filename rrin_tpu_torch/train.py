@@ -13,9 +13,17 @@ The JAX package's ``train.py`` on one card:
   * Adamax (the paper's optimizer family) or Adam from ``torch.optim`` with
     optax's defaults, which they compute up to float32 rounding.
 
-Data-parallel and spatially sharded training (``mesh=``, ``spatial_dim=``,
-``--data-parallel`` above 1) belong to ``parallel/``, which is not ported
-yet (ROADMAP Queue A item 7) and raise ``NotImplementedError``.
+Over a mesh (``Trainer.create(mesh=)``, ``--data-parallel``): each data
+shard of the batch runs the forward and the loss on its device, from copies
+of the master params made in the autograd graph, so one backward sums every
+shard's gradient into the master params; the mean of the equal shards' mean
+losses is the full batch's. With a process group of more than one rank
+(``parallel.distributed.initialize``) every step, over a mesh or on one
+device, then averages the gradients over it; ``main`` gives each process
+its rows of the group's batch. ``Trainer(spatial_dim=1)`` also cuts each
+frame's rows over the mesh's spatial axis (``parallel.spatial``) and
+gathers the prediction on the row's first device for the loss. The master
+params and the optimizer stay on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -34,12 +42,16 @@ import torch
 from rrin_tpu_torch._device import DeviceLike, resolve_device
 from rrin_tpu_torch.config import ModelConfig
 from rrin_tpu_torch.models.rrin import TimeLike, forward, init_params
+from rrin_tpu_torch.parallel.sharding import (
+    DATA_AXIS,
+    Mesh,
+    batch_sharding,
+    replicate_params,
+    shard,
+)
 
 Params = Dict[str, Any]
 OptimizerFactory = Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]
-
-_PARALLEL = ("is not ported yet: data-parallel and spatially sharded training "
-             "belong to parallel/ (ROADMAP.md Queue A item 7)")
 
 
 def charbonnier(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -134,15 +146,91 @@ def train_step(
     (leaves that require grad) and holds its own state, so it takes the
     places of both the reference's ``opt_state`` and ``optimizer``. Updates
     the params in place and returns the loss as a 0-d tensor on the device
-    (no host sync inside the step)."""
+    (no host sync inside the step). With a process group of more than one
+    rank, the gradients and the loss are averaged over it first."""
     optimizer.zero_grad(set_to_none=True)
     loss_v = loss_fn(
         params, i0, gt, i1, t, cfg=cfg, compute_dtype=compute_dtype,
         use_pallas=use_pallas, remat=remat, loss=loss, device=device,
     )
     loss_v.backward()
+    loss_v = _average_over_processes(params, loss_v.detach())
     optimizer.step()
-    return loss_v.detach()
+    return loss_v
+
+
+def _average_over_processes(params: Params, loss_v: torch.Tensor) -> torch.Tensor:
+    """With a process group of more than one rank, average the params'
+    gradients (in place) and the loss over it: every rank then takes the
+    same update. Returns the loss (as it was on one process)."""
+    import torch.distributed as dist
+
+    from rrin_tpu_torch.parallel.distributed import world_size
+
+    n = world_size()
+    if n == 1:
+        return loss_v
+    for leaf in param_leaves(params):
+        if leaf.grad is not None:
+            dist.all_reduce(leaf.grad)
+            leaf.grad.div_(n)
+    loss_v = loss_v.clone()
+    dist.all_reduce(loss_v)
+    return loss_v.div_(n)
+
+
+def _shard_t(t: TimeLike, mesh: Mesh) -> List[TimeLike]:
+    """``t`` per data shard: a scalar as it is, per-example times cut with
+    the batch."""
+    if isinstance(t, (int, float)) or torch.as_tensor(t).ndim == 0:
+        return [t] * mesh.shape[DATA_AXIS]
+    return shard(torch.as_tensor(t, dtype=torch.float32), batch_sharding(mesh)).data_shards()
+
+
+def mesh_train_step(
+    params: Params,
+    optimizer: torch.optim.Optimizer,
+    mesh: Mesh,
+    i0, gt, i1,
+    t: TimeLike = 0.5,
+    cfg: ModelConfig = ModelConfig(),
+    compute_dtype: torch.dtype = torch.float32,
+    use_pallas: bool = False,
+    remat: bool = False,
+    loss: str = "charbonnier",
+    spatial_dim: Optional[int] = None,
+) -> torch.Tensor:
+    """:func:`train_step` over a mesh: the batch is cut over the data axis
+    and every shard's forward and loss run on its device, from copies of the
+    master ``params`` (on the mesh's first device, where ``optimizer``
+    keeps its state) made inside the autograd graph; one backward of the
+    mean loss sums the gradients into the master params. With
+    ``spatial_dim=1`` the rows of each frame are cut over the spatial axis
+    too (``parallel.spatial``, the plain warp). Gradients are averaged over
+    the process group when it has more than one rank. Returns the batch's
+    loss as a 0-d tensor on the first device."""
+    from rrin_tpu_torch.parallel.spatial import forward_spatial
+
+    master = mesh.devices[0, 0]
+    optimizer.zero_grad(set_to_none=True)
+    i0s, gts, i1s = (shard(torch.as_tensor(a, dtype=torch.float32), batch_sharding(mesh))
+                     for a in (i0, gt, i1))
+    copies = replicate_params(mesh, params)  # differentiable copies; master's own leaves
+    losses = []
+    for d, (a, g, c, td) in enumerate(zip(i0s.data_shards(), gts.data_shards(),
+                                         i1s.data_shards(), _shard_t(t, mesh))):
+        if spatial_dim is not None:
+            pred = forward_spatial(copies, a, c, td, list(mesh.devices[d]), cfg=cfg,
+                                   compute_dtype=compute_dtype, remat=remat)
+        else:
+            pred = forward(copies[a.device], a, c, td, cfg=cfg, compute_dtype=compute_dtype,
+                           use_pallas=use_pallas, remat=remat, device=a.device)
+        losses.append(LOSSES[loss](pred, g).to(master))
+    loss_v = torch.stack(losses).mean()
+    loss_v.backward()
+    loss_v = _average_over_processes(params, loss_v.detach())
+    optimizer.step()
+    return loss_v
 
 
 def _trainable(params: Params, device: torch.device) -> Params:
@@ -159,7 +247,12 @@ class Trainer:
     """Bundles params, optimizer and step settings for a training run
     (checkpoint and resume through ``rrin_tpu_torch.params``). The optimizer
     updates ``params`` in place: an ``Interpolator`` built on them before
-    training holds weight preps of the old values, so build a new one."""
+    training holds weight preps of the old values, so build a new one.
+
+    With ``mesh`` a step runs :func:`mesh_train_step`; ``params`` and the
+    optimizer are the master copy on the mesh's first device (what a
+    checkpoint saves). ``spatial_dim`` is the dimension of (B, H, W, C) that
+    the mesh's spatial axis cuts: 1 (H) or None; it needs a mesh."""
 
     params: Params
     optimizer: torch.optim.Optimizer
@@ -174,8 +267,12 @@ class Trainer:
     device: DeviceLike = "cuda"
 
     def __post_init__(self):
-        if self.mesh is not None or self.spatial_dim is not None:
-            raise NotImplementedError(f"Trainer(mesh=, spatial_dim=) {_PARALLEL}")
+        if self.spatial_dim not in (None, 1):
+            raise ValueError(
+                f"spatial_dim={self.spatial_dim}: the port cuts rows only, dimension 1 "
+                "of (B, H, W, C)")
+        if self.mesh is not None:
+            self.device = self.mesh.devices[0, 0]
 
     @classmethod
     def create(
@@ -189,10 +286,11 @@ class Trainer:
         device: DeviceLike = "cuda",
         **kw,
     ) -> "Trainer":
-        """A trainer on ``device`` from ``params`` (copied as float32
-        leaves that require grad) or, without them, from ``init_params(gen)``
-        (default: a CPU generator seeded with 0)."""
-        dev = resolve_device(device)
+        """A trainer on ``device`` (with ``mesh``: on its first device) from
+        ``params`` (copied as float32 leaves that require grad) or, without
+        them, from ``init_params(gen)`` (default: a CPU generator seeded with
+        0)."""
+        dev = mesh.devices[0, 0] if mesh is not None else resolve_device(device)
         if params is None:
             params = init_params(gen, cfg, device=dev)
         params = _trainable(params, dev)
@@ -201,7 +299,22 @@ class Trainer:
 
     def step(self, i0, gt, i1, t: TimeLike = 0.5) -> float:
         """One update on a batch (numpy arrays or tensors, moved to the
-        trainer's device); returns the loss as a float (a host sync)."""
+        trainer's device, or cut over the mesh); returns the loss as a float
+        (a host sync). Under a mesh the batch must divide by the whole mesh
+        size, as in the JAX package."""
+        if self.mesh is not None and i0.shape[0] % self.mesh.devices.size:
+            raise ValueError(
+                f"batch size {i0.shape[0]} must be divisible by the mesh "
+                f"size {self.mesh.devices.size} for data-parallel training"
+            )
+        if self.mesh is not None:
+            loss = mesh_train_step(
+                self.params, self.optimizer, self.mesh, i0, gt, i1, t, cfg=self.cfg,
+                compute_dtype=self.compute_dtype, use_pallas=self.use_pallas,
+                remat=self.remat, loss=self.loss, spatial_dim=self.spatial_dim,
+            )
+            self.step_count += 1
+            return float(loss)
         dev = resolve_device(self.device)
         i0, gt, i1 = (torch.as_tensor(a).to(device=dev, dtype=torch.float32)
                       for a in (i0, gt, i1))
@@ -297,8 +410,10 @@ def main(argv=None) -> int:
     p.add_argument("--init-from", default=None, help="warm start .npz/.pth")
     p.add_argument("--fp32", action="store_true")
     p.add_argument("--data-parallel", type=int, default=0,
-                   help="devices for data parallelism; 0 and 1 train on one "
-                   "card (more is not ported yet: ROADMAP Queue A item 7)")
+                   help="devices of this process for data parallelism; 0 = all "
+                   "(with --device cpu: the CPU, listed that many times); "
+                   "shrunk to the largest count that divides the process's "
+                   "part of --batch")
     p.add_argument("--log-every", type=int, default=20)
     p.add_argument("--debug-nans", action="store_true",
                    help="torch.autograd.set_detect_anomaly(True) and raise on a "
@@ -315,11 +430,40 @@ def main(argv=None) -> int:
     # Validate before the 32M-param model and optimizer are built.
     if not (args.synthetic or args.data):
         p.error("one of --data or --synthetic is required")
-    if args.data_parallel > 1:
-        raise NotImplementedError(f"--data-parallel {args.data_parallel} {_PARALLEL}")
     dev = resolve_device(args.device)
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
+
+    from rrin_tpu_torch.parallel.distributed import initialize as dist_init
+
+    ctx = dist_init()
+    if ctx.process_count > 1:
+        if args.batch % ctx.process_count:
+            p.error(f"--batch {args.batch} does not divide over {ctx.process_count} "
+                    "processes")
+        print(f"[rrin-tpu-torch-train] multi-process: process {ctx.process_index}/"
+              f"{ctx.process_count}, {ctx.global_device_count} devices")
+    # --batch is the whole group's: every process draws the same batches and
+    # trains on its own rows of each, and the steps average over the group.
+    per = args.batch // ctx.process_count
+    rows = slice(ctx.process_index * per, (ctx.process_index + 1) * per)
+
+    mesh = None
+    if args.data_parallel != 1:
+        from rrin_tpu_torch.parallel.sharding import make_mesh
+
+        n = args.data_parallel if args.data_parallel > 0 else (
+            ctx.local_device_count if dev.type == "cuda" else 1)
+        # The batch must divide over the mesh; shrink to the largest
+        # compatible device count rather than failing mid-run.
+        n = math.gcd(n, per)
+        if n > 1:
+            try:
+                mesh = make_mesh(n_data=n, devices=None if dev.type == "cuda" else [dev] * n)
+            except ValueError:
+                mesh = None
+        if mesh is not None and mesh.devices.size == 1:
+            mesh = None  # single device: skip sharding machinery
 
     params = None
     if args.init_from:
@@ -332,7 +476,7 @@ def main(argv=None) -> int:
         )
 
     trainer = Trainer.create(
-        learning_rate=args.lr, params=params, device=dev,
+        learning_rate=args.lr, mesh=mesh, params=params, device=dev,
         compute_dtype=torch.float32 if args.fp32 else torch.bfloat16,
         remat=args.remat, loss=args.loss,
     )
@@ -349,7 +493,7 @@ def main(argv=None) -> int:
         batches = triplet_batches(args.data, args.batch, tuple(args.crop))
     t0 = time.perf_counter()
     for step in range(args.steps):
-        i0, gt, i1 = next(batches)
+        i0, gt, i1 = (a[rows] for a in next(batches))
         loss = trainer.step(i0, gt, i1)
         if args.debug_nans and not math.isfinite(loss):
             raise FloatingPointError(f"non-finite loss {loss} at step {step}")

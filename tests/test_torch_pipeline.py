@@ -101,15 +101,22 @@ class TestInterpolator:
         assert tm.step(pairs, ts=np.full((2, 1), 0.5, np.float32)).shape == (2, 1, 40, 72, 3)
         assert tpipe.Interpolator(tp, exp=3, device="cpu").mids_per_pair == 7
 
-    # int8_percentile is ported: the first two cases pair a valid one with
-    # an option that is not
+    # Every option is ported now (parallel/ last): on the CPU each builds a
+    # mesh of the CPU listed once per shard, and a mesh of one device is
+    # dropped (data_parallel=0 is every device: one here).
     @pytest.mark.parametrize("kw", [
         dict(int8=True, int8_percentile=99.9, data_parallel=2),
         dict(int8_percentile=99.9, int8=True, data_parallel=4),
         dict(data_parallel=2), dict(data_parallel=0), dict(spatial=2)])
     def test_unported_options_raise(self, kw):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpipe.Interpolator({}, device="cpu", **kw)
+        it = tpipe.Interpolator({}, device="cpu", **kw)
+        n_data, n_spatial = max(kw.get("data_parallel", 1), 1), kw.get("spatial", 1)
+        if n_data * n_spatial == 1:
+            assert it.mesh is None
+        else:
+            assert it.mesh.shape == {"data": n_data, "spatial": n_spatial}
+            assert set(it.mesh.devices.flat) == {torch.device("cpu")}
+        assert it.shard_count == n_data
 
     @pytest.mark.parametrize("kw", [dict(mode="bogus"), dict(exp=0), dict(spatial=0)])
     def test_bad_arguments_raise(self, kw):

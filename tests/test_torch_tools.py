@@ -117,10 +117,22 @@ def test_usage_errors_exit_2_before_any_load(monkeypatch, capsys, tmp_path):
 
 
 def test_data_parallel_is_not_ported(files, tmp_path):
+    """``--data-parallel 2`` (the batch rounds up to 2 pairs) and
+    ``--spatial 2`` are ported: on the CPU's plain path both write the
+    frames of the one-device run."""
+    def run(name, *flags):
+        out = str(tmp_path / f"{name}.mp4")
+        assert tcli.main(["-i", files["video"], "-o", out, "--no-pallas", *flags,
+                          "--ckpt", files["ckpt"], "--device", "cpu", "-q"]) == 0
+        return _frames(out)
+
+    want, fps = run("one")
+    assert len(want) == 2 * N - 1
     for flag in ("--data-parallel", "--spatial"):
-        with pytest.raises(NotImplementedError, match="parallel/"):
-            tcli.main(["-i", files["video"], "-o", str(tmp_path / "o.mp4"), flag, "2",
-                       "--ckpt", files["ckpt"], "--device", "cpu", "-q"])
+        got, got_fps = run(flag.strip("-"), flag, "2")
+        assert got_fps == fps and len(got) == len(want), flag
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b, err_msg=flag)
 
 
 def test_cli_matches_reference(files, tmp_path, monkeypatch):

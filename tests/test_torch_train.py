@@ -283,14 +283,23 @@ def test_cli_checkpoint_loads_in_reference(tmp_path, capsys):
 
 
 def test_unported_parallel_raises_before_the_model(monkeypatch):
+    """``--data-parallel`` is ported: ``main`` hands ``Trainer.create`` a mesh
+    (on the CPU, the CPU listed once per shard) and a missing data source
+    still fails before the model is built."""
+    from rrin_tpu_torch.parallel.sharding import make_mesh
+
+    class Built(Exception):
+        pass
+
     def boom(*a, **k):
-        raise AssertionError("Trainer.create ran before validation")
+        raise Built(k.get("mesh"))
 
     monkeypatch.setattr(ttrain.Trainer, "create", staticmethod(boom))
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(Built) as e:
         ttrain.main(["--synthetic", "--data-parallel", "2", "--device", "cpu"])
+    assert e.value.args[0].shape == {"data": 2, "spatial": 1}
     with pytest.raises(SystemExit):
         ttrain.main(["--steps", "1", "--device", "cpu"])
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        ttrain.Trainer.create(mesh=object(), device="cpu")
+    tr = ttrain.Trainer.create(mesh=make_mesh(2, devices=[CPU] * 2))
+    assert tr.device == CPU and tr.mesh.devices.size == 2
