@@ -12,8 +12,10 @@ and numpy; nothing else and no network. It builds the CUDA kernels of
   kernels      every kernel against its plain PyTorch version on the card at
                the shapes of the 1080p paths (K6, K8 and K9 also at the 4K up
                sites, K7 at the 4K d1c1 site), in bfloat16, in int8 and in
-               float32, with times and bounds; K1 on the Hopper core beside
-               its mma.sync kernel, which keeps the other odd k; the
+               float32, with times and bounds; K1 on the Hopper core at
+               its sites (mode DIRECT, k 3/5/7) and at other odd k (the
+               streamed mode: k 1, 9, 11, 13 at cin 32, k 37 at cout 64,
+               k 49 at cout 8, a cin-6 stem at k 9, all at 272x480); the
                weight-prep kernel of the Hopper core (K5-K9 in bfloat16 and
                float32) bit-equal to its plain version; the float32
                promotion interval against its error at d4c2, u1c2 (K5),
@@ -36,6 +38,10 @@ and numpy; nothing else and no network. It builds the CUDA kernels of
                4K request, an int8 prep by stats of other values
   serve_plain  one 1080p request on the plain U-Net path (``packed=False``:
                K1 on the Hopper core, its weights prepared on the card)
+  serve_stem9  1080p bf16 requests of a ``ModelConfig(stem_kernel=9)``
+               cascade (random weights, seed 0), which the packed path
+               refuses: the plain path's launches, 8 K1 a request at k 9 on
+               the streamed mode; card against the CPU at 272x480
   serve_fp32   the float32 plain path (float32 warp kernel) at 256x448 and the
                bf16-source warp
   serve_fp32_packed  the default float32 Interpolator (packed: the float32
@@ -230,18 +236,18 @@ def smi_line() -> str:
 # --------------------------------------------------------------- kernels: K1
 
 def conv_case(rng, dev, name, h, w, cin, cout, k, slope, batch=1, train=False):
-    """One K1 site through ``conv2d_fused``: on the Hopper core (k 3/5/7, one
-    weight-prep launch beside it), else on the mma.sync kernel; the core's
-    sites also through the mma.sync kernel, held to the same plain version
-    and timed beside it. ``train``: inputs that require grad, as a training
-    step hands them over, and no timing."""
+    """One K1 site through ``conv2d_fused``, on the Hopper core (mode DIRECT
+    at k 3/5/7, the streamed mode at the other odd k) with one weight-prep
+    launch beside it, held to its plain version and timed with its prep
+    alone. ``train``: inputs that require grad, as a training step hands
+    them over, and no timing."""
     x = torch.from_numpy(
         rng.standard_normal((batch, h, w, cin)).astype(np.float32)).to(dev).to(torch.bfloat16)
     bound = 1.0 / np.sqrt(k * k * cin)  # the init bound of the model's convs
     wt = torch.from_numpy(
         rng.uniform(-bound, bound, (k, k, cin, cout)).astype(np.float32)).to(dev)
     bias = torch.from_numpy(rng.uniform(-bound, bound, (cout,)).astype(np.float32)).to(dev)
-    sm90 = k in conv_phase.SM90_K
+    mode = "DIRECT" if k in conv_packed._K_CONV else "streamed"
     for t in (x, wt, bias):
         t.requires_grad_(train)
 
@@ -251,25 +257,20 @@ def conv_case(rng, dev, name, h, w, cin, cout, k, slope, batch=1, train=False):
     after = _build.launch_counts()
     check(after["conv_phase"] == before["conv_phase"] + 1,
           f"{name}: conv2d_fused did not launch the kernel")
-    check(after["conv_up_prep"] - before["conv_up_prep"] == int(sm90),
-          f"{name}: conv2d_fused did not take the {'Hopper core' if sm90 else 'mma.sync'} route")
+    check(after["conv_up_prep"] - before["conv_up_prep"] == 1,
+          f"{name}: conv2d_fused did not lay out its weights on the card")
     check(got.requires_grad == train, f"{name}: the output's requires_grad is not {train}")
     x, wt, bias, got = x.detach(), wt.detach(), bias.detach(), got.detach()
     want = conv_phase._conv_plain(x, wt, bias, slope)
-
-    def held(y, route):
-        check(y.shape == want.shape and y.dtype == torch.bfloat16, f"{name} {route}: shape/dtype")
-        diff = (y.float() - want.float()).abs()
-        ok = bool((diff <= CONV_ATOL + CONV_RTOL * want.float().abs()).all())
-        check(ok and bool(torch.isfinite(y.float()).all()),
-              f"{name} {route}: kernel disagrees with plain version, max abs err "
-              f"{float(diff.max())}")
-        return float(diff.max())
-
-    err = held(got, "wgmma" if sm90 else "mma.sync")
+    check(got.shape == want.shape and got.dtype == torch.bfloat16, f"{name}: shape/dtype")
+    diff = (got.float() - want.float()).abs()
+    check(bool((diff <= CONV_ATOL + CONV_RTOL * want.float().abs()).all())
+          and bool(torch.isfinite(got.float()).all()),
+          f"{name}: kernel disagrees with plain version, max abs err {float(diff.max())}")
+    err = float(diff.max())
     if train:
         return {"site": name, "shape": [batch, h, w, cin], "cout": cout, "k": k,
-                "route": "wgmma" if sm90 else "mma.sync", "slope": slope,
+                "route": "wgmma", "mode": mode, "slope": slope,
                 "max_abs_err": err, "atol": CONV_ATOL, "rtol": CONV_RTOL}
 
     # The library yardstick: one F.conv2d call, bf16 channels-last with bias
@@ -285,28 +286,18 @@ def conv_case(rng, dev, name, h, w, cin, cout, k, slope, batch=1, train=False):
     flops = 2.0 * h * w * k * k * cin * cout
     nbytes = x.numel() * 2 + wt.numel() * 4 + bias.numel() * 4 + got.numel() * 2
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    out = {
+    plan = conv_phase._sm90_plan(k, cin, cout)
+    return {
         "site": name, "shape": [1, h, w, cin], "cout": cout, "k": k,
-        "route": "wgmma" if sm90 else "mma.sync",
+        "route": "wgmma", "mode": mode, "plan": list(plan),
         "slope": slope, "max_abs_err": err, "atol": CONV_ATOL, "rtol": CONV_RTOL,
         "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "flops": flops, "bytes": nbytes,
+        # the core's weight prep alone (part of kernel_ms)
+        "prep_ms": time_ms(lambda: conv_packed._prep_on_card("conv_packed", wt, bias, (cin,),
+                                                              plan=plan)),
     }
-    if sm90:
-        # the mma.sync kernel (csrc/conv_phase.cu) at the same site, in the
-        # same run, and the core's weight prep alone (part of kernel_ms)
-        plan = conv_phase._plan(k, cin, cout)
-        mma = conv_phase._conv_kernel(x, wt, bias, slope, plan)
-        torch.cuda.synchronize()
-        out.update({
-            "mma_sync_max_abs_err": held(mma, "mma.sync"),
-            "mma_sync_ms": time_ms(lambda: conv_phase._conv_kernel(x, wt, bias, slope, plan)),
-            "plan": list(conv_phase._sm90_plan(k, cin, cout)),
-            "prep_ms": time_ms(lambda: conv_packed._prep_on_card("conv_packed", wt, bias,
-                                                                  (cin,))),
-        })
-    return out
 
 
 def _k1_sites(h, w):
@@ -330,13 +321,25 @@ def _k1_sites(h, w):
     ]
 
 
+# K1 at odd k off DIRECT's 3/5/7, on the core's streamed mode (no site of
+# the default configuration; a stem_kernel=9 cascade's stems are k 9, cin 6
+# and 32): k 1, 9, 11 and 13 at cin 32, cout 32; the widest k the routing
+# takes at cout 64 (37) and at cout 8 (49); a stem at k 9.
+STREAMED_K1_CASES = [
+    (f"k{k}_272x480", 272, 480, 32, 32, k, ModelConfig().leaky_slope, 0)
+    for k in (1, 9, 11, 13)
+] + [
+    ("k37_cout64_272x480", 272, 480, 32, 64, 37, ModelConfig().leaky_slope, 0),
+    ("k49_cout8_272x480", 272, 480, 32, 8, 49, ModelConfig().leaky_slope, 0),
+    ("stem9_cin6_272x480", 272, 480, 6, 32, 9, ModelConfig().leaky_slope, 0),
+]
+
+
 def conv_cases(rng, dev):
     s = ModelConfig().leaky_slope
     specs = _k1_sites(HP, WP) + [
         ("ragged_width_485", 270, 485, 32, 32, 7, s, 0),
-        # a k that the Hopper core is not built for: the mma.sync kernel
-        ("k9_mma_sync_272x480", 272, 480, 32, 32, 9, s, 0),
-    ]
+    ] + STREAMED_K1_CASES
     cases = []
     for name, h, w, cin, cout, k, slope, mult in specs:
         check(conv_phase.supports((1, h, w, cin), (k, k, cin, cout)) is not None,
@@ -1238,6 +1241,68 @@ def phase_serve_plain(params, dev):
     return counts
 
 
+# A stem_kernel=9 configuration (the port's tests build it; nothing cut):
+# the packed path refuses it, so its requests run the plain path, whose K1
+# launches and preps are those of the default configuration's plain
+# request, 8 of the 36 K1 (conv1 and conv2 of each U-Net) at k 9 on the
+# core's streamed mode. Card against the port's CPU plain versions at
+# STEM9_CPU_HW, held to the bf16 card-vs-CPU bar.
+STEM9 = ModelConfig(stem_kernel=9)
+STEM9_CPU_HW = (272, 480)
+STEM9_K9_PER_REQUEST = 8
+
+
+def phase_serve_stem9(dev):
+    """1080p bf16 requests of a ``ModelConfig(stem_kernel=9)`` cascade,
+    random weights from seed 0, through the default Interpolator."""
+    params = init_params(torch.Generator().manual_seed(0), STEM9, device=dev)
+    interp = Interpolator(params, STEM9, compute_dtype="bfloat16", use_pallas=True, exp=1,
+                          device=dev)
+    check(interp.packed is None, "serve_stem9: the Interpolator's packed default is not None")
+    by_k = {}
+    real = conv_phase._conv_sm90
+
+    def counting(x, w, bias, slope):  # K1's launches by k (the route's one entry)
+        by_k[int(w.shape[0])] = by_k.get(int(w.shape[0]), 0) + 1
+        return real(x, w, bias, slope)
+
+    conv_phase._conv_sm90 = counting
+    try:
+        serve_request(interp, moving_squares(0, H1080, W1080))  # warm-up
+        _build.reset_launch_counts()
+        by_k.clear()
+        times = []
+        for i in range(2):
+            before, k9 = _build.launch_counts(), by_k.get(9, 0)
+            mids, ms = serve_request(interp, moving_squares(i, H1080, W1080))
+            times.append(ms)
+            check(mids.shape == (1, 1, H1080, W1080, 3) and mids.dtype == np.uint8,
+                  f"serve_stem9: output {mids.dtype} {mids.shape}")
+            check_launches("serve_stem9", before, _build.launch_counts(), PLAIN_PER_REQUEST)
+            check(by_k.get(9, 0) - k9 == STEM9_K9_PER_REQUEST,
+                  f"serve_stem9: {by_k.get(9, 0) - k9} K1 launches at k 9, want "
+                  f"{STEM9_K9_PER_REQUEST}")
+            check(mids.std() > 1.0, "serve_stem9: output frame is constant")
+    finally:
+        conv_phase._conv_sm90 = real
+    counts = _build.launch_counts()
+    h, w = STEM9_CPU_HW
+    pairs = moving_squares(9, h, w)
+    cpu_params = params_from_numpy(unflatten_params(flatten_params(params)), device="cpu")
+    card = Interpolator(params, STEM9, compute_dtype="bfloat16", use_pallas=True,
+                        device=dev).step(pairs).cpu().numpy()
+    cpu = Interpolator(cpu_params, STEM9, compute_dtype="bfloat16", use_pallas=True,
+                       device="cpu").step(pairs).cpu().numpy()
+    check(card.shape == cpu.shape == (1, 1, h, w, 3), "serve_stem9: agreement shapes")
+    agreement = _u8_agreement(card, cpu)
+    check(agreement["psnr_db"] >= BF16_PSNR_DB, f"serve_stem9 card vs CPU: {agreement}")
+    emit("serve_stem9", config={"stem_kernel": 9}, path="plain", requests=2,
+         shape=[1, 2, H1080, W1080, 3], compute_dtype="bfloat16", ms_per_request=times,
+         launches=counts, k1_launches_by_k=by_k, card_vs_cpu=agreement,
+         card_vs_cpu_shape=[1, 2, h, w, 3], psnr_bar_db=BF16_PSNR_DB)
+    return counts
+
+
 _SM90_MODES = {"0": "conv_up_m_packed (K8)", "1": "conv_up_f_packed (K9)",
                "2": "conv_pool_packed (K7)", "3": "conv_up_packed (K6)",
                "4": "conv_packed (K5)"}
@@ -1256,8 +1321,8 @@ def _profile_group(name: str, plain: bool = False) -> str:
             sm90.group(2)]
     if "conv_up_prep_kernel" in low:
         return "K5-K9 weight prep"
-    if "conv_phase_kernel" in low:
-        return "conv_phase (K1, mma.sync)"
+    if "conv_stream_sm90_kernel" in low:
+        return "conv_phase (K1, Hopper core, streamed mode)"
     if "warp_kernel" in low:
         return "warp (K2-K4)"
     if "memcpy" in low or "memset" in low:
@@ -2393,40 +2458,35 @@ def _train_launches(train_counts, kernel) -> dict:
 
 
 def kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_4k,
-                    int8_counts, plain_counts, fp32_counts, f32_counts, f32_counts_4k,
-                    train_counts, train_conv, train_warps):
+                    int8_counts, plain_counts, stem9_counts, fp32_counts, f32_counts,
+                    f32_counts_4k, train_counts, train_conv, train_warps):
     """The per-kernel closing object: launches from the served paths and the
     training path (each kernel from the paths it belongs to, counted from 0
     over each path's requests or timed steps alone), every other number
     measured above in this run; each entry names its core and the source of
     its entry point. ``max_abs_err`` covers the served and the training
     shapes."""
-    on_core = [c for c in conv if c["route"] == "wgmma"]
     k1_train = _train_launches(train_counts, "conv_phase")
     k1 = _conv_entry(
-        "conv_phase", "rrin_tpu_torch/csrc/conv_packed_sm90.cu", on_core,
-        plain_counts["conv_phase"] + sum(k1_train.values()),
+        "conv_phase", "rrin_tpu_torch/csrc/conv_packed_sm90.cu", conv,
+        plain_counts["conv_phase"] + stem9_counts["conv_phase"] + sum(k1_train.values()),
         "sum over the 9 launches of one flow U-Net at 1088x1920 (plain path), each with its "
-        "weight prep on the card; launches from serve_plain and the training steps")
+        "weight prep on the card; launches from serve_plain, serve_stem9 and the training "
+        "steps")
     k1["launches_by_path"] = {"serve_plain": plain_counts["conv_phase"],
+                              "serve_stem9": stem9_counts["conv_phase"],
                               f"train ({TRAIN_TIMED} steps)": k1_train}
     k1["max_abs_err"] = max([k1["max_abs_err"]] + [c["max_abs_err"] for c in train_conv])
     k1["max_abs_err_train_shapes"] = max(c["max_abs_err"] for c in train_conv)
-    mma = [c for c in conv if c["route"] == "mma.sync"]
+    keys = ("site", "shape", "cout", "k", "mode", "plan", "max_abs_err", "kernel_ms", "prep_ms",
+            "plain_ms", "library_ms", "bound_ms", "bound_by", "per_flow_unet")
     k1.update({
-        "core": "wgmma, mode DIRECT of conv_sm90.cuh with one bf16 operand "
-                "(rrin_conv_phase_sm90_launch), k 3/5/7",
-        "prep_ms": sum(c["prep_ms"] * c["per_flow_unet"] for c in on_core),
-        "mma_sync_same_sites_ms": sum(c["mma_sync_ms"] * c["per_flow_unet"] for c in on_core),
-        "sites": [{k: c[k] for k in ("site", "shape", "cout", "k", "plan", "max_abs_err",
-                                     "kernel_ms", "prep_ms", "mma_sync_ms", "plain_ms",
-                                     "library_ms", "bound_ms", "bound_by", "per_flow_unet")}
-                  for c in on_core],
-        "other_odd_k": {
-            "core": "mma.sync m16n8k16", "source": "rrin_tpu_torch/csrc/conv_phase.cu",
-            "sites": [{k: c[k] for k in ("site", "shape", "cout", "k", "max_abs_err",
-                                         "kernel_ms", "plain_ms", "library_ms", "bound_ms")}
-                      for c in mma]},
+        "core": "wgmma of conv_sm90.cuh with one bf16 operand (rrin_conv_phase_sm90_launch): "
+                "mode DIRECT at k 3/5/7, the streamed mode at the other odd k",
+        "k": sorted({c["k"] for c in conv}),
+        "prep_ms": sum(c["prep_ms"] * c["per_flow_unet"] for c in conv),
+        "sites": [{k: c[k] for k in keys} for c in conv if c["mode"] == "DIRECT"],
+        "streamed_sites": [{k: c[k] for k in keys} for c in conv if c["mode"] == "streamed"],
     })
     entries = [k1]
     for name in ("warp_u8", "warp_f32", "warp_bf16"):
@@ -2611,6 +2671,7 @@ def main() -> int:
     int8_counts = phase_serve_int8(params, dev)
     phase_prepare_once(params, dev)
     plain_counts = phase_serve_plain(params, dev)
+    stem9_counts = phase_serve_stem9(dev)
     if "--profile" in sys.argv[1:]:
         phase_profile(params, dev, "packed")
         phase_profile(params, dev, "plain", packed=False)
@@ -2640,7 +2701,7 @@ def main() -> int:
     phase_parallel(params, dev)
 
     summary = kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_4k,
-                              int8_counts, plain_counts, fp32_counts, f32_counts,
+                              int8_counts, plain_counts, stem9_counts, fp32_counts, f32_counts,
                               f32_counts_4k, train_counts, train_conv, train_warps)
     next(e for e in summary["kernels"] if e["name"] == "conv_packed_f32")["promotion"] = promotion
     print(smi, flush=True)

@@ -1,7 +1,8 @@
 // K5 and K6 of the packed serving path on Hopper (sm_90a), in bfloat16, int8
 // and float32 (3xTF32, the _f32 entry points), as the producer modes DIRECT
 // and UPW of the wgmma core in conv_sm90.cuh (its head gives the design), and
-// K1 of the plain path as DIRECT with one bf16 operand.
+// K1 of the plain path as DIRECT with one bf16 operand (k 3, 5, 7) or as the
+// core's streamed mode (every other odd k).
 //
 //   conv_packed     replaces _kernel_body (rrin_tpu/ops/conv_packed.py,
 //                   pallas_call at :506): stride-1 SAME conv over the channel
@@ -20,14 +21,17 @@
 //                   ax/127) before it is interpolated and the value
 //                   quantised after, as the reference's plain version does.
 //   conv_phase_sm90 replaces _phase_kernel (rrin_tpu/ops/conv_phase.py,
-//                   pallas_call at :164) for k in {3, 5, 7}: the same conv
-//                   of one bf16 operand, + float32 bias + optional LeakyReLU
-//                   on a float32 sum, rounded once to bf16, which is what K5
-//                   computes for one operand. Its sites (the plain U-Net's
-//                   convs with cout <= 64) take the pooled, upsampled or
-//                   concatenated tensor that the plain path materialises, and
-//                   the stems' cin 6/9/10/16, which DIRECT gathers. Its
-//                   weights are laid out by the prep kernel in K5's layout.
+//                   pallas_call at :164) at every odd k it is given: the same
+//                   conv of one bf16 operand, + float32 bias + optional
+//                   LeakyReLU on a float32 sum, rounded once to bf16, which
+//                   is what K5 computes for one operand; k in {3, 5, 7} on
+//                   DIRECT itself, any other odd k on the streamed mode
+//                   (DIRECT's walk at runtime k, the weights streamed one dy
+//                   row a stage). Its sites (the plain U-Net's convs with
+//                   cout <= 64) take the pooled, upsampled or concatenated
+//                   tensor that the plain path materialises, and the stems'
+//                   cin 6/9/10/16, which DIRECT gathers. Its weights are laid
+//                   out by the prep kernel in K5's layout.
 //
 // What bounds them on an H100: operations. K5 does 988 GFLOP in the 14
 // launches of one flow U-Net at 1088x1920 (0.999 ms at 989 TFLOP/s bf16),
@@ -39,12 +43,41 @@
 // In float32 the same work is bound at 165 TFLOP/s (three TF32 products per
 // product at the 495 TFLOP/s TF32 peak): about 5.5 ms for K5's flow U-Net,
 // 1.85 ms at each K6 site; halo and weight bytes double (weights quadruple), so
-// the chunks are 8-16 channels and N <= 64.
+// the chunks are 8-16 channels and N <= 64. K1 at k 9, the stems of the
+// stem_kernel = 9 cascade: 2 * 81 * cin * cout multiply-adds a pixel, bound by
+// operations as at k 7.
 //
 // Plain C entry points; each returns cudaGetLastError() after the launch,
 // runs on the given stream, allocates nothing and does not synchronise.
 
 #include "conv_sm90.cuh"
+
+namespace {
+
+// The streamed mode: a.ops[0] the one bf16 operand, odd k below TW (a tile
+// stores TW - (k - 1) columns), N = 8 * n_tiles up to 64.
+int launch_stream(UpArgs a, int B, int n_tiles, void* stream) {
+  if (B <= 0 || a.H <= 0 || a.W <= 0) return 0;
+  const Operand& o = a.ops[0];
+  if (a.k < 1 || a.k % 2 == 0 || a.k >= TW || a.cchunk < 16 || a.cchunk % 16 ||
+      (a.cchunk & (a.cchunk - 1)) || a.cchunk > 128 || a.n_out < 1 || o.c < 1 || o.cs < o.c)
+    return kInvalid;
+  a.n_ops = 1;
+  a.ops[0].chunk0 = 0;
+  a.n_chunks = (o.c + a.cchunk - 1) / a.cchunk;
+  a.ntaps = a.k;
+  a.n_cb = (a.n_out + n_tiles * 8 - 1) / (n_tiles * 8);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n_tiles) {
+    case 1: return launch_stream_one<8>(a, B, s);
+    case 2: return launch_stream_one<16>(a, B, s);
+    case 4: return launch_stream_one<32>(a, B, s);
+    case 8: return launch_stream_one<64>(a, B, s);
+  }
+  return kInvalid;
+}
+
+}  // namespace
 
 // Every bf16/int8 entry point takes, beside its tensors: q (0 bfloat16, 1 int8); in
 // int8 mode in_i8 (the operand holds int8 codes), ax (device pointer to the
@@ -62,6 +95,11 @@ extern "C" {
 // output channels are one block, else 0.
 long long rrin_conv_packed_sm90_smem(int k, int cchunk, int n_tiles, int et, int res_chunks) {
   return make_layout(k, cchunk, n_tiles * 8, et, 0, res_chunks).total;
+}
+
+// The same for K1's streamed mode (bf16, the k other than 3, 5 and 7).
+long long rrin_conv_stream_sm90_smem(int k, int cchunk, int n_tiles) {
+  return make_layout_stream(k, cchunk, n_tiles * 8).total;
 }
 
 // xs: n_ops pointers to (B,H,W,strides[i]) NHWC tensors of which the first
@@ -113,7 +151,8 @@ int rrin_conv_f32_promotion(int k_steps) { return set_f32_promotion(k_steps); }
 
 // K1: x (B,H,W,cs) bf16, of which the first c channels enter the conv; out
 // (B,H,W,cout) bf16; wfrag in conv_packed's layout for one operand (bf16),
-// k in {3, 5, 7}.
+// any odd k below 64: DIRECT at k in {3, 5, 7}, the streamed mode at the
+// others (n_tiles in {1, 2, 4, 8} there).
 int rrin_conv_phase_sm90_launch(const void* x, int c, int cs, const void* wfrag,
                                 const void* bias, void* out, int B, int H, int W, int cout,
                                 int k, int cchunk, int n_tiles, int has_slope, float slope,
@@ -122,7 +161,8 @@ int rrin_conv_phase_sm90_launch(const void* x, int c, int cs, const void* wfrag,
                      cchunk, has_slope, slope);
   a.n_ops = 1;
   a.ops[0] = Operand{x, c, cs, 0, nullptr, 0};
-  return launch_mode<DIRECT>(a, B, n_tiles, BF16, stream);
+  if (built_for(DIRECT, k)) return launch_mode<DIRECT>(a, B, n_tiles, BF16, stream);
+  return launch_stream(a, B, n_tiles, stream);
 }
 
 // x: (B,Hs,Ws,c) half resolution; out: (B,2Hs,2Ws,cout) =

@@ -13,12 +13,28 @@
 //   DIRECT  (K5)  the stored pixels of 1..4 operands, chunk by chunk (a chunk
 //                 never straddles two operands, so the channel concat never
 //                 exists in device memory), zero outside the image; with one
-//                 bf16 operand also K1 (conv2d_fused of the plain path).
+//                 bf16 operand also K1 (conv2d_fused of the plain path) at
+//                 k 3, 5 and 7.
+//
+// K1 at every other odd k (1, 9, 11, ..., 49: ModelConfig's stem_kernel and
+// down_kernels may ask for them) runs a sixth kernel, the streamed mode
+// (conv_stream_sm90_kernel, bf16, one operand): DIRECT's halo builder and
+// consumer walk with k a runtime argument, so that it is instantiated once
+// per N and not per k, and with the weights streamed: each pipeline stage is
+// one stencil row (dy) of a chunk, k taps x cchunk x N, copied by
+// cp.async.bulk into a ring of two slabs, while the chunk's halo tile (one
+// or two buffers) stays in shared memory for its k stages. A stage is then
+// a conv with one row of taps over the halo shifted by dy rows, which is the
+// k = 1 walk of DIRECT's consumer (mma_rows<0, MT, 1>): a halo row feeds
+// one wgmma, not up to k. Halo rows keep their 64 columns at every k, so a
+// tile stores 64 - (k - 1) of them (16 at k = 49): the wasted columns are
+// accepted, not widened away, since this mode serves no site of the repo's
+// configurations but the stem_kernel = 9 cascade (56 of 64 stored).
 //
 // conv_up_sm90.cu holds the entry points of POOL, UP and UPF and the weight
-// prep; conv_packed_sm90.cu those of DIRECT (K5, K1) and UPW. Two files, built in
-// parallel, because the template instantiations of all five modes in one
-// take twice as long to compile.
+// prep; conv_packed_sm90.cu those of DIRECT (K5, K1), UPW and the streamed
+// mode. Two files, built in parallel, because the template instantiations of
+// all five modes in one take twice as long to compile.
 //
 // The design:
 //
@@ -185,6 +201,7 @@ struct Layout {
   int stage_bytes;       // one consumer warpgroup's staged row
   int nbuf;
   int wres_off, stage_off, bs_off, edge_off, bar_off, total;
+  int slab_off;          // the streamed mode: its ring of two weight slabs
 };
 
 constexpr int NBARS = 9;
@@ -230,6 +247,34 @@ __host__ __device__ inline Layout make_layout(int k, int cchunk, int n, int et, 
   }
   return make_layout_n(k, cchunk, n, et, folded, 2, 0);
 }
+
+// The streamed mode (bf16, one operand, any odd k): two halo buffers where
+// they fit, else one; then the ring of two slabs (one dy row of a chunk's
+// weights each: k taps x cchunk x N); the staged rows, bias and scale as
+// make_layout_n; mbarriers hfull[2], hempty[2], wfull[2], wempty[2]
+// (StreamBars). A wgmma row reads up to k - 1 pixels past the last halo
+// row of a buffer, which land in the slabs (at most (k - 1) x pstride bytes,
+// less than one slab) and feed only columns that are not stored.
+__host__ __device__ inline Layout make_layout_stream(int k, int cchunk, int n) {
+  Layout L = make_layout_n(k, cchunk, n, BF16, 0, 2, 0);
+  L.w_bytes = k * cchunk * n * 2;
+  L.buf_bytes = L.halo_bytes;
+  for (int nbuf = 2; nbuf >= 1; --nbuf) {  // one buffer that does not fit: total says so
+    L.nbuf = nbuf;
+    L.slab_off = nbuf * L.halo_bytes;
+    L.stage_off = L.slab_off + 2 * L.w_bytes;
+    L.bs_off = L.stage_off + NCONS * L.stage_bytes;
+    L.edge_off = L.bs_off + 2 * n * 4;
+    L.bar_off = L.edge_off;
+    L.total = L.bar_off + NBARS * 8;
+    if (L.total <= SMEM_MAX) break;
+  }
+  return L;
+}
+
+// The streamed mode's mbarriers, at bar_off: hfull[b] (b < 2), hempty[b],
+// wfull[s] (s < 2), wempty[s].
+enum StreamBars { HFULL = 0, HEMPTY = 2, WFULL = 4, WEMPTY = 6 };
 
 // One operand of a DIRECT conv: its first c channels enter the conv, cs
 // is its pixel stride in elements; its chunks are chunk0, chunk0 + 1, ...
@@ -1152,6 +1197,7 @@ __device__ __forceinline__ uint32_t raw1(const unsigned char* xb, size_t off, in
 //   * gather: any other operand (the stems, cin 6/9/10): channel by
 //     channel, the loads of RB items in flight at once (one item at a
 //     time, the int8 stem's producers held the block).
+// K = 0: k is a.k (the streamed mode); else the compile-time K.
 template <int N, int ET, int K>
 __device__ __forceinline__ void build_halo_direct(const UpArgs& a, const Layout& L,
                                                   unsigned char* halo, const Operand& o,
@@ -1160,8 +1206,9 @@ __device__ __forceinline__ void build_halo_direct(const UpArgs& a, const Layout&
   constexpr bool Q = ET == I8;
   constexpr int ES = Q ? 1 : (ET == F32 ? 4 : 2);
   constexpr int TH = NCONS * mt_of(N, ET, K);
-  constexpr int HP = (K - 1) / 2;
-  constexpr int HH = TH + K - 1;
+  const int k = K > 0 ? K : a.k;
+  const int HP = (k - 1) / 2;
+  const int HH = TH + k - 1;
   constexpr int RB = 4;
   const int i8 = Q ? o.in_i8 : 0;
   const int xes = ET == F32 ? 4 : (i8 ? 1 : 2);  // bytes per element of the operand
@@ -1855,6 +1902,145 @@ __global__ void __launch_bounds__(THREADS, 1) conv_up_sm90_kernel(const UpArgs a
   }
 }
 
+// ------------------------------------- the streamed mode (K1 at any odd k)
+
+// The streamed mode's producer warpgroup: per channel chunk it waits for a
+// free halo buffer and builds the halo tile (DIRECT's builder at runtime k,
+// which arrives on hfull itself); thread 0 then copies the chunk's k weight
+// slabs (one dy row each) into the slab ring, one stage at a time.
+template <int N>
+__device__ __forceinline__ void produce_stream(const UpArgs& a, const Layout& L,
+                                               unsigned char* smem, uint64_t* bars, int p) {
+  constexpr int TH = NCONS * mt_of(N, BF16, 0);
+  const uint32_t slab = static_cast<uint32_t>(L.w_bytes);
+  uint32_t hc = 0, wc = 0;  // halo tiles and slabs produced, over the block's tiles
+  for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+    const TileXY T = tile_of(a, t, TH, false);
+    const unsigned char* wblock =
+        a.wb + static_cast<size_t>(T.cb) * a.n_chunks * a.k * slab;
+    for (int gch = 0; gch < a.n_chunks; ++gch, ++hc) {
+      const int hb = hc % L.nbuf;
+      mbar_wait(&bars[HEMPTY + hb], ((hc / L.nbuf) & 1) ^ 1);
+      build_halo_direct<N, BF16, 0>(a, L, smem + hb * L.halo_bytes, a.ops[0], T,
+                                    gch * a.cchunk, &bars[HFULL + hb], p);
+      if (p != 0) continue;
+      for (int dy = 0; dy < a.k; ++dy, ++wc) {
+        const int s = wc & 1;
+        mbar_wait(&bars[WEMPTY + s], ((wc >> 1) & 1) ^ 1);
+        mbar_arrive_expect_tx(&bars[WFULL + s], slab);
+        bulk_g2s(smem + L.slab_off + s * slab,
+                 wblock + (static_cast<size_t>(gch) * a.k + dy) * slab, slab, &bars[WFULL + s]);
+      }
+    }
+  }
+}
+
+// The streamed mode's consumer warpgroup: per chunk it waits for the halo
+// tile, then per stage (dy) for its slab, and contracts it as DIRECT's
+// consumer contracts a k = 1 conv over the halo shifted by dy rows
+// (mma_rows<0, MT, 1>: one halo row per wgmma); the slab is released after
+// the stage's products complete, the halo after the chunk's last stage.
+// Epilogue as DIRECT's.
+template <int N>
+__device__ __forceinline__ void consume_stream(const UpArgs& a, const Layout& L,
+                                               unsigned char* smem, uint64_t* bars, int ct) {
+  constexpr int MT = mt_of(N, BF16, 0);
+  constexpr int TH = NCONS * MT;
+  constexpr int NR = N / 2;
+  const int wg = ct >> 7;
+  const int warp = (ct >> 5) & 3;
+  const int lane = ct & 31;
+  const int ks_n = a.cchunk / 16;
+  const uint32_t row_stride = L.hw * L.pstride;
+  // this lane's ldmatrix row address, as consume's
+  const uint32_t lane_off = wg * MT * row_stride +
+                            (16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8) * L.pstride +
+                            (lane >> 4) * 16;
+  const uint32_t base = smem_u32(smem);
+  float* bs = reinterpret_cast<float*>(smem + L.bs_off);
+  unsigned char* stage = smem + L.stage_off + wg * L.stage_bytes;
+  uint32_t hc = 0, wc = 0;
+  int bs_cb = -1;
+  float acc[MT][NR];
+  uint32_t A[2][4];
+  for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+    const TileXY T = tile_of(a, t, TH, false);
+    if (T.cb != bs_cb) {
+      named_sync(2, NCONS * 128);  // the last tile's epilogue is done with bs
+      for (int i = ct; i < N; i += NCONS * 128) {
+        const int co = T.cb * N + i;
+        bs[i] = co < a.n_out ? __ldg(a.bias + co) : 0.0f;
+        bs[N + i] = 0.0f;
+      }
+      named_sync(2, NCONS * 128);
+      bs_cb = T.cb;
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < NR; ++i) acc[mt][i] = 0.0f;
+    for (int gch = 0; gch < a.n_chunks; ++gch, ++hc) {
+      const int hb = hc % L.nbuf;
+      mbar_wait(&bars[HFULL + hb], (hc / L.nbuf) & 1);
+      const uint32_t a_s = base + hb * L.halo_bytes + lane_off;
+#pragma unroll 1
+      for (int dy = 0; dy < a.k; ++dy, ++wc) {
+        const int s = wc & 1;
+        mbar_wait(&bars[WFULL + s], (wc >> 1) & 1);
+        const uint32_t w_s = base + L.slab_off + s * L.w_bytes;
+        // B of (dx, k-step) of this dy row at w_s + (dx * ks_n + ks) * N * 32
+#pragma unroll 1
+        for (int dx = 0; dx < a.k; ++dx)
+#pragma unroll 1
+          for (int ks = 0; ks < ks_n; ++ks)
+            mma_rows<0, MT, 1>(acc, A, a_s + dy * row_stride + dx * L.pstride + ks * 32,
+                               row_stride, w_s + (dx * ks_n + ks) * (N * 32), 0);
+        wgmma_wait<0>();
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int i = 0; i < NR; ++i) keep(acc[mt][i]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          keep(A[0][i]);
+          keep(A[1][i]);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&bars[WEMPTY + s]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bars[HEMPTY + hb]);
+    }
+    epilogue<N, DIRECT, BF16>(a, T, acc, bs, static_cast<const float*>(nullptr), stage, false,
+                              false, a.has_slope, a.slope, wg, warp, lane);
+  }
+}
+
+// 384 threads, one persistent block per multiprocessor, as conv_up_sm90_kernel.
+template <int N>
+__global__ void __launch_bounds__(THREADS, 1) conv_stream_sm90_kernel(const UpArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout L = make_layout_stream(a.k, a.cchunk, N);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bar_off);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&bars[HFULL + i], NPROD);  // one arrival per producer thread
+      mbar_init(&bars[HEMPTY + i], NCONS * 4);
+      mbar_init(&bars[WFULL + i], 1);  // the copy's arrival and its bytes
+      mbar_init(&bars[WEMPTY + i], NCONS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < NPROD) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PROD_REGS));
+    produce_stream<N>(a, L, smem, bars, threadIdx.x);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONS_REGS));
+    consume_stream<N>(a, L, smem, bars, threadIdx.x - NPROD);
+  }
+}
+
 constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
 
 template <int N, int MODE, int ET, int K>
@@ -1952,6 +2138,29 @@ int launch_mode(UpArgs a, int B, int n_tiles, int et, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (et == F32) return launch_k<MODE, F32>(a, B, n_tiles, s);
   return q ? launch_k<MODE, I8>(a, B, n_tiles, s) : launch_k<MODE, BF16>(a, B, n_tiles, s);
+}
+
+template <int N>
+int launch_stream_one(UpArgs a, int B, cudaStream_t s) {
+  const Layout L = make_layout_stream(a.k, a.cchunk, N);
+  if (L.total > SMEM_MAX) return kInvalid;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_stream_sm90_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return static_cast<int>(err);
+  constexpr int TH = NCONS * mt_of(N, BF16, 0);
+  a.tw = TW - (a.k - 1);
+  a.tiles_x = (a.W + a.tw - 1) / a.tw;
+  a.tiles_y = (a.H + TH - 1) / TH;
+  const long long tiles = static_cast<long long>(a.tiles_x) * a.tiles_y * B * a.n_cb;
+  if (tiles > 0x7fffffffLL) return kInvalid;
+  a.tiles = static_cast<int>(tiles);
+  const int grid = a.tiles < sms ? a.tiles : sms;
+  conv_stream_sm90_kernel<N><<<grid, THREADS, L.total, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 UpArgs up_args(const void* x, int c, int in_i8, const void* ax, const void* wb,

@@ -31,7 +31,9 @@ channels (up to 128; float32 64) in one block; its planner is
 conv's own weights in it, K5's split per operand, K9 the folded ones). With
 one bfloat16 operand its K5 mode (DIRECT) is also K1,
 ``conv_phase.conv2d_fused`` of the plain path (entry point
-``rrin_conv_phase_sm90_launch``). **K6 and K8 compute one function** in NHWC. The two TPU kernels differ only in their lane geometry
+``rrin_conv_phase_sm90_launch``), at k 3/5/7; at every other odd k K1 runs
+the core's streamed mode (``_sm90_plan(streamed=True)``: its weights
+stream one dy row a pipeline stage). **K6 and K8 compute one function** in NHWC. The two TPU kernels differ only in their lane geometry
 (K6 doubles the lane groups P, K8 the sublane groups M at a level boundary),
 which is not carried over.
 Both entry points exist because each mirrors one reference kernel, with its
@@ -192,7 +194,8 @@ def _sm90_rows(n: int, q: int = False, k: int = 3) -> int:
 
 
 def _sm90_smem_bytes(k: int, cchunk: int, n_tiles: int, q: int = False,
-                     folded: bool = False, res_chunks: int = 0) -> int:
+                     folded: bool = False, res_chunks: int = 0,
+                     streamed: bool = False) -> int:
     """Shared memory of one block of the Hopper core (``make_layout`` in
     conv_sm90.cuh; K5-K8 share a layout, ``folded`` is K9's): three buffers
     of a halo tile (64 columns) and a chunk's stencil weights where they fit;
@@ -203,7 +206,10 @@ def _sm90_smem_bytes(k: int, cchunk: int, n_tiles: int, q: int = False,
     staged output row per consumer warpgroup; bias and scale; K9's edge sums
     of two tiles; nine mbarriers. Regions are 128-byte aligned. ``q``:
     False (bfloat16), True (int8) or F32 (a float32 halo, weights in two
-    TF32 planes, a float32 staged row)."""
+    TF32 planes, a float32 staged row). ``streamed``: K1's streamed mode
+    (``make_layout_stream``, bf16), two halo buffers where they fit, else
+    one, beside a ring of two weight slabs (one dy row of a chunk's stencil
+    each), the staged rows, bias, scale and the mbarriers."""
     es, n = _ELEM[q][0], n_tiles * 8
     wes, oes = (8, 4) if q == F32 else (es, 2)
     th = _sm90_rows(n, q, k)
@@ -215,6 +221,9 @@ def _sm90_smem_bytes(k: int, cchunk: int, n_tiles: int, q: int = False,
     w = k * k * cchunk * n * wes
     rest = (_SM90_CONSUMERS * up128(_SM90_TW * (oes * n + _PAD_BYTES)) + 2 * n * 4
             + (2 * 2 * th * n * 4 if folded else 0) + 9 * 8)
+    if streamed:
+        two = 2 * halo + 2 * (w // k) + rest
+        return two if two <= _SMEM_MAX else two - halo
     three = 3 * (halo + w) + rest
     if three <= _SMEM_MAX:
         return three
@@ -247,28 +256,29 @@ def _sm90_res_chunks(cin: Union[int, Sequence[int]], plan: Tuple[int, int, int],
 @functools.lru_cache(maxsize=None)
 def _sm90_plan(
     k: int, cin: Union[int, Tuple[int, ...]], n_out: int, q: int = False,
-    folded: bool = False, resident: bool = False,
+    folded: bool = False, resident: bool = False, streamed: bool = False,
 ) -> Optional[Tuple[int, int, int]]:
     """(cchunk, n_tiles, n_cout_blocks) of the Hopper core, or None: N =
     8*n_tiles is the narrowest width it is built for that covers ``n_out``
     (2*cout when folded), so one block holds every output channel up to 128
-    (float32, ``q=F32``: 64); the largest channel chunk (no wider than the
-    widest operand, ``cin`` being one channel count or the operands') that
-    fits shared memory (with its weights ``resident``, K5 and K7, where that
-    is what fits), a narrower N (more channel blocks) only where none does."""
+    (float32, ``q=F32``: 64; K1's ``streamed`` mode, bf16: 64); the largest
+    channel chunk (no wider than the widest operand, ``cin`` being one
+    channel count or the operands') that fits shared memory (with its
+    weights ``resident``, K5 and K7, where that is what fits), a narrower N
+    (more channel blocks) only where none does."""
     cins = _cins(cin)
     if not cins or min(cins) < 1 or n_out < 1:
         return None
     kk = _ELEM[q][1]
     cin_k = -(-max(cins) // kk) * kk
-    widths = [n for n in _SM90_N if n <= _SM90_N_MAX[q]]
+    widths = [n for n in _SM90_N if n <= (64 if streamed else _SM90_N_MAX[q])]
     first = next((n for n in widths if n >= n_out), widths[-1])
     for n in reversed([m for m in _SM90_N if m <= first]):
         for cchunk in _SM90_CHUNKS[q]:
             plan = (cchunk, n // 8, -(-n_out // n))
             res = _sm90_res_chunks(cins, plan, resident)
             if cchunk <= cin_k and _sm90_smem_bytes(k, cchunk, n // 8, q, folded,
-                                                     res) <= _SMEM_MAX:
+                                                     res, streamed) <= _SMEM_MAX:
                 return plan
     return None
 
@@ -836,6 +846,8 @@ def _lib_sm90(source: str = "conv_up_sm90") -> ctypes.CDLL:
         else:
             lib.rrin_conv_packed_sm90_smem.argtypes = [ci] * 5
             lib.rrin_conv_packed_sm90_smem.restype = ctypes.c_longlong
+            lib.rrin_conv_stream_sm90_smem.argtypes = [ci] * 3
+            lib.rrin_conv_stream_sm90_smem.restype = ctypes.c_longlong
             lib.rrin_conv_packed_launch.argtypes = (
                 [pv, pi, pi, pi, pv, ci] + [vp] * 4 + [ci] * 9 + [cf, ci, vp])
             lib.rrin_conv_up_packed_launch.argtypes = one
@@ -920,38 +932,45 @@ def _check_cuda(
 
 
 @functools.lru_cache(maxsize=None)
-def _sm90_smem_agrees(name, k, cins, plan, q) -> None:
+def _sm90_smem_agrees(name, k, cins, plan, q, streamed=False) -> None:
     """Raise unless the C layout of kernel ``name``'s library and
     :func:`_sm90_smem_bytes` agree (checked once per site: every argument is
-    hashable)."""
+    hashable); ``streamed``: K1's streamed mode (``conv_packed``'s
+    library)."""
     cchunk, n_tiles, _ = plan
     folded, resident = _SM90_KERNELS[name]
-    res = _sm90_res_chunks(cins, plan, resident)
+    res = 0 if streamed else _sm90_res_chunks(cins, plan, resident)
     source = _SM90_SOURCE[name]
     lib = _lib_sm90(source)
-    if source == "conv_up_sm90":
+    if streamed:
+        got = lib.rrin_conv_stream_sm90_smem(k, cchunk, n_tiles)
+    elif source == "conv_up_sm90":
         got = lib.rrin_conv_up_sm90_smem(k, cchunk, n_tiles, int(q), int(folded), res)
     else:
         got = lib.rrin_conv_packed_sm90_smem(k, cchunk, n_tiles, int(q), res)
-    if got != _sm90_smem_bytes(k, cchunk, n_tiles, q, folded, res):
+    if got != _sm90_smem_bytes(k, cchunk, n_tiles, q, folded, res, streamed):
         raise RuntimeError(f"{source}.cu and conv_packed.py disagree on the tile")
 
 
 def _prep_on_card(name: str, w: torch.Tensor, bias: torch.Tensor,
-                  cins: Optional[Sequence[int]] = None, f32: bool = False) -> Prepared:
+                  cins: Optional[Sequence[int]] = None, f32: bool = False,
+                  plan: Optional[Tuple[int, int, int]] = None) -> Prepared:
     """What ``prep_conv`` (operands of ``cins`` channels) / ``prep_conv_up``
     / ``prep_conv_pool`` / ``prep_conv_up_m`` / ``prep_conv_up_f`` return in
     bfloat16 (``f32``: with ``dtype=torch.float32``), from one launch of the
     Hopper core's prep kernel: the layout of :func:`_sm90_weights` (each
     operand's channels padded to whole chunks; K9: the fold of
     :func:`_upf_taps` before the bf16 rounding; float32: the hi and the lo
-    TF32 plane) and, folded, the bias repeated for both output parities."""
+    TF32 plane) and, folded, the bias repeated for both output parities.
+    ``plan``: the kernel's plan where it is not ``name``'s own (K1's
+    streamed mode lays out ``conv_packed``'s weights for its plan)."""
     folded, res = _SM90_KERNELS[name]
     q = F32 if f32 else False
     k, _, cin, cout = w.shape
     cins = (cin,) if cins is None else tuple(int(c) for c in cins)
     n_out = 2 * cout if folded else cout
-    plan = _sm90_plan(k, cins, n_out, q, folded=folded, resident=res)
+    if plan is None:
+        plan = _sm90_plan(k, cins, n_out, q, folded=folded, resident=res)
     cchunk, n_tiles, n_cb = plan
     lead = (n_cb, _sm90_chunks(cins, cchunk), k, 5 if folded else k)
     if f32:  # [kstep][plane][n-tile][r][g][tig][p]

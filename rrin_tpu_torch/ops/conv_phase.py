@@ -1,4 +1,4 @@
-"""Low-channel NHWC convolution (K1): hand-written CUDA kernels and their
+"""Low-channel NHWC convolution (K1): a hand-written CUDA kernel and its
 wrapper.
 
 Replaces the phase-packed Pallas kernel of the JAX package
@@ -12,46 +12,50 @@ calibration, training and every shape the packed path rejects run.
 
 What bounds it on an H100: operations, not bytes, at every site but the heads
 (the 32->32 7x7 stem does 3,136 multiply-adds for each byte pair it reads and
-writes). Two kernels, no width or height gates, nothing of the TPU's lanes
-(no packing factor, no block-Toeplitz weights):
+writes). One kernel, the Hopper core of ``csrc/conv_sm90.cuh`` (entry point
+``rrin_conv_phase_sm90_launch`` of ``csrc/conv_packed_sm90.cu``), with
+nothing of the TPU's lanes (no packing factor, no block-Toeplitz weights) and
+no width or height gates:
 
-  * k in {3, 5, 7} (every site of the repo's configurations): the Hopper
-    core of ``csrc/conv_sm90.cuh`` in its DIRECT mode with one operand, the
-    function K5 (``conv_packed``) computes, entry point
-    ``rrin_conv_phase_sm90_launch`` of ``csrc/conv_packed_sm90.cu``: a
-    producer warpgroup copies the next channel chunks' halo tiles (``cp.async``;
-    the stems' cin 6/9/10 gathered a channel at a time) while two consumer
-    warpgroups contract the current one on ``wgmma``, persistent blocks. Its
-    weights are laid out on the card by the core's prep kernel in K5's
-    one-operand layout, one launch per call (count ``conv_up_prep``);
-  * any other odd k (1, 9, ...; ``ModelConfig.stem_kernel`` and
-    ``down_kernels`` may ask for them): the kernel of ``csrc/conv_phase.cu``,
-    ``mma.sync`` m16n8k16 from a shared-memory halo tile, its weights laid out
-    in PyTorch per call (:func:`_weight_fragments`).
+  * k in {3, 5, 7} (every site of the repo's default configuration): its
+    DIRECT mode with one operand, the function K5 (``conv_packed``)
+    computes: a producer warpgroup copies the next channel chunks' halo tiles
+    (``cp.async``; the stems' cin 6/9/10 gathered a channel at a time) while
+    two consumer warpgroups contract the current one on ``wgmma``,
+    persistent blocks, a chunk's whole stencil (or every chunk's, resident)
+    in shared memory;
+  * any other odd k (1, 9, ..., 49; ``ModelConfig.stem_kernel`` and
+    ``down_kernels`` may ask for them): the core's streamed mode, the same
+    walk with k a runtime argument, the weights streamed one stencil row
+    (k taps x cchunk x N) a pipeline stage while the chunk's halo tile stays
+    in shared memory (``conv_packed._sm90_plan(streamed=True)``).
 
-Both count their launches under ``conv_phase``. cin in {6, 9, 10} and cout in
-{2, 3, 4} are zero-padded to the MMA tile and masked at the store, so those
-sites stay on a kernel.
+Its weights are laid out on the card by the core's prep kernel in K5's
+one-operand layout, one launch per call (count ``conv_up_prep``); its
+launches count under ``conv_phase``. cin in {6, 9, 10} and cout in {2, 3, 4}
+are zero-padded to the MMA tile and masked at the store, so those sites stay
+on the kernel.
 
-Routing (:func:`supports`): odd k, cout <= 64 and a tile of the ``mma.sync``
-kernel that fits shared memory, bfloat16 only. Everything else (float32, cout >=
-128) is ``F.conv2d``, as the JAX package leaves those sites to XLA. The plain
-version of both kernels is :func:`_conv_plain`; the wrapper takes it only
-for CPU tensors, and on the card launches a kernel or raises.
+Routing (:func:`supports`): odd k, 1 <= cout <= 64, k no larger than
+:data:`MAX_K` gives for cout, and a plan of the core (:func:`_sm90_plan`),
+bfloat16 only. Everything else (float32, cout >= 128, larger k) is
+``F.conv2d``, as the JAX package leaves those sites to XLA (the JAX
+package's kernel has no bound on k: ROADMAP Queue C). The plain version of
+the kernel is :func:`_conv_plain`; the wrapper takes it only for CPU
+tensors, and on the card launches the kernel or raises.
 
 Gradients: :func:`conv2d_fused` is a ``torch.autograd.Function`` at every
 site, as the JAX package's is a ``custom_vjp``. Its backward is the JAX
 package's ``_conv_bwd``: the autograd of :func:`_conv_plain`, recomputed from
 the saved ``(x, w, bias)`` and run without TF32 (cuDNN's dgrad and wgrad on
-the card), since the reference has no backward kernel. The kernels themselves
-are forward-only: their launchers refuse inputs that require grad, and the
-Function hands them detached tensors.
+the card), since the reference has no backward kernel. The kernel itself
+is forward-only: its launcher refuses inputs that require grad, and the
+Function hands it detached tensors.
 """
 
 from __future__ import annotations
 
 import contextlib
-import ctypes
 from typing import Iterator, Optional, Tuple
 
 import torch
@@ -59,54 +63,34 @@ import torch.nn.functional as F
 
 from rrin_tpu_torch import _build
 
-# Tile constants of csrc/conv_phase.cu (kept equal to the kernel's).
-_TH, _TW, _CPAD = 8, 32, 8
-# Kernel sizes that go to the Hopper core (the k its DIRECT mode is built
-# for, conv_packed._K_CONV); the other odd k take csrc/conv_phase.cu.
-SM90_K = (3, 5, 7)
-# Dynamic shared memory a block may use on sm_90 (227 KB).
-_SMEM_MAX = 232448
+# The odd k that K1 takes, by the output channels they serve: (cout up to,
+# largest k). The reach of the port's first K1 kernel (its tile filled the
+# 227 KB of shared memory there), kept when the Hopper core took every k so
+# that the routing did not change; the core itself plans further.
+MAX_K = ((8, 49), (16, 47), (32, 43), (64, 37))
 MAX_COUT = 64
 
 
-def _n_tiles(cout: int) -> int:
-    return next(n for n in (1, 2, 4, 8) if n * 8 >= cout)
-
-
-def _smem_bytes(k: int, cchunk: int, n_tiles: int) -> int:
-    halo = (_TH + k - 1) * (_TW + k - 1) * (cchunk + _CPAD) * 2
-    wrow = k * (cchunk // 16) * n_tiles * 32 * 8
-    return halo + wrow
-
-
-def _plan(k: int, cin: int, cout: int) -> Optional[Tuple[int, int, int]]:
-    """(cchunk, n_chunks, n_tiles) of the kernel for this site, or None."""
-    if k % 2 == 0 or k < 1 or cin < 1 or not 1 <= cout <= MAX_COUT:
-        return None
-    n_tiles = _n_tiles(cout)
-    cin16 = -(-cin // 16) * 16
-    for cchunk in (64, 48, 32, 16):
-        if cchunk > cin16:
-            continue
-        if _smem_bytes(k, cchunk, n_tiles) <= _SMEM_MAX:
-            return cchunk, -(-cin // cchunk), n_tiles
-    return None
+def _max_k(cout: int) -> int:
+    return next(k for c, k in MAX_K if cout <= c)
 
 
 def supports(
     x_shape: Tuple[int, ...], w_shape: Tuple[int, ...]
 ) -> Optional[int]:
-    """Return the kernel's input-channel chunk if it applies, else None.
+    """Return the kernel's input-channel chunk (its plan's) if it applies,
+    else None.
 
-    Routes every site the JAX package's ``supports`` routes and more: there
-    is no gate on W or H here (those were DMA alignment rules).
+    Routes every site the JAX package's ``supports`` routes up to
+    :data:`MAX_K`, and more: there is no gate on W or H here (those were DMA
+    alignment rules).
     """
     if len(x_shape) != 4 or len(w_shape) != 4:
         return None
     kh, kw, cin, cout = w_shape
     if x_shape[3] != cin or kh != kw:
         return None
-    plan = _plan(kh, cin, cout)
+    plan = _sm90_plan(kh, cin, cout)
     return None if plan is None else plan[0]
 
 
@@ -143,37 +127,8 @@ def _conv_plain(
     return _leaky(y, slope)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("conv_phase")
-    if not getattr(lib, "_rrin_typed", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.rrin_conv_phase_launch.argtypes = (
-            [vp] * 4 + [ci] * 10 + [ctypes.c_float, vp])
-        lib.rrin_conv_phase_launch.restype = ci
-        lib.rrin_conv_phase_smem.argtypes = [ci, ci, ci]
-        lib.rrin_conv_phase_smem.restype = ctypes.c_longlong
-        lib._rrin_typed = True
-    return lib
-
-
-def _weight_fragments(
-    w: torch.Tensor, cchunk: int, n_chunks: int, n_tiles: int
-) -> torch.Tensor:
-    """HWIO weights -> bf16 in the kernel's B-fragment order
-    ``[chunk][dy][dx][k16][n-tile][lane = g*4+tig][reg r][pair p]`` where the
-    element is ``w[dy, dx, chunk*cchunk + k16*16 + r*8 + tig*2 + p, n-tile*8 + g]``
-    (zero where cin or cout is padding)."""
-    k, _, cin, cout = w.shape
-    wp = torch.zeros(
-        (k, k, n_chunks * cchunk, n_tiles * 8), dtype=torch.bfloat16, device=w.device)
-    wp[:, :, :cin, :cout] = w.to(torch.bfloat16)
-    wp = wp.view(k, k, n_chunks, cchunk // 16, 2, 4, 2, n_tiles, 8)
-    #            dy dx ch        k16          r  tig p  nt      g
-    return wp.permute(2, 0, 1, 3, 7, 8, 5, 4, 6).contiguous()
-
-
 def _check_args(x, w, bias) -> None:
-    """What both kernels ask of their tensors."""
+    """What the kernel asks of its tensors."""
     if w.device != x.device or bias.device != x.device:
         raise ValueError("x, w and bias must lie on one device")
     if not x.is_contiguous():
@@ -190,18 +145,23 @@ def _check_args(x, w, bias) -> None:
 
 
 def _sm90_plan(k: int, cin: int, cout: int) -> Optional[Tuple[int, int, int]]:
-    """(cchunk, n_tiles, n_cout_blocks) of K1 on the Hopper core: K5's plan
-    for one bf16 operand, or None where k is not one it is built for."""
+    """(cchunk, n_tiles, n_cout_blocks) of K1 on the Hopper core, or None
+    where K1 does not take the site: at k 3/5/7 K5's plan for one bf16
+    operand (resident weights where they fit), at the other odd k up to
+    :data:`MAX_K` that of the streamed mode."""
     from rrin_tpu_torch.ops import conv_packed  # it imports this module
-    if k not in SM90_K:
+    if k < 1 or k % 2 == 0 or cin < 1 or not 1 <= cout <= MAX_COUT or k > _max_k(cout):
         return None
-    return conv_packed._sm90_plan(k, (cin,), cout, resident=True)
+    if k in conv_packed._K_CONV:
+        return conv_packed._sm90_plan(k, (cin,), cout, resident=True)
+    return conv_packed._sm90_plan(k, (cin,), cout, streamed=True)
 
 
 def _conv_sm90(x, w, bias, slope) -> torch.Tensor:
     """K1 on the Hopper core: the weights laid out on the card (one launch
-    of its prep kernel, K5's one-operand layout), then one launch of the
-    DIRECT mode."""
+    of its prep kernel, K5's one-operand layout, for K1's plan), then one
+    launch of the kernel (DIRECT or, at the other odd k, the streamed
+    mode)."""
     from rrin_tpu_torch.ops import conv_packed  # it imports this module
     _check_args(x, w, bias)
     b, h, width, cin = x.shape
@@ -209,8 +169,9 @@ def _conv_sm90(x, w, bias, slope) -> torch.Tensor:
     plan = _sm90_plan(k, cin, cout)
     if plan is None:
         raise ValueError(f"K1 has no Hopper plan for k {k}, cin {cin}, cout {cout}")
-    prepared = conv_packed._prep_on_card("conv_packed", w, bias, (cin,))
-    conv_packed._sm90_smem_agrees("conv_packed", k, (cin,), plan, False)
+    prepared = conv_packed._prep_on_card("conv_packed", w, bias, (cin,), plan=plan)
+    conv_packed._sm90_smem_agrees("conv_packed", k, (cin,), plan, False,
+                                  k not in conv_packed._K_CONV)
     lib = conv_packed._lib_sm90("conv_packed_sm90")
     cchunk, n_tiles, _ = plan
     out = torch.empty((b, h, width, cout), dtype=torch.bfloat16, device=x.device)
@@ -225,30 +186,6 @@ def _conv_sm90(x, w, bias, slope) -> torch.Tensor:
     return out
 
 
-def _conv_kernel(x, w, bias, slope, plan) -> torch.Tensor:
-    """K1 on the mma.sync kernel of csrc/conv_phase.cu, for the odd k that
-    the Hopper core lacks."""
-    cchunk, n_chunks, n_tiles = plan
-    _check_args(x, w, bias)
-    b, h, width, cin = x.shape
-    k, _, _, cout = w.shape
-    lib = _lib()
-    if lib.rrin_conv_phase_smem(k, cchunk, n_tiles) != _smem_bytes(k, cchunk, n_tiles):
-        raise RuntimeError("conv_phase.cu and conv_phase.py disagree on the tile")
-    wfrag = _weight_fragments(w, cchunk, n_chunks, n_tiles)
-    bias32 = bias.to(torch.float32).contiguous()
-    out = torch.empty((b, h, width, cout), dtype=torch.bfloat16, device=x.device)
-    with torch.cuda.device(x.device):
-        _build.launch(
-            "conv_phase", lib.rrin_conv_phase_launch,
-            x.data_ptr(), wfrag.data_ptr(), bias32.data_ptr(), out.data_ptr(),
-            b, h, width, cin, cout, k, cchunk, n_chunks, n_tiles,
-            int(slope is not None), 0.0 if slope is None else float(slope),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    return out
-
-
 def _conv_forward(x, w, bias, slope) -> torch.Tensor:
     """The forward's routing (see :func:`conv2d_fused`)."""
     if supports(tuple(x.shape), tuple(w.shape)) is None or x.dtype != torch.bfloat16:
@@ -257,9 +194,7 @@ def _conv_forward(x, w, bias, slope) -> torch.Tensor:
         return _conv_plain(x, w, bias, slope)
     if x.device.type != "cuda":
         raise RuntimeError(f"no conv kernel for device {x.device}")
-    if w.shape[0] in SM90_K:
-        return _conv_sm90(x, w, bias, slope)
-    return _conv_kernel(x, w, bias, slope, _plan(w.shape[0], w.shape[2], w.shape[3]))
+    return _conv_sm90(x, w, bias, slope)
 
 
 class _ConvFused(torch.autograd.Function):
@@ -292,10 +227,10 @@ def conv2d_fused(
     """conv2d(stride 1, SAME) + bias + optional LeakyReLU, differentiable.
 
     x: (B, H, W, cin) NHWC; w: (kh, kw, cin, cout) HWIO; bias: (cout,).
-    A bfloat16 input at a site :func:`supports` accepts goes to a CUDA
-    kernel when it lies on the card (launch or raise): the Hopper core for k
-    in :data:`SM90_K`, else ``csrc/conv_phase.cu``; to the plain version when
-    it lies on the CPU. float32 inputs and the other sites are ``F.conv2d``.
+    A bfloat16 input at a site :func:`supports` accepts goes to the Hopper
+    core when it lies on the card (launch or raise), to the plain version
+    when it lies on the CPU. float32 inputs and the other sites are
+    ``F.conv2d``.
     The gradient is that of the plain version, recomputed (``_ConvFused``).
     """
     return _ConvFused.apply(x, w, bias, slope)

@@ -1,6 +1,6 @@
 """K1's module: the port's conv2d_fused (plain version, CPU) vs the JAX
-phase-conv kernel in interpret mode, and the routing/layout code around the
-CUDA kernel that the CPU can reach."""
+phase-conv kernel in interpret mode, and the routing, plan and weight
+layout of the CUDA kernel (the Hopper core) that the CPU can reach."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,8 +9,9 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from rrin_tpu.ops import conv_phase as jcp
+from rrin_tpu_torch.ops import conv_packed as tpk
 from rrin_tpu_torch.ops import conv_phase as tcp
-from torch_packed_util import fresh_rng, one_torch_thread  # noqa: F401
+from torch_packed_util import check_sm90_layout, fresh_rng, one_torch_thread  # noqa: F401
 
 
 @pytest.fixture
@@ -70,16 +71,29 @@ class TestAgainstJaxKernel:
 
 class TestSupports:
     def test_superset_of_jax_supports(self):
-        n_jax = 0
-        for k in (1, 3, 5, 7, 9):
+        """Every site the JAX kernel takes within the port's k range
+        (``MAX_K``: 49 at cout <= 8 down to 37 at cout <= 64) has a K1
+        kernel. The reference has no bound on k; beyond the range the port
+        runs ``F.conv2d`` (ROADMAP Queue C), pinned here: the sites it
+        leaves, and k 39 at cout 64 and k 51 at cout 8."""
+        n_jax = n_beyond = 0
+        for k in range(1, 50, 2):
             for cin in (3, 6, 9, 10, 16, 32, 48, 64, 128, 256, 512):
                 for cout in (2, 3, 4, 16, 32, 64, 128):
                     for hw in ((32, 64), (1088, 1920), (24, 100)):
                         xs, ws = (1, *hw, cin), (k, k, cin, cout)
-                        if jcp.supports(xs, ws) is not None:
-                            n_jax += 1
+                        if jcp.supports(xs, ws) is None:
+                            continue
+                        n_jax += 1
+                        if k <= tcp._max_k(cout):
                             assert tcp.supports(xs, ws) is not None, (xs, ws)
-        assert n_jax > 100
+                        else:
+                            n_beyond += 1
+                            assert tcp.supports(xs, ws) is None, (xs, ws)
+        assert (n_jax, n_beyond) == (3000, 200)
+        for k, cin, cout in ((39, 64, 64), (51, 32, 8)):
+            xs, ws = (1, 32, 128, cin), (k, k, cin, cout)
+            assert jcp.supports(xs, ws) is not None and tcp.supports(xs, ws) is None
 
     @pytest.mark.parametrize("cin,cout,k", SHAPES + [(9, 32, 7), (10, 32, 7), (32, 3, 3)])
     def test_routes_every_site_class_without_shape_gates(self, cin, cout, k):
@@ -93,33 +107,44 @@ class TestSupports:
         assert tcp.supports((32, 64, 32), (3, 3, 32, 32)) is None
 
     def test_plan_fits_shared_memory(self):
-        for k in (1, 3, 5, 7, 9, 11):
+        """At every odd k K1 takes, the Hopper core's plan: whole chunks of
+        16-64 channels over cin, channel blocks over cout, within the 227 KB
+        of shared memory; K5's layout (resident weights where they fit) at k
+        3/5/7, the streamed mode's elsewhere."""
+        for k in range(1, 50, 2):
             for cin in (1, 6, 16, 33, 64, 100, 256):
                 for cout in (1, 8, 9, 33, 64):
-                    plan = tcp._plan(k, cin, cout)
-                    assert plan is not None
-                    cchunk, n_chunks, n_tiles = plan
-                    assert cchunk % 16 == 0 and cchunk * n_chunks >= cin
-                    assert n_tiles * 8 >= cout
-                    assert tcp._smem_bytes(k, cchunk, n_tiles) <= tcp._SMEM_MAX
+                    if k > tcp._max_k(cout):
+                        assert tcp._sm90_plan(k, cin, cout) is None
+                        continue
+                    plan = tcp._sm90_plan(k, cin, cout)
+                    assert plan is not None, (k, cin, cout)
+                    cchunk, n_tiles, n_cb = plan
+                    assert cchunk in tpk._SM90_CHUNKS[False] and cchunk < 2 * max(cin, 16)
+                    assert n_tiles * 8 * n_cb >= cout > n_tiles * 8 * (n_cb - 1)
+                    streamed = k not in tpk._K_CONV
+                    res = 0 if streamed else tpk._sm90_res_chunks((cin,), plan, True)
+                    assert tpk._sm90_smem_bytes(k, cchunk, n_tiles, False, False, res,
+                                                streamed) <= tpk._SMEM_MAX
 
 
-def test_weight_fragments_layout(rng):
-    """The B-fragment order the kernel reads: element (chunk, dy, dx, k16, nt,
-    g, tig, r, p) is w[dy, dx, chunk*cchunk + k16*16 + r*8 + tig*2 + p, nt*8 + g]."""
-    k, cin, cout = 3, 40, 12
-    cchunk, n_chunks, n_tiles = 32, 2, 2
-    w = torch.from_numpy(rng.standard_normal((k, k, cin, cout)).astype(np.float32))
-    frag = tcp._weight_fragments(w, cchunk, n_chunks, n_tiles)
-    assert frag.shape == (n_chunks, k, k, cchunk // 16, n_tiles, 8, 4, 2, 2)
-    assert frag.dtype == torch.bfloat16 and frag.is_contiguous()
-    wb = w.to(torch.bfloat16)
-    for idx in np.ndindex(*frag.shape):
-        ch, dy, dx, k16, nt, g, tig, r, p = idx
-        ci = ch * cchunk + k16 * 16 + r * 8 + tig * 2 + p
-        co = nt * 8 + g
-        want = wb[dy, dx, ci, co] if ci < cin and co < cout else 0.0
-        assert float(frag[idx]) == float(want), idx
+@pytest.mark.parametrize("k,cin,cout", [(1, 40, 12), (9, 6, 32), (13, 33, 20), (37, 3, 40)])
+def test_weight_fragments_layout(rng, k, cin, cout):
+    """The weights K1 launches with at the k off DIRECT's (1, 9, 13, and 37,
+    where a narrower N and two channel blocks fit beside the halo): the
+    core's layout for K1's plan, every bf16 weight where the wgmma
+    descriptor reads it and each dy row of a chunk one contiguous slab of
+    k taps, as the streamed mode copies it, zero in padded channels."""
+    plan = tcp._sm90_plan(k, cin, cout)
+    assert plan == tpk._sm90_plan(k, (cin,), cout, streamed=True)
+    cchunk, n_tiles, n_cb = plan
+    assert n_cb == (2 if k == 37 else 1)
+    w = torch.from_numpy((rng.standard_normal((k, k, cin, cout)) * 0.1).astype(np.float32))
+    pr = {"wfrag": tpk._sm90_weights(w, (cin,), cchunk, n_tiles), "plan": plan}
+    check_sm90_layout(pr, w, k, False, (cin,))
+    slab = k * cchunk * n_tiles * 8 * 2
+    assert pr["wfrag"].permute(*tpk._SM90_ORDER).numel() * 2 == (
+        n_cb * -(-cin // cchunk) * k * slab)
 
 
 def test_kernel_refuses_cuda_without_gpu(rng):

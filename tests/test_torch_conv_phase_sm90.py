@@ -1,12 +1,12 @@
 """K1 (``conv_phase.conv2d_fused``) on the Hopper core of the packed path
-(``csrc/conv_sm90.cuh``, mode DIRECT with one bf16 operand, entry point
-``rrin_conv_phase_sm90_launch`` in ``csrc/conv_packed_sm90.cu``): the plan
-and shared memory at each of the plain U-Net's nine site classes, the
-weights it prepares (K5's one-operand layout, ``prep_conv``), its routing
-(``supports`` as before; k 3/5/7 on the core, the other odd k on the
-``mma.sync`` kernel of ``csrc/conv_phase.cu``) and that a tensor without a
-kernel raises instead of falling back. Host side only: the kernels run on
-the card (``chip_smoke.py``)."""
+(``csrc/conv_sm90.cuh``, entry point ``rrin_conv_phase_sm90_launch`` in
+``csrc/conv_packed_sm90.cu``: mode DIRECT with one bf16 operand at k 3/5/7,
+the streamed mode at the other odd k): the plan and shared memory at each
+of the plain U-Net's nine site classes, the weights it prepares (K5's
+one-operand layout, ``prep_conv``), its routing (``supports`` as before the
+core took every k) and that a tensor without a kernel raises instead of
+falling back. Host side only: the kernels run on the card
+(``chip_smoke.py``)."""
 
 import numpy as np
 import pytest
@@ -38,14 +38,13 @@ def test_plan_at_every_site_class():
     for one bf16 operand (resident weights where they fit), whole chunks
     of 16-64 channels, all output channels in one block (cout <= 64 at k 3
     and 5, and at k 7 where cout <= 32), within the 227 KB of shared
-    memory."""
-    assert tcp.SM90_K == tpk._K_CONV
+    memory. The other odd k take the streamed mode's plan."""
     sites = _sites(ModelConfig())
     sites += [(f"c1_cin{c}", 7, c, 32) for c in (9, 10, 16)]
     assert len(sites) == 12
     for name, k, cin, cout in sites:
         assert tcp.supports((1, 64, 96, cin), (k, k, cin, cout)) is not None, name
-        assert k in tcp.SM90_K, name
+        assert k in tpk._K_CONV, name
         plan = tcp._sm90_plan(k, cin, cout)
         assert plan == tpk._sm90_plan(k, (cin,), cout, resident=True), name
         cchunk, n_tiles, n_cb = plan
@@ -55,7 +54,10 @@ def test_plan_at_every_site_class():
         assert tpk._sm90_smem_bytes(k, cchunk, n_tiles, False, False, res) <= tpk._SMEM_MAX
     assert tcp._sm90_plan(7, 6, 32) == (16, 4, 1)
     assert tcp._sm90_plan(3, 128, 64) == (32, 8, 1)
-    assert tcp._sm90_plan(1, 32, 32) is None and tcp._sm90_plan(9, 32, 32) is None
+    for k in (1, 9):
+        assert tcp._sm90_plan(k, 32, 32) == tpk._sm90_plan(k, (32,), 32, streamed=True)
+    assert tcp._sm90_plan(9, 32, 32) == (32, 4, 1)
+    assert tcp._sm90_plan(51, 32, 8) is None and tcp._sm90_plan(39, 32, 64) is None
 
 
 @pytest.mark.parametrize("k,cin,cout", [(7, 6, 32), (3, 40, 4)])
@@ -75,23 +77,24 @@ def test_prepared_weights_are_prep_conv_layout(rng, k, cin, cout):
 
 def test_wrapper_prepares_one_operand(rng, monkeypatch):
     """The route asks the core's prep for exactly ``prep_conv``'s one-operand
-    weights (kernel ``conv_packed``, cins ``(cin,)``) before it launches,
-    and checks its tensors as the mma.sync route does."""
+    weights (kernel ``conv_packed``, cins ``(cin,)``, K1's plan) before it
+    launches, and checks its tensors."""
     x = t(rng.standard_normal((1, 8, 12, 6)).astype(np.float32)).to(torch.bfloat16)
     w = t(rng.standard_normal((7, 7, 6, 32)).astype(np.float32))
     b = t(rng.standard_normal(32).astype(np.float32))
     asked = []
 
-    def prep(name, wt, bias, cins=None, f32=False):
-        asked.append((name, wt, bias, cins, f32))
+    def prep(name, wt, bias, cins=None, f32=False, plan=None):
+        asked.append((name, wt, bias, cins, f32, plan))
         raise RuntimeError("prep asked")
 
     monkeypatch.setattr(tpk, "_prep_on_card", prep)
     with pytest.raises(RuntimeError, match="prep asked"):
         tcp._conv_sm90(x, w, b, 0.1)
     assert len(asked) == 1
-    name, wt, bias, cins, f32 = asked[0]
+    name, wt, bias, cins, f32, plan = asked[0]
     assert (name, cins, f32) == ("conv_packed", (6,), False) and wt is w and bias is b
+    assert plan == tcp._sm90_plan(7, 6, 32) == tpk._sm90_plan(7, (6,), 32, resident=True)
     with pytest.raises(ValueError, match="bias must be"):
         tcp._conv_sm90(x, w, b[:4], 0.1)
     with pytest.raises(ValueError, match="NHWC-contiguous"):
@@ -101,33 +104,48 @@ def test_wrapper_prepares_one_operand(rng, monkeypatch):
     assert len(asked) == 1
 
 
+def _retired_plan(k, cin, cout):
+    """The routing of K1 before the Hopper core took every k, frozen: the
+    chunk of its first kernel's plan (an 8 x 32 tile of ``mma.sync``
+    m16n8k16 over a halo of cchunk + 8 channels a pixel and one dy row of
+    weight fragments, within 232,448 bytes of shared memory), or None."""
+    if k % 2 == 0 or k < 1 or cin < 1 or not 1 <= cout <= 64:
+        return None
+    n_tiles = next(n for n in (1, 2, 4, 8) if n * 8 >= cout)
+    for cchunk in (64, 48, 32, 16):
+        if cchunk > -(-cin // 16) * 16:
+            continue
+        halo = (8 + k - 1) * (32 + k - 1) * (cchunk + 8) * 2
+        if halo + k * (cchunk // 16) * n_tiles * 256 <= 232448:
+            return cchunk
+    return None
+
+
 def test_supports_as_before_on_a_grid():
-    """``supports`` answers as it did before the core took K1: the chunk of
-    the mma.sync kernel's plan for odd k and 1 <= cout <= 64, whatever H
-    and W, None otherwise; every site it accepts has a kernel, the core's
-    plan at k 3/5/7 and the mma.sync kernel's at k 1 and 9."""
-    for k in (1, 3, 5, 7, 9):
+    """``supports`` accepts exactly what the retired routing accepted, for
+    odd k 1-51 (and rejects even k), whatever H and W: odd k up to
+    ``MAX_K`` by cout, 1 <= cout <= 64; it answers the core's plan's chunk,
+    K5's plan at k 3/5/7, the streamed mode's at the other k."""
+    for k in range(1, 52, 2):
         for cin in (1, 3, 6, 9, 10, 16, 32, 48, 64, 128, 256, 512):
-            for cout in (1, 2, 3, 4, 16, 32, 33, 64, 65, 128):
+            for cout in (1, 2, 3, 4, 8, 9, 16, 17, 32, 33, 64, 65, 128):
                 for hw in ((32, 64), (1088, 1920), (33, 45)):
                     got = tcp.supports((1, *hw, cin), (k, k, cin, cout))
-                    if cout > 64:
+                    if _retired_plan(k, cin, cout) is None:
                         assert got is None, (k, cin, cout)
                         continue
-                    assert got == tcp._plan(k, cin, cout)[0], (k, cin, cout)
-                    if k in tcp.SM90_K:
-                        assert tcp._sm90_plan(k, cin, cout) is not None, (k, cin, cout)
-                    else:
-                        assert tcp._sm90_plan(k, cin, cout) is None
+                    plan = tpk._sm90_plan(k, (cin,), cout, resident=k in tpk._K_CONV,
+                                          streamed=k not in tpk._K_CONV)
+                    assert got is not None and got == plan[0], (k, cin, cout)
         assert tcp.supports((1, 32, 64, 32), (k, k + 1, 32, 32)) is None
     assert tcp.supports((1, 32, 64, 32), (4, 4, 32, 32)) is None
 
 
 def test_no_fallback_without_a_kernel(rng, monkeypatch, tmp_path):
     """A bf16 tensor on a device without a kernel raises, and without a CUDA
-    compiler neither K1 route builds: the core's weight prep and the
-    mma.sync kernel raise, no launch is counted. A CPU tensor takes the
-    plain version, and nothing else decides."""
+    compiler K1 does not build at k 3 (DIRECT) or k 9 (the streamed mode):
+    the core's weight prep raises, no launch is counted. A CPU tensor takes
+    the plain version, and nothing else decides."""
     x = t(rng.standard_normal((1, 8, 12, 32)).astype(np.float32)).to(torch.bfloat16)
     w3 = t(rng.standard_normal((3, 3, 32, 16)).astype(np.float32))
     w9 = t(rng.standard_normal((9, 9, 32, 16)).astype(np.float32))
@@ -144,8 +162,7 @@ def test_no_fallback_without_a_kernel(rng, monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_LIBS", {})
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     before = _build.launch_counts()
-    for call in (lambda: tcp._conv_sm90(x, w3, b, 0.1),
-                 lambda: tcp._conv_kernel(x, w9, b, 0.1, tcp._plan(9, 32, 16))):
+    for w in (w3, w9):
         with pytest.raises(RuntimeError, match="nvcc not found"):
-            call()
+            tcp._conv_sm90(x, w, b, 0.1)
     assert _build.launch_counts() == before
