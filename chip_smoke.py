@@ -14,8 +14,11 @@ and numpy; nothing else and no network. It builds the CUDA kernels of
                sites, K7 at the 4K d1c1 site), in bfloat16, in int8 and in
                float32, with times and bounds; K1 on the Hopper core at
                its sites (mode DIRECT, k 3/5/7) and at other odd k (the
-               streamed mode: k 1, 9, 11, 13 at cin 32, k 37 at cout 64,
-               k 49 at cout 8, a cin-6 stem at k 9, all at 272x480); the
+               streamed mode, its stencil split into blocks of at most 13
+               taps a side from k 15 on: k 1, 9, 11, 13 at cin 32, k 37
+               and 39 at cout 64, k 49 and 51 at cout 8, k 65 at cout 32,
+               k 99 at cin 16 and cout 64, a cin-6 stem at k 9, all at
+               272x480; small and ragged frames; k 9 at 1088x1920); the
                weight-prep kernel of the Hopper core (K5-K9 in bfloat16 and
                float32) bit-equal to its plain version; the float32
                promotion interval against its error at d4c2, u1c2 (K5),
@@ -42,6 +45,11 @@ and numpy; nothing else and no network. It builds the CUDA kernels of
                cascade (random weights, seed 0), which the packed path
                refuses: the plain path's launches, 8 K1 a request at k 9 on
                the streamed mode; card against the CPU at 272x480
+  serve_stem45 272x480 bf16 requests of a ``ModelConfig(stem_kernel=45)``
+               cascade, past the streamed mode's former reach: 8 K1 a
+               request at k 45 (each stencil split into 4 x 4 blocks),
+               none of those sites on ``F.conv2d``; against the same
+               requests through the plain versions on the card
   serve_fp32   the float32 plain path (float32 warp kernel) at 256x448 and the
                bf16-source warp
   serve_fp32_packed  the default float32 Interpolator (packed: the float32
@@ -94,6 +102,11 @@ and numpy; nothing else and no network. It builds the CUDA kernels of
                parameter difference, ms); (e) (b) and (d) again on two
                distinct cards where the machine has them. Two shards of one
                card show what sharding costs, not a speedup
+  k1_device    each K1 case of phase kernels again, by its kernel's and its
+               weight prep's device time from one torch.profiler trace of
+               five calls (from CUDA events around each launch, queued
+               behind a spin kernel, where the trace misses a launch; both
+               are reported), in a process of its own (``--k1-device``)
 
 Any failed check raises, so the exit code is non-zero and the closing lines
 are not printed. The closing lines are: the card's name and power limit, one
@@ -118,6 +131,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -235,18 +249,116 @@ def smi_line() -> str:
 
 # --------------------------------------------------------------- kernels: K1
 
+# Calls of a K1 case in its one torch.profiler trace (after a warm-up), and
+# in its one queue of calls timed by CUDA events.
+K1_TRACED_CALLS = 5
+# The spin kernel in front of that queue (torch.cuda._sleep cycles, 20 ms at
+# 2 GHz): doubled until it outlasts the host's queuing of the calls.
+K1_SPIN_CYCLES = 40_000_000
+
+
+def _k1_profiler_ms(fn) -> dict:
+    """The device ms a call of ``fn`` spends in K1's kernel and in its
+    weight prep, from one torch.profiler trace of ``K1_TRACED_CALLS`` calls,
+    and how many launches of each the trace recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(K1_TRACED_CALLS):
+            fn()
+        torch.cuda.synchronize()
+    got = {"kernel_device_ms": 0.0, "prep_device_ms": 0.0,
+           "kernel_traced_launches": 0, "prep_traced_launches": 0}
+    for e in prof.key_averages():  # the kernels, by name (a CUDA-only trace)
+        if e.device_time_total <= 0:
+            continue
+        group = _profile_group(e.key, plain=True)
+        key = ("kernel" if group.startswith("conv_phase") else
+               "prep" if group == "K5-K9 weight prep" else None)
+        if key:
+            got[f"{key}_device_ms"] += e.device_time_total / 1e3 / K1_TRACED_CALLS
+            got[f"{key}_traced_launches"] += e.count
+    return got
+
+
+def _k1_event_ms(fn) -> dict:
+    """The same two times by CUDA events recorded on the stream just before
+    and just after each launch of K1's kernel and of its prep (a shim on
+    ``_build.launch``), for ``K1_TRACED_CALLS`` calls queued behind a spin
+    kernel that keeps the card busy until the host has queued them all, so
+    that no wait for the host lies inside an event pair."""
+    real = _build.launch
+    spin = K1_SPIN_CYCLES
+    for _ in range(6):
+        pairs = {"conv_phase": [], "conv_up_prep": []}
+
+        def timed(kernel, f, *args, pairs=pairs):
+            if kernel not in pairs:
+                return real(kernel, f, *args)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            real(kernel, f, *args)
+            b.record()
+            pairs[kernel].append((a, b))
+            return None
+
+        spun = torch.cuda.Event()
+        _build.launch = timed
+        try:
+            torch.cuda._sleep(spin)
+            spun.record()
+            for _ in range(K1_TRACED_CALLS):
+                fn()
+            queued_in_time = not spun.query()
+        finally:
+            _build.launch = real
+        torch.cuda.synchronize()
+        if queued_in_time:
+            check(all(len(v) == K1_TRACED_CALLS for v in pairs.values()),
+                  f"a K1 call did not launch its kernel and its prep once: {pairs}")
+            return {"kernel_event_ms": sum(a.elapsed_time(b) for a, b in pairs["conv_phase"])
+                    / K1_TRACED_CALLS,
+                    "prep_event_ms": sum(a.elapsed_time(b) for a, b in pairs["conv_up_prep"])
+                    / K1_TRACED_CALLS}
+        spin *= 2
+    raise RuntimeError("chip_smoke check failed: the spin kernel never outlasted the host's "
+                       "queuing of the K1 calls")
+
+
+def k1_device_ms(fn) -> dict:
+    """The device ms a call of ``fn`` (one K1 call through its wrapper)
+    spends in K1's kernel and in its weight prep: the kernels' own time,
+    without the host's schedule that ``kernel_ms`` includes (run in the
+    process of ``k1_device_times``). Both ways are measured: the CUDA
+    events of ``_k1_event_ms`` always, and one torch.profiler trace
+    (``_k1_profiler_ms``). ``kernel_device_ms`` / ``prep_device_ms`` are the
+    trace's where it recorded every launch of both kernels, else the
+    events' (traces on the H100 have recorded no launch, or some of them);
+    ``device_time_by`` says which."""
+    fn()
+    torch.cuda.synchronize()
+    got = _k1_event_ms(fn)
+    check(got["kernel_event_ms"] > 0 and got["prep_event_ms"] > 0,
+          f"the CUDA events timed no K1 kernel or prep: {got}")
+    traced = _k1_profiler_ms(fn)
+    got.update(kernel_traced_launches=traced["kernel_traced_launches"],
+               prep_traced_launches=traced["prep_traced_launches"])
+    if traced["kernel_traced_launches"] == traced["prep_traced_launches"] == K1_TRACED_CALLS:
+        got.update(kernel_device_ms=traced["kernel_device_ms"],
+                   prep_device_ms=traced["prep_device_ms"], device_time_by="profiler")
+    else:
+        got.update(kernel_device_ms=got["kernel_event_ms"],
+                   prep_device_ms=got["prep_event_ms"], device_time_by="cuda_events")
+    return got
+
+
 def conv_case(rng, dev, name, h, w, cin, cout, k, slope, batch=1, train=False):
     """One K1 site through ``conv2d_fused``, on the Hopper core (mode DIRECT
     at k 3/5/7, the streamed mode at the other odd k) with one weight-prep
     launch beside it, held to its plain version and timed with its prep
     alone. ``train``: inputs that require grad, as a training step hands
     them over, and no timing."""
-    x = torch.from_numpy(
-        rng.standard_normal((batch, h, w, cin)).astype(np.float32)).to(dev).to(torch.bfloat16)
-    bound = 1.0 / np.sqrt(k * k * cin)  # the init bound of the model's convs
-    wt = torch.from_numpy(
-        rng.uniform(-bound, bound, (k, k, cin, cout)).astype(np.float32)).to(dev)
-    bias = torch.from_numpy(rng.uniform(-bound, bound, (cout,)).astype(np.float32)).to(dev)
+    x, wt, bias = k1_inputs(rng, dev, batch, h, w, cin, cout, k)
     mode = "DIRECT" if k in conv_packed._K_CONV else "streamed"
     for t in (x, wt, bias):
         t.requires_grad_(train)
@@ -290,6 +402,7 @@ def conv_case(rng, dev, name, h, w, cin, cout, k, slope, batch=1, train=False):
     return {
         "site": name, "shape": [1, h, w, cin], "cout": cout, "k": k,
         "route": "wgmma", "mode": mode, "plan": list(plan),
+        "stencil_blocks": len(conv_packed._stream_blocks(k)) ** 2 if mode == "streamed" else 1,
         "slope": slope, "max_abs_err": err, "atol": CONV_ATOL, "rtol": CONV_RTOL,
         "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -298,6 +411,53 @@ def conv_case(rng, dev, name, h, w, cin, cout, k, slope, batch=1, train=False):
         "prep_ms": time_ms(lambda: conv_packed._prep_on_card("conv_packed", wt, bias, (cin,),
                                                               plan=plan)),
     }
+
+
+def k1_inputs(rng, dev, batch, h, w, cin, cout, k):
+    """A K1 site's bf16 input, float32 weights and bias on the card."""
+    x = torch.from_numpy(
+        rng.standard_normal((batch, h, w, cin)).astype(np.float32)).to(dev).to(torch.bfloat16)
+    bound = 1.0 / np.sqrt(k * k * cin)  # the init bound of the model's convs
+    wt = torch.from_numpy(
+        rng.uniform(-bound, bound, (k, k, cin, cout)).astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.uniform(-bound, bound, (cout,)).astype(np.float32)).to(dev)
+    return x, wt, bias
+
+
+def k1_device_times(conv) -> None:
+    """Add each timed K1 case's device times (``k1_device_ms``) to it, on
+    fresh inputs of its shapes, traced after every other phase, so that no
+    profiler session runs before a phase whose times are compared with
+    another tree's, and by a process of its own (``chip_smoke.py
+    --k1-device``): on the H100 a session in this process after phase
+    ``parallel`` recorded no kernel. Emits phase ``k1_device``."""
+    specs = [{"shape": c["shape"], "cout": c["cout"], "k": c["k"], "slope": c["slope"]}
+             for c in conv]
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--k1-device"],
+                         input=json.dumps(specs), capture_output=True, text=True,
+                         timeout=600, check=False)
+    check(out.returncode == 0, f"k1_device: the tracing process failed: {out.stderr[-3000:]}")
+    for c, got in zip(conv, json.loads(out.stdout.strip().splitlines()[-1]), strict=True):
+        c.update(got)
+    emit("k1_device", traced_calls=K1_TRACED_CALLS, cases=[
+        {k: c[k] for k in ("site", "k", "kernel_ms", "kernel_device_ms", "prep_device_ms",
+                           "device_time_by", "kernel_event_ms", "prep_event_ms",
+                           "kernel_traced_launches", "prep_traced_launches")}
+        for c in conv])
+
+
+def k1_device_main() -> int:
+    """``--k1-device``: the K1 cases that stdin lists (JSON), each traced
+    by ``k1_device_ms``; prints their device times as one JSON list."""
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(1)
+    times = []
+    for spec in json.loads(sys.stdin.read()):
+        x, wt, bias = k1_inputs(rng, dev, *spec["shape"], spec["cout"], spec["k"])
+        times.append(k1_device_ms(
+            lambda: conv_phase.conv2d_fused(x, wt, bias, spec["slope"])))  # noqa: B023
+    print(json.dumps(times), flush=True)
+    return 0
 
 
 def _k1_sites(h, w):
@@ -323,15 +483,33 @@ def _k1_sites(h, w):
 
 # K1 at odd k off DIRECT's 3/5/7, on the core's streamed mode (no site of
 # the default configuration; a stem_kernel=9 cascade's stems are k 9, cin 6
-# and 32): k 1, 9, 11 and 13 at cin 32, cout 32; the widest k the routing
-# takes at cout 64 (37) and at cout 8 (49); a stem at k 9.
+# and 32): k 1, 9, 11 and 13 at cin 32, cout 32 (one stencil block); k 37
+# and 39 at cout 64, k 49 and 51 at cout 8 (the port's former reach and one
+# step past it); k 65 at cout 32 (past a 64-column halo row); k 99 at cin
+# 16, cout 64 (8 x 8 blocks); a stem at k 9. 272x480, as the stem_kernel=9
+# agreement. Then small and ragged frames (tiles cut by the image's edges,
+# k 3 on DIRECT beside them; k 15, 27, 39, 65 and 99 split, some blocks'
+# halos wholly outside the image), k 13 at cin 33 / cout 20 (padded
+# channels) and k 11 at cin 64 / cout 64 (two chunks), and k 9 at
+# 1088x1920.
+_S = ModelConfig().leaky_slope
 STREAMED_K1_CASES = [
-    (f"k{k}_272x480", 272, 480, 32, 32, k, ModelConfig().leaky_slope, 0)
-    for k in (1, 9, 11, 13)
+    (f"k{k}_272x480", 272, 480, 32, 32, k, _S, 0) for k in (1, 9, 11, 13)
 ] + [
-    ("k37_cout64_272x480", 272, 480, 32, 64, 37, ModelConfig().leaky_slope, 0),
-    ("k49_cout8_272x480", 272, 480, 32, 8, 49, ModelConfig().leaky_slope, 0),
-    ("stem9_cin6_272x480", 272, 480, 6, 32, 9, ModelConfig().leaky_slope, 0),
+    ("k37_cout64_272x480", 272, 480, 32, 64, 37, _S, 0),
+    ("k39_cout64_272x480", 272, 480, 32, 64, 39, _S, 0),
+    ("k49_cout8_272x480", 272, 480, 32, 8, 49, _S, 0),
+    ("k51_cout8_272x480", 272, 480, 32, 8, 51, _S, 0),
+    ("k65_cout32_272x480", 272, 480, 32, 32, 65, _S, 0),
+    ("k99_cin16_cout64_272x480", 272, 480, 16, 64, 99, _S, 0),
+    ("stem9_cin6_272x480", 272, 480, 6, 32, 9, _S, 0),
+] + [
+    (f"k{k}_cin{cin}_cout{cout}_{h}x{w}", h, w, cin, cout, k, _S, 0)
+    for k, cin, cout, h, w in (
+        (1, 32, 32, 64, 96), (9, 32, 32, 64, 96), (9, 6, 32, 64, 96), (13, 33, 20, 40, 70),
+        (37, 32, 64, 48, 80), (49, 32, 8, 48, 80), (11, 64, 64, 64, 130), (3, 32, 32, 64, 96),
+        (15, 32, 32, 40, 70), (27, 6, 32, 30, 57), (39, 32, 64, 33, 45), (65, 32, 32, 20, 130),
+        (99, 16, 64, 48, 80), (9, 32, 32, 1088, 1920))
 ]
 
 
@@ -1300,6 +1478,86 @@ def phase_serve_stem9(dev):
          shape=[1, 2, H1080, W1080, 3], compute_dtype="bfloat16", ms_per_request=times,
          launches=counts, k1_launches_by_k=by_k, card_vs_cpu=agreement,
          card_vs_cpu_shape=[1, 2, h, w, 3], psnr_bar_db=BF16_PSNR_DB)
+    return counts
+
+
+# A stem_kernel=45 configuration, past the streamed mode's former reach at
+# cout 32 (k 43): its stems (conv1 cin 6/10/16/9 -> 32 and conv2 32 -> 32 of
+# each U-Net) are 8 of the 36 K1 launches of a plain request, each stencil
+# split into 4 x 4 blocks. Served at 272x480 and held to the bf16
+# card-vs-CPU bar against the same requests through the plain versions on
+# the card (``use_pallas=False`` and K1's plain version, ``F.conv2d``, at
+# every site): the card's host ran a bf16 k 45 conv of 32 channels at
+# 68x120 on the CPU in 24.7 s (H100 machine, 8 threads), so the CPU's two
+# requests at 272x480 would take hours.
+STEM45 = ModelConfig(stem_kernel=45)
+STEM45_HW = (272, 480)
+STEM45_K45_PER_REQUEST = 8
+
+
+def phase_serve_stem45(dev):
+    """Two 272x480 bf16 requests of a ``ModelConfig(stem_kernel=45)``
+    cascade, random weights from seed 0, through the default Interpolator:
+    K1's launches by k, and no k 45 site on ``F.conv2d`` (the plain
+    version); then the same two requests through the plain versions."""
+    params = init_params(torch.Generator().manual_seed(0), STEM45, device=dev)
+    interp = Interpolator(params, STEM45, compute_dtype="bfloat16", use_pallas=True, exp=1,
+                          device=dev)
+    check(interp.packed is None, "serve_stem45: the Interpolator's packed default is not None")
+    h, w = STEM45_HW
+    by_k, plain_by_k = {}, {}
+    real, real_plain = conv_phase._conv_sm90, conv_phase._conv_plain
+
+    def counting(x, wt, bias, slope):  # K1's launches by k (the route's one entry)
+        by_k[int(wt.shape[0])] = by_k.get(int(wt.shape[0]), 0) + 1
+        return real(x, wt, bias, slope)
+
+    def counting_plain(x, wt, bias, slope):  # the sites that take F.conv2d, by k
+        plain_by_k[int(wt.shape[0])] = plain_by_k.get(int(wt.shape[0]), 0) + 1
+        return real_plain(x, wt, bias, slope)
+
+    conv_phase._conv_sm90, conv_phase._conv_plain = counting, counting_plain
+    try:
+        serve_request(interp, moving_squares(0, h, w))  # warm-up
+        _build.reset_launch_counts()
+        by_k.clear()
+        plain_by_k.clear()
+        times, frames = [], []
+        for i in range(2):
+            before, k45 = _build.launch_counts(), by_k.get(45, 0)
+            mids, ms = serve_request(interp, moving_squares(i, h, w))
+            times.append(ms)
+            frames.append(mids)
+            check(mids.shape == (1, 1, h, w, 3) and mids.dtype == np.uint8,
+                  f"serve_stem45: output {mids.dtype} {mids.shape}")
+            check_launches("serve_stem45", before, _build.launch_counts(), PLAIN_PER_REQUEST)
+            check(by_k.get(45, 0) - k45 == STEM45_K45_PER_REQUEST,
+                  f"serve_stem45: {by_k.get(45, 0) - k45} K1 launches at k 45, want "
+                  f"{STEM45_K45_PER_REQUEST}")
+            check(mids.std() > 1.0, "serve_stem45: output frame is constant")
+        check(plain_by_k.get(45, 0) == 0,
+              f"serve_stem45: {plain_by_k.get(45, 0)} k 45 convs took F.conv2d")
+    finally:
+        conv_phase._conv_sm90, conv_phase._conv_plain = real, real_plain
+    counts = _build.launch_counts()
+    ref = Interpolator(params, STEM45, compute_dtype="bfloat16", use_pallas=False, exp=1,
+                       device=dev)
+    conv_phase._conv_sm90 = real_plain  # every K1 site on its plain version
+    try:
+        before = _build.launch_counts()
+        want, ref_ms = zip(*(serve_request(ref, moving_squares(i, h, w)) for i in range(2)))
+        check(_build.launch_counts() == before, "serve_stem45: the reference launched a kernel")
+    finally:
+        conv_phase._conv_sm90 = real
+    agreement = _u8_agreement(np.concatenate(frames), np.concatenate(want))
+    check(agreement["psnr_db"] >= BF16_PSNR_DB, f"serve_stem45 kernels vs plain: {agreement}")
+    emit("serve_stem45", config={"stem_kernel": 45}, path="plain", requests=2,
+         shape=[1, 2, h, w, 3], compute_dtype="bfloat16", ms_per_request=times,
+         launches=counts, k1_launches_by_k=by_k, plain_convs_by_k=plain_by_k,
+         stencil_blocks=len(conv_packed._stream_blocks(45)) ** 2,
+         reference="the plain versions on the card (use_pallas=False, K1 on F.conv2d)",
+         reference_ms_per_request=list(ref_ms), kernels_vs_plain=agreement,
+         psnr_bar_db=BF16_PSNR_DB)
     return counts
 
 
@@ -2458,8 +2716,8 @@ def _train_launches(train_counts, kernel) -> dict:
 
 
 def kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_4k,
-                    int8_counts, plain_counts, stem9_counts, fp32_counts, f32_counts,
-                    f32_counts_4k, train_counts, train_conv, train_warps):
+                    int8_counts, plain_counts, stem9_counts, stem45_counts, fp32_counts,
+                    f32_counts, f32_counts_4k, train_counts, train_conv, train_warps):
     """The per-kernel closing object: launches from the served paths and the
     training path (each kernel from the paths it belongs to, counted from 0
     over each path's requests or timed steps alone), every other number
@@ -2469,20 +2727,25 @@ def kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_
     k1_train = _train_launches(train_counts, "conv_phase")
     k1 = _conv_entry(
         "conv_phase", "rrin_tpu_torch/csrc/conv_packed_sm90.cu", conv,
-        plain_counts["conv_phase"] + stem9_counts["conv_phase"] + sum(k1_train.values()),
+        plain_counts["conv_phase"] + stem9_counts["conv_phase"] + stem45_counts["conv_phase"]
+        + sum(k1_train.values()),
         "sum over the 9 launches of one flow U-Net at 1088x1920 (plain path), each with its "
-        "weight prep on the card; launches from serve_plain, serve_stem9 and the training "
-        "steps")
+        "weight prep on the card; launches from serve_plain, serve_stem9, serve_stem45 and "
+        "the training steps")
     k1["launches_by_path"] = {"serve_plain": plain_counts["conv_phase"],
                               "serve_stem9": stem9_counts["conv_phase"],
+                              "serve_stem45": stem45_counts["conv_phase"],
                               f"train ({TRAIN_TIMED} steps)": k1_train}
     k1["max_abs_err"] = max([k1["max_abs_err"]] + [c["max_abs_err"] for c in train_conv])
     k1["max_abs_err_train_shapes"] = max(c["max_abs_err"] for c in train_conv)
-    keys = ("site", "shape", "cout", "k", "mode", "plan", "max_abs_err", "kernel_ms", "prep_ms",
+    keys = ("site", "shape", "cout", "k", "mode", "plan", "stencil_blocks", "max_abs_err",
+            "kernel_ms", "kernel_device_ms", "prep_ms", "prep_device_ms", "device_time_by",
             "plain_ms", "library_ms", "bound_ms", "bound_by", "per_flow_unet")
     k1.update({
         "core": "wgmma of conv_sm90.cuh with one bf16 operand (rrin_conv_phase_sm90_launch): "
-                "mode DIRECT at k 3/5/7, the streamed mode at the other odd k",
+                "mode DIRECT at k 3/5/7, the streamed mode at the other odd k (its stencil "
+                "split into blocks of at most 13 x 13 taps)",
+        "device_ms": sum(c["kernel_device_ms"] * c["per_flow_unet"] for c in conv),
         "k": sorted({c["k"] for c in conv}),
         "prep_ms": sum(c["prep_ms"] * c["per_flow_unet"] for c in conv),
         "sites": [{k: c[k] for k in keys} for c in conv if c["mode"] == "DIRECT"],
@@ -2635,6 +2898,8 @@ def _prep_entry(packed, packed_f32, conv, serve_counts, f32_counts, plain_counts
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU: torch.cuda.is_available() is False")
+    if "--k1-device" in sys.argv[1:]:
+        return k1_device_main()
     dev = torch.device("cuda:0")
     smi = smi_line()
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
@@ -2647,10 +2912,15 @@ def main() -> int:
         _build.library(name)
     regs = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
             for n, log in logs.items()}
+    # what ptxas reports for the streamed mode's kernels, one line each
+    stream_ptxas = [" ".join(x.strip() for x in lines[i:i + 3])
+                    for lines in (log.splitlines() for log in logs.values())
+                    for i, ln in enumerate(lines)
+                    if "Function properties" in ln and "conv_stream_sm90_kernel" in ln]
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip().splitlines()[-2:]
     emit("build", seconds=time.perf_counter() - t0, sources=_build.sources(),
-         nvcc=nvcc, flags=_build.NVCC_FLAGS, ptxas=regs)
+         nvcc=nvcc, flags=_build.NVCC_FLAGS, ptxas=regs, stream_ptxas=stream_ptxas)
 
     rng = np.random.default_rng(0)
     conv = conv_cases(rng, dev)
@@ -2672,6 +2942,7 @@ def main() -> int:
     phase_prepare_once(params, dev)
     plain_counts = phase_serve_plain(params, dev)
     stem9_counts = phase_serve_stem9(dev)
+    stem45_counts = phase_serve_stem45(dev)
     if "--profile" in sys.argv[1:]:
         phase_profile(params, dev, "packed")
         phase_profile(params, dev, "plain", packed=False)
@@ -2699,10 +2970,12 @@ def main() -> int:
         phase_profile_train(dev, "fp32_pallas", TRAIN_BATCH)
         phase_profile_train(dev, "fp32_pallas", TRAIN_BATCH // 2)
     phase_parallel(params, dev)
+    k1_device_times(conv)
 
     summary = kernels_summary(conv, packed, int8, packed_f32, warps, serve_counts, counts_4k,
-                              int8_counts, plain_counts, stem9_counts, fp32_counts, f32_counts,
-                              f32_counts_4k, train_counts, train_conv, train_warps)
+                              int8_counts, plain_counts, stem9_counts, stem45_counts,
+                              fp32_counts, f32_counts, f32_counts_4k, train_counts, train_conv,
+                              train_warps)
     next(e for e in summary["kernels"] if e["name"] == "conv_packed_f32")["promotion"] = promotion
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)

@@ -26,8 +26,9 @@
 //                   LeakyReLU on a float32 sum, rounded once to bf16, which
 //                   is what K5 computes for one operand; k in {3, 5, 7} on
 //                   DIRECT itself, any other odd k on the streamed mode
-//                   (DIRECT's walk at runtime k, the weights streamed one dy
-//                   row a stage). Its sites (the plain U-Net's convs with
+//                   (DIRECT's walk at runtime k over the blocks of at most
+//                   13 x 13 taps that the stencil is split into, the weights
+//                   streamed one dy row of a block a stage). Its sites (the plain U-Net's convs with
 //                   cout <= 64) take the pooled, upsampled or concatenated
 //                   tensor that the plain path materialises, and the stems'
 //                   cin 6/9/10/16, which DIRECT gathers. Its weights are laid
@@ -45,7 +46,8 @@
 // 1.85 ms at each K6 site; halo and weight bytes double (weights quadruple), so
 // the chunks are 8-16 channels and N <= 64. K1 at k 9, the stems of the
 // stem_kernel = 9 cascade: 2 * 81 * cin * cout multiply-adds a pixel, bound by
-// operations as at k 7.
+// operations as at k 7, as are the wider k (k 99 at cin 16, cout 64: 9801
+// x 16 x 64 multiply-adds a pixel).
 //
 // Plain C entry points; each returns cudaGetLastError() after the launch,
 // runs on the given stream, allocates nothing and does not synchronise.
@@ -54,12 +56,13 @@
 
 namespace {
 
-// The streamed mode: a.ops[0] the one bf16 operand, odd k below TW (a tile
-// stores TW - (k - 1) columns), N = 8 * n_tiles up to 64.
+// The streamed mode: a.ops[0] the one bf16 operand, any odd k (a tile stores
+// TW - (b - 1) columns, b <= STREAM_D the widest block of k's split), N = 8
+// * n_tiles up to 64.
 int launch_stream(UpArgs a, int B, int n_tiles, void* stream) {
   if (B <= 0 || a.H <= 0 || a.W <= 0) return 0;
   const Operand& o = a.ops[0];
-  if (a.k < 1 || a.k % 2 == 0 || a.k >= TW || a.cchunk < 16 || a.cchunk % 16 ||
+  if (a.k < 1 || a.k % 2 == 0 || a.cchunk < 16 || a.cchunk % 16 ||
       (a.cchunk & (a.cchunk - 1)) || a.cchunk > 128 || a.n_out < 1 || o.c < 1 || o.cs < o.c)
     return kInvalid;
   a.n_ops = 1;
@@ -100,6 +103,19 @@ long long rrin_conv_packed_sm90_smem(int k, int cchunk, int n_tiles, int et, int
 // The same for K1's streamed mode (bf16, the k other than 3, 5 and 7).
 long long rrin_conv_stream_sm90_smem(int k, int cchunk, int n_tiles) {
   return make_layout_stream(k, cchunk, n_tiles * 8).total;
+}
+
+// The streamed mode's split of a k x k stencil along each axis (the Python
+// planner checks that it agrees): writes the tap origin and size of each of
+// its blocks, at most max_blocks, and returns how many it has.
+int rrin_conv_stream_sm90_blocks(int k, int* origins, int* sizes, int max_blocks) {
+  if (k < 1) return 0;
+  const StreamSplit sp = stream_split(k);
+  for (int i = 0; i < sp.n && i < max_blocks; ++i) {
+    origins[i] = sp.origin(i);
+    sizes[i] = sp.size(i);
+  }
+  return sp.n;
 }
 
 // xs: n_ops pointers to (B,H,W,strides[i]) NHWC tensors of which the first
@@ -151,8 +167,8 @@ int rrin_conv_f32_promotion(int k_steps) { return set_f32_promotion(k_steps); }
 
 // K1: x (B,H,W,cs) bf16, of which the first c channels enter the conv; out
 // (B,H,W,cout) bf16; wfrag in conv_packed's layout for one operand (bf16),
-// any odd k below 64: DIRECT at k in {3, 5, 7}, the streamed mode at the
-// others (n_tiles in {1, 2, 4, 8} there).
+// any odd k: DIRECT at k in {3, 5, 7}, the streamed mode at the others
+// (n_tiles in {1, 2, 4, 8} there).
 int rrin_conv_phase_sm90_launch(const void* x, int c, int cs, const void* wfrag,
                                 const void* bias, void* out, int B, int H, int W, int cout,
                                 int k, int cchunk, int n_tiles, int has_slope, float slope,

@@ -16,20 +16,24 @@
 //                 bf16 operand also K1 (conv2d_fused of the plain path) at
 //                 k 3, 5 and 7.
 //
-// K1 at every other odd k (1, 9, 11, ..., 49: ModelConfig's stem_kernel and
-// down_kernels may ask for them) runs a sixth kernel, the streamed mode
+// K1 at every other odd k (1, 9, 11, ...: ModelConfig's stem_kernel and
+// down_kernels may ask for any) runs a sixth kernel, the streamed mode
 // (conv_stream_sm90_kernel, bf16, one operand): DIRECT's halo builder and
 // consumer walk with k a runtime argument, so that it is instantiated once
-// per N and not per k, and with the weights streamed: each pipeline stage is
-// one stencil row (dy) of a chunk, k taps x cchunk x N, copied by
-// cp.async.bulk into a ring of two slabs, while the chunk's halo tile (one
-// or two buffers) stays in shared memory for its k stages. A stage is then
-// a conv with one row of taps over the halo shifted by dy rows, which is the
-// k = 1 walk of DIRECT's consumer (mma_rows<0, MT, 1>): a halo row feeds
-// one wgmma, not up to k. Halo rows keep their 64 columns at every k, so a
-// tile stores 64 - (k - 1) of them (16 at k = 49): the wasted columns are
-// accepted, not widened away, since this mode serves no site of the repo's
-// configurations but the stem_kernel = 9 cascade (56 of 64 stored).
+// per N and not per k, and with the weights streamed. The k x k stencil is
+// split into blocks of at most STREAM_D x STREAM_D taps (stream_split: n =
+// ceil(k / STREAM_D) blocks a side, balanced; one block up to k = 13), and
+// the conv is the sum of the convs by its blocks: block (by, bx) reads the
+// input shifted by its tap origin. The kernel walks (channel chunk, block)
+// pairs; each pair has a halo tile of TH + b - 1 rows at the block's origin
+// (one or two buffers), and each of the block's dy rows is a pipeline stage,
+// its b taps x cchunk x N weights one contiguous cp.async.bulk into a ring
+// of two slabs. A stage is then a conv with one row of taps over the halo
+// shifted by dy rows, which is the k = 1 walk of DIRECT's consumer
+// (mma_rows<0, MT, 1>): a halo row feeds one wgmma, not up to k. Every pair
+// accumulates into the same registers. Halo rows keep their 64 columns, so
+// a tile stores 64 - (b - 1) of them, b the widest block (52 to 57 from k =
+// 13 on), and no shared-memory extent grows with k beyond the block.
 //
 // conv_up_sm90.cu holds the entry points of POOL, UP and UPF and the weight
 // prep; conv_packed_sm90.cu those of DIRECT (K5, K1), UPW and the streamed
@@ -248,16 +252,39 @@ __host__ __device__ inline Layout make_layout(int k, int cchunk, int n, int et, 
   return make_layout_n(k, cchunk, n, et, folded, 2, 0);
 }
 
-// The streamed mode (bf16, one operand, any odd k): two halo buffers where
-// they fit, else one; then the ring of two slabs (one dy row of a chunk's
-// weights each: k taps x cchunk x N); the staged rows, bias and scale as
-// make_layout_n; mbarriers hfull[2], hempty[2], wfull[2], wempty[2]
-// (StreamBars). A wgmma row reads up to k - 1 pixels past the last halo
-// row of a buffer, which land in the slabs (at most (k - 1) x pstride bytes,
-// less than one slab) and feed only columns that are not stored.
+// The streamed mode's stencil split (conv_packed._stream_blocks): along each
+// axis n = ceil(k / STREAM_D) blocks, block i of size(i) taps from tap
+// origin(i), the sizes k / n or one more (the larger first).
+constexpr int STREAM_D = 13;
+
+struct StreamSplit {
+  int n, base, rem;
+  __host__ __device__ int size(int i) const { return base + (i < rem); }
+  __host__ __device__ int origin(int i) const { return i * base + (i < rem ? i : rem); }
+  __host__ __device__ int widest() const { return base + (rem > 0); }
+};
+
+__host__ __device__ inline StreamSplit stream_split(int k) {
+  StreamSplit s;
+  s.n = (k + STREAM_D - 1) / STREAM_D;
+  s.base = k / s.n;
+  s.rem = k % s.n;
+  return s;
+}
+
+// The streamed mode (bf16, one operand, any odd k), sized by the widest
+// block b of k's split (b = k up to 13): two halo buffers of TH + b - 1
+// rows where they fit, else one; then the ring of two slabs (one dy row of
+// a block's weights each: b taps x cchunk x N); the staged rows, bias and
+// scale as make_layout_n; mbarriers hfull[2], hempty[2], wfull[2],
+// wempty[2] (StreamBars). A wgmma row reads up to b - 1 pixels past the
+// last halo row of a buffer, which land in the slabs (at most (b - 1) x
+// pstride bytes, less than one slab) and feed only columns that are not
+// stored.
 __host__ __device__ inline Layout make_layout_stream(int k, int cchunk, int n) {
-  Layout L = make_layout_n(k, cchunk, n, BF16, 0, 2, 0);
-  L.w_bytes = k * cchunk * n * 2;
+  const int b = stream_split(k).widest();
+  Layout L = make_layout_n(b, cchunk, n, BF16, 0, 2, 0);
+  L.w_bytes = b * cchunk * n * 2;
   L.buf_bytes = L.halo_bytes;
   for (int nbuf = 2; nbuf >= 1; --nbuf) {  // one buffer that does not fit: total says so
     L.nbuf = nbuf;
@@ -305,6 +332,7 @@ struct UpArgs {
   int ntaps;                 // weight taps per dy row (k, or 5 when folded)
   int cchunk, n_chunks, n_cb;
   int tw;                       // GEMM columns a tile stores: TW - (k - 1)
+                                // (streamed: TW - (b - 1), b its widest block)
   int tiles_x, tiles_y, tiles;  // the tiles that the persistent blocks walk
   int has_slope;
   float slope;
@@ -1197,7 +1225,9 @@ __device__ __forceinline__ uint32_t raw1(const unsigned char* xb, size_t off, in
 //   * gather: any other operand (the stems, cin 6/9/10): channel by
 //     channel, the loads of RB items in flight at once (one item at a
 //     time, the int8 stem's producers held the block).
-// K = 0: k is a.k (the streamed mode); else the compile-time K.
+// K = 0 (the streamed mode): k is a.k, the tile has L.hh rows (TH + b - 1,
+// b the widest block) and T's origin is the block's; else the compile-time
+// K.
 template <int N, int ET, int K>
 __device__ __forceinline__ void build_halo_direct(const UpArgs& a, const Layout& L,
                                                   unsigned char* halo, const Operand& o,
@@ -1208,7 +1238,7 @@ __device__ __forceinline__ void build_halo_direct(const UpArgs& a, const Layout&
   constexpr int TH = NCONS * mt_of(N, ET, K);
   const int k = K > 0 ? K : a.k;
   const int HP = (k - 1) / 2;
-  const int HH = TH + k - 1;
+  const int HH = K > 0 ? TH + k - 1 : L.hh;
   constexpr int RB = 4;
   const int i8 = Q ? o.in_i8 : 0;
   const int xes = ET == F32 ? 4 : (i8 ? 1 : 2);  // bytes per element of the operand
@@ -1904,49 +1934,63 @@ __global__ void __launch_bounds__(THREADS, 1) conv_up_sm90_kernel(const UpArgs a
 
 // ------------------------------------- the streamed mode (K1 at any odd k)
 
-// The streamed mode's producer warpgroup: per channel chunk it waits for a
-// free halo buffer and builds the halo tile (DIRECT's builder at runtime k,
-// which arrives on hfull itself); thread 0 then copies the chunk's k weight
-// slabs (one dy row each) into the slab ring, one stage at a time.
+// The streamed mode's producer warpgroup: per (channel chunk, block) pair it
+// waits for a free halo buffer and builds the halo tile at the block's
+// origin (DIRECT's builder at runtime k, which arrives on hfull itself);
+// thread 0 then copies the block's weight slabs (its taps of one dy row
+// each, contiguous in K5's layout) into the slab ring, one stage at a time.
 template <int N>
 __device__ __forceinline__ void produce_stream(const UpArgs& a, const Layout& L,
                                                unsigned char* smem, uint64_t* bars, int p) {
   constexpr int TH = NCONS * mt_of(N, BF16, 0);
-  const uint32_t slab = static_cast<uint32_t>(L.w_bytes);
+  const StreamSplit sp = stream_split(a.k);
+  const uint32_t tap_bytes = static_cast<uint32_t>(a.cchunk) * N * 2;
+  const size_t row_bytes = static_cast<size_t>(a.k) * tap_bytes;  // a dy row of a chunk
   uint32_t hc = 0, wc = 0;  // halo tiles and slabs produced, over the block's tiles
   for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
     const TileXY T = tile_of(a, t, TH, false);
-    const unsigned char* wblock =
-        a.wb + static_cast<size_t>(T.cb) * a.n_chunks * a.k * slab;
-    for (int gch = 0; gch < a.n_chunks; ++gch, ++hc) {
-      const int hb = hc % L.nbuf;
-      mbar_wait(&bars[HEMPTY + hb], ((hc / L.nbuf) & 1) ^ 1);
-      build_halo_direct<N, BF16, 0>(a, L, smem + hb * L.halo_bytes, a.ops[0], T,
-                                    gch * a.cchunk, &bars[HFULL + hb], p);
-      if (p != 0) continue;
-      for (int dy = 0; dy < a.k; ++dy, ++wc) {
-        const int s = wc & 1;
-        mbar_wait(&bars[WEMPTY + s], ((wc >> 1) & 1) ^ 1);
-        mbar_arrive_expect_tx(&bars[WFULL + s], slab);
-        bulk_g2s(smem + L.slab_off + s * slab,
-                 wblock + (static_cast<size_t>(gch) * a.k + dy) * slab, slab, &bars[WFULL + s]);
-      }
-    }
+    const unsigned char* wblock = a.wb + static_cast<size_t>(T.cb) * a.n_chunks * a.k * row_bytes;
+    for (int gch = 0; gch < a.n_chunks; ++gch)
+#pragma unroll 1
+      for (int by = 0; by < sp.n; ++by)
+#pragma unroll 1
+        for (int bx = 0; bx < sp.n; ++bx, ++hc) {
+          const int hb = hc % L.nbuf;
+          TileXY B = T;  // the block's halo origin: its taps' offset
+          B.y0 += sp.origin(by);
+          B.x0 += sp.origin(bx);
+          mbar_wait(&bars[HEMPTY + hb], ((hc / L.nbuf) & 1) ^ 1);
+          build_halo_direct<N, BF16, 0>(a, L, smem + hb * L.halo_bytes, a.ops[0], B,
+                                        gch * a.cchunk, &bars[HFULL + hb], p);
+          if (p != 0) continue;
+          const uint32_t bytes = sp.size(bx) * tap_bytes;
+          const unsigned char* wrow = wblock + (static_cast<size_t>(gch) * a.k + sp.origin(by)) *
+                                                   row_bytes + sp.origin(bx) * tap_bytes;
+          for (int dy = 0; dy < sp.size(by); ++dy, ++wc) {
+            const int s = wc & 1;
+            mbar_wait(&bars[WEMPTY + s], ((wc >> 1) & 1) ^ 1);
+            mbar_arrive_expect_tx(&bars[WFULL + s], bytes);
+            bulk_g2s(smem + L.slab_off + s * L.w_bytes, wrow + dy * row_bytes, bytes,
+                     &bars[WFULL + s]);
+          }
+        }
   }
 }
 
-// The streamed mode's consumer warpgroup: per chunk it waits for the halo
-// tile, then per stage (dy) for its slab, and contracts it as DIRECT's
-// consumer contracts a k = 1 conv over the halo shifted by dy rows
-// (mma_rows<0, MT, 1>: one halo row per wgmma); the slab is released after
-// the stage's products complete, the halo after the chunk's last stage.
-// Epilogue as DIRECT's.
+// The streamed mode's consumer warpgroup: per (chunk, block) pair it waits
+// for the halo tile, then per stage (dy of the block) for its slab, and
+// contracts it as DIRECT's consumer contracts a k = 1 conv over the halo
+// shifted by dy rows (mma_rows<0, MT, 1>: one halo row per wgmma, the
+// block's taps in x); the slab is released after the stage's products
+// complete, the halo after the pair's last stage. Every pair of a tile sums
+// into the same accumulators. Epilogue as DIRECT's.
 template <int N>
 __device__ __forceinline__ void consume_stream(const UpArgs& a, const Layout& L,
                                                unsigned char* smem, uint64_t* bars, int ct) {
   constexpr int MT = mt_of(N, BF16, 0);
   constexpr int TH = NCONS * MT;
   constexpr int NR = N / 2;
+  const StreamSplit sp = stream_split(a.k);
   const int wg = ct >> 7;
   const int warp = (ct >> 5) & 3;
   const int lane = ct & 31;
@@ -1979,38 +2023,43 @@ __device__ __forceinline__ void consume_stream(const UpArgs& a, const Layout& L,
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int i = 0; i < NR; ++i) acc[mt][i] = 0.0f;
-    for (int gch = 0; gch < a.n_chunks; ++gch, ++hc) {
-      const int hb = hc % L.nbuf;
-      mbar_wait(&bars[HFULL + hb], (hc / L.nbuf) & 1);
-      const uint32_t a_s = base + hb * L.halo_bytes + lane_off;
+    for (int gch = 0; gch < a.n_chunks; ++gch)
 #pragma unroll 1
-      for (int dy = 0; dy < a.k; ++dy, ++wc) {
-        const int s = wc & 1;
-        mbar_wait(&bars[WFULL + s], (wc >> 1) & 1);
-        const uint32_t w_s = base + L.slab_off + s * L.w_bytes;
-        // B of (dx, k-step) of this dy row at w_s + (dx * ks_n + ks) * N * 32
+      for (int by = 0; by < sp.n; ++by)
 #pragma unroll 1
-        for (int dx = 0; dx < a.k; ++dx)
+        for (int bx = 0; bx < sp.n; ++bx, ++hc) {
+          const int hb = hc % L.nbuf;
+          const int ty = sp.size(by), tx = sp.size(bx);
+          mbar_wait(&bars[HFULL + hb], (hc / L.nbuf) & 1);
+          const uint32_t a_s = base + hb * L.halo_bytes + lane_off;
 #pragma unroll 1
-          for (int ks = 0; ks < ks_n; ++ks)
-            mma_rows<0, MT, 1>(acc, A, a_s + dy * row_stride + dx * L.pstride + ks * 32,
-                               row_stride, w_s + (dx * ks_n + ks) * (N * 32), 0);
-        wgmma_wait<0>();
+          for (int dy = 0; dy < ty; ++dy, ++wc) {
+            const int s = wc & 1;
+            mbar_wait(&bars[WFULL + s], (wc >> 1) & 1);
+            const uint32_t w_s = base + L.slab_off + s * L.w_bytes;
+            // B of (dx, k-step) of this dy row at w_s + (dx * ks_n + ks) * N * 32
+#pragma unroll 1
+            for (int dx = 0; dx < tx; ++dx)
+#pragma unroll 1
+              for (int ks = 0; ks < ks_n; ++ks)
+                mma_rows<0, MT, 1>(acc, A, a_s + dy * row_stride + dx * L.pstride + ks * 32,
+                                   row_stride, w_s + (dx * ks_n + ks) * (N * 32), 0);
+            wgmma_wait<0>();
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
+            for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-          for (int i = 0; i < NR; ++i) keep(acc[mt][i]);
+              for (int i = 0; i < NR; ++i) keep(acc[mt][i]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          keep(A[0][i]);
-          keep(A[1][i]);
+            for (int i = 0; i < 4; ++i) {
+              keep(A[0][i]);
+              keep(A[1][i]);
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&bars[WEMPTY + s]);
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&bars[HEMPTY + hb]);
         }
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&bars[WEMPTY + s]);
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&bars[HEMPTY + hb]);
-    }
     epilogue<N, DIRECT, BF16>(a, T, acc, bs, static_cast<const float*>(nullptr), stage, false,
                               false, a.has_slope, a.slope, wg, warp, lane);
   }
@@ -2152,7 +2201,7 @@ int launch_stream_one(UpArgs a, int B, cudaStream_t s) {
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return static_cast<int>(err);
   constexpr int TH = NCONS * mt_of(N, BF16, 0);
-  a.tw = TW - (a.k - 1);
+  a.tw = TW - (stream_split(a.k).widest() - 1);
   a.tiles_x = (a.W + a.tw - 1) / a.tw;
   a.tiles_y = (a.H + TH - 1) / TH;
   const long long tiles = static_cast<long long>(a.tiles_x) * a.tiles_y * B * a.n_cb;

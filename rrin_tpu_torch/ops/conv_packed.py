@@ -32,7 +32,8 @@ conv's own weights in it, K5's split per operand, K9 the folded ones). With
 one bfloat16 operand its K5 mode (DIRECT) is also K1,
 ``conv_phase.conv2d_fused`` of the plain path (entry point
 ``rrin_conv_phase_sm90_launch``), at k 3/5/7; at every other odd k K1 runs
-the core's streamed mode (``_sm90_plan(streamed=True)``: its weights
+the core's streamed mode (``_sm90_plan(streamed=True)``: the stencil split
+into blocks of at most 13 x 13 taps, :func:`_stream_blocks`, whose weights
 stream one dy row a pipeline stage). **K6 and K8 compute one function** in NHWC. The two TPU kernels differ only in their lane geometry
 (K6 doubles the lane groups P, K8 the sublane groups M at a level boundary),
 which is not carried over.
@@ -193,6 +194,22 @@ def _sm90_rows(n: int, q: int = False, k: int = 3) -> int:
     return _SM90_CONSUMERS * (4 if n <= 64 else 2)
 
 
+# K1's streamed mode splits a k x k stencil into blocks of at most this
+# many taps a side (conv_sm90.cuh's STREAM_D): one block up to k 13.
+_STREAM_D = 13
+
+
+def _stream_blocks(k: int) -> Tuple[Tuple[int, int], ...]:
+    """(tap origin, taps) of each block of K1's streamed mode along one axis
+    of a k x k stencil (``stream_split`` in conv_sm90.cuh): n = ceil(k /
+    13) blocks of k // n taps or one more, the larger first. Block (by, bx) is
+    the conv by the taps ``w[oy:oy+ty, ox:ox+tx]`` over the input shifted by
+    (oy, ox); the stencil's conv is the sum over its blocks."""
+    n = -(-k // _STREAM_D)
+    base, rem = divmod(k, n)
+    return tuple((i * base + min(i, rem), base + (i < rem)) for i in range(n))
+
+
 def _sm90_smem_bytes(k: int, cchunk: int, n_tiles: int, q: int = False,
                      folded: bool = False, res_chunks: int = 0,
                      streamed: bool = False) -> int:
@@ -207,23 +224,26 @@ def _sm90_smem_bytes(k: int, cchunk: int, n_tiles: int, q: int = False,
     of two tiles; nine mbarriers. Regions are 128-byte aligned. ``q``:
     False (bfloat16), True (int8) or F32 (a float32 halo, weights in two
     TF32 planes, a float32 staged row). ``streamed``: K1's streamed mode
-    (``make_layout_stream``, bf16), two halo buffers where they fit, else
-    one, beside a ring of two weight slabs (one dy row of a chunk's stencil
-    each), the staged rows, bias, scale and the mbarriers."""
+    (``make_layout_stream``, bf16), sized by the widest block b of k's
+    split (:func:`_stream_blocks`), so no larger beyond k 13: two halo
+    buffers of ``th + b - 1`` rows where they fit, else one, beside a ring
+    of two weight slabs (one dy row of a block, b taps x cchunk x N, each),
+    the staged rows, bias, scale and the mbarriers."""
     es, n = _ELEM[q][0], n_tiles * 8
     wes, oes = (8, 4) if q == F32 else (es, 2)
     th = _sm90_rows(n, q, k)
+    kb = max(size for _, size in _stream_blocks(k)) if streamed else k
 
     def up128(b):
         return -(-b // 128) * 128
 
-    halo = up128((th + k - 1) * _SM90_TW * (cchunk * es + _PAD_BYTES))
-    w = k * k * cchunk * n * wes
+    halo = up128((th + kb - 1) * _SM90_TW * (cchunk * es + _PAD_BYTES))
     rest = (_SM90_CONSUMERS * up128(_SM90_TW * (oes * n + _PAD_BYTES)) + 2 * n * 4
             + (2 * 2 * th * n * 4 if folded else 0) + 9 * 8)
     if streamed:
-        two = 2 * halo + 2 * (w // k) + rest
+        two = 2 * halo + 2 * kb * cchunk * n * wes + rest
         return two if two <= _SMEM_MAX else two - halo
+    w = k * k * cchunk * n * wes
     three = 3 * (halo + w) + rest
     if three <= _SMEM_MAX:
         return three
@@ -848,6 +868,8 @@ def _lib_sm90(source: str = "conv_up_sm90") -> ctypes.CDLL:
             lib.rrin_conv_packed_sm90_smem.restype = ctypes.c_longlong
             lib.rrin_conv_stream_sm90_smem.argtypes = [ci] * 3
             lib.rrin_conv_stream_sm90_smem.restype = ctypes.c_longlong
+            lib.rrin_conv_stream_sm90_blocks.argtypes = [ci, pi, pi, ci]
+            lib.rrin_conv_stream_sm90_blocks.restype = ci
             lib.rrin_conv_packed_launch.argtypes = (
                 [pv, pi, pi, pi, pv, ci] + [vp] * 4 + [ci] * 9 + [cf, ci, vp])
             lib.rrin_conv_up_packed_launch.argtypes = one
@@ -936,7 +958,7 @@ def _sm90_smem_agrees(name, k, cins, plan, q, streamed=False) -> None:
     """Raise unless the C layout of kernel ``name``'s library and
     :func:`_sm90_smem_bytes` agree (checked once per site: every argument is
     hashable); ``streamed``: K1's streamed mode (``conv_packed``'s
-    library)."""
+    library), whose stencil split must also be :func:`_stream_blocks`'s."""
     cchunk, n_tiles, _ = plan
     folded, resident = _SM90_KERNELS[name]
     res = 0 if streamed else _sm90_res_chunks(cins, plan, resident)
@@ -944,6 +966,11 @@ def _sm90_smem_agrees(name, k, cins, plan, q, streamed=False) -> None:
     lib = _lib_sm90(source)
     if streamed:
         got = lib.rrin_conv_stream_sm90_smem(k, cchunk, n_tiles)
+        want = _stream_blocks(k)
+        origins, sizes = (ctypes.c_int * len(want))(), (ctypes.c_int * len(want))()
+        n = lib.rrin_conv_stream_sm90_blocks(k, origins, sizes, len(want))
+        if n != len(want) or tuple(zip(origins, sizes)) != want:
+            raise RuntimeError(f"{source}.cu and conv_packed.py disagree on the split of k {k}")
     elif source == "conv_up_sm90":
         got = lib.rrin_conv_up_sm90_smem(k, cchunk, n_tiles, int(q), int(folded), res)
     else:

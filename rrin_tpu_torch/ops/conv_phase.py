@@ -24,11 +24,15 @@ no width or height gates:
     two consumer warpgroups contract the current one on ``wgmma``,
     persistent blocks, a chunk's whole stencil (or every chunk's, resident)
     in shared memory;
-  * any other odd k (1, 9, ..., 49; ``ModelConfig.stem_kernel`` and
-    ``down_kernels`` may ask for them): the core's streamed mode, the same
-    walk with k a runtime argument, the weights streamed one stencil row
-    (k taps x cchunk x N) a pipeline stage while the chunk's halo tile stays
-    in shared memory (``conv_packed._sm90_plan(streamed=True)``).
+  * any other odd k (1, 9, 11, ...; ``ModelConfig.stem_kernel`` and
+    ``down_kernels`` may ask for any): the core's streamed mode, the same
+    walk with k a runtime argument over the blocks of at most 13 x 13 taps
+    that the stencil is split into (``conv_packed._stream_blocks``; one
+    block up to k 13), the weights streamed one dy row of a block (its taps
+    x cchunk x N) a pipeline stage while the block's halo tile stays in
+    shared memory (``conv_packed._sm90_plan(streamed=True)``). No
+    shared-memory extent grows with k beyond the block, so every odd k has
+    a plan.
 
 Its weights are laid out on the card by the core's prep kernel in K5's
 one-operand layout, one launch per call (count ``conv_up_prep``); its
@@ -36,13 +40,13 @@ launches count under ``conv_phase``. cin in {6, 9, 10} and cout in {2, 3, 4}
 are zero-padded to the MMA tile and masked at the store, so those sites stay
 on the kernel.
 
-Routing (:func:`supports`): odd k, 1 <= cout <= 64, k no larger than
-:data:`MAX_K` gives for cout, and a plan of the core (:func:`_sm90_plan`),
-bfloat16 only. Everything else (float32, cout >= 128, larger k) is
-``F.conv2d``, as the JAX package leaves those sites to XLA (the JAX
-package's kernel has no bound on k: ROADMAP Queue C). The plain version of
-the kernel is :func:`_conv_plain`; the wrapper takes it only for CPU
-tensors, and on the card launches the kernel or raises.
+Routing (:func:`supports`): a square stencil of odd k, any cin, 1 <= cout
+<= 64: a plan of the core (:func:`_sm90_plan`), which every such site has,
+bfloat16 only; every site the JAX package's kernel takes. Everything else
+(float32, cout > 64) is ``F.conv2d``, as the JAX package leaves those sites
+to XLA. The plain version of the kernel is :func:`_conv_plain`; the wrapper
+takes it only for CPU tensors, and on the card launches the kernel or
+raises.
 
 Gradients: :func:`conv2d_fused` is a ``torch.autograd.Function`` at every
 site, as the JAX package's is a ``custom_vjp``. Its backward is the JAX
@@ -63,16 +67,8 @@ import torch.nn.functional as F
 
 from rrin_tpu_torch import _build
 
-# The odd k that K1 takes, by the output channels they serve: (cout up to,
-# largest k). The reach of the port's first K1 kernel (its tile filled the
-# 227 KB of shared memory there), kept when the Hopper core took every k so
-# that the routing did not change; the core itself plans further.
-MAX_K = ((8, 49), (16, 47), (32, 43), (64, 37))
+# The output channels K1 takes (one block of the core's streamed mode).
 MAX_COUT = 64
-
-
-def _max_k(cout: int) -> int:
-    return next(k for c, k in MAX_K if cout <= c)
 
 
 def supports(
@@ -81,9 +77,8 @@ def supports(
     """Return the kernel's input-channel chunk (its plan's) if it applies,
     else None.
 
-    Routes every site the JAX package's ``supports`` routes up to
-    :data:`MAX_K`, and more: there is no gate on W or H here (those were DMA
-    alignment rules).
+    Routes every site the JAX package's ``supports`` routes, and more: any
+    cin, and no gate on W or H here (those were DMA alignment rules).
     """
     if len(x_shape) != 4 or len(w_shape) != 4:
         return None
@@ -146,11 +141,13 @@ def _check_args(x, w, bias) -> None:
 
 def _sm90_plan(k: int, cin: int, cout: int) -> Optional[Tuple[int, int, int]]:
     """(cchunk, n_tiles, n_cout_blocks) of K1 on the Hopper core, or None
-    where K1 does not take the site: at k 3/5/7 K5's plan for one bf16
-    operand (resident weights where they fit), at the other odd k up to
-    :data:`MAX_K` that of the streamed mode."""
+    where K1 does not take the site (even k, cout > 64): at k 3/5/7 K5's
+    plan for one bf16 operand (resident weights where they fit), at every
+    other odd k that of the streamed mode, whose shared memory is that of
+    its widest stencil block (at most 13 taps), so every odd k, cin >= 1 and
+    1 <= cout <= 64 has one."""
     from rrin_tpu_torch.ops import conv_packed  # it imports this module
-    if k < 1 or k % 2 == 0 or cin < 1 or not 1 <= cout <= MAX_COUT or k > _max_k(cout):
+    if k < 1 or k % 2 == 0 or cin < 1 or not 1 <= cout <= MAX_COUT:
         return None
     if k in conv_packed._K_CONV:
         return conv_packed._sm90_plan(k, (cin,), cout, resident=True)

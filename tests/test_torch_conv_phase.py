@@ -11,7 +11,12 @@ from jax.experimental.pallas import tpu as pltpu
 from rrin_tpu.ops import conv_phase as jcp
 from rrin_tpu_torch.ops import conv_packed as tpk
 from rrin_tpu_torch.ops import conv_phase as tcp
-from torch_packed_util import check_sm90_layout, fresh_rng, one_torch_thread  # noqa: F401
+from torch_packed_util import (  # noqa: F401
+    check_sm90_layout,
+    fresh_rng,
+    one_torch_thread,
+    sm90_offset,
+)
 
 
 @pytest.fixture
@@ -71,13 +76,13 @@ class TestAgainstJaxKernel:
 
 class TestSupports:
     def test_superset_of_jax_supports(self):
-        """Every site the JAX kernel takes within the port's k range
-        (``MAX_K``: 49 at cout <= 8 down to 37 at cout <= 64) has a K1
-        kernel. The reference has no bound on k; beyond the range the port
-        runs ``F.conv2d`` (ROADMAP Queue C), pinned here: the sites it
-        leaves, and k 39 at cout 64 and k 51 at cout 8."""
-        n_jax = n_beyond = 0
-        for k in range(1, 50, 2):
+        """Every site the JAX kernel takes has a K1 kernel, at every odd k
+        1-129 and at k 201 and 255 (the reference has no bound on k): the
+        port's streamed mode splits a wide stencil into blocks. k 39 at cout
+        64 and k 51 at cout 8, which the port once left to ``F.conv2d``,
+        take the streamed mode's plan."""
+        n_jax = 0
+        for k in [*range(1, 130, 2), 201, 255]:
             for cin in (3, 6, 9, 10, 16, 32, 48, 64, 128, 256, 512):
                 for cout in (2, 3, 4, 16, 32, 64, 128):
                     for hw in ((32, 64), (1088, 1920), (24, 100)):
@@ -85,15 +90,13 @@ class TestSupports:
                         if jcp.supports(xs, ws) is None:
                             continue
                         n_jax += 1
-                        if k <= tcp._max_k(cout):
-                            assert tcp.supports(xs, ws) is not None, (xs, ws)
-                        else:
-                            n_beyond += 1
-                            assert tcp.supports(xs, ws) is None, (xs, ws)
-        assert (n_jax, n_beyond) == (3000, 200)
+                        assert tcp.supports(xs, ws) is not None, (xs, ws)
+        assert n_jax == 8040
         for k, cin, cout in ((39, 64, 64), (51, 32, 8)):
             xs, ws = (1, 32, 128, cin), (k, k, cin, cout)
-            assert jcp.supports(xs, ws) is not None and tcp.supports(xs, ws) is None
+            assert jcp.supports(xs, ws) is not None
+            plan = tpk._sm90_plan(k, (cin,), cout, streamed=True)
+            assert plan is not None and tcp.supports(xs, ws) == plan[0]
 
     @pytest.mark.parametrize("cin,cout,k", SHAPES + [(9, 32, 7), (10, 32, 7), (32, 3, 3)])
     def test_routes_every_site_class_without_shape_gates(self, cin, cout, k):
@@ -107,44 +110,100 @@ class TestSupports:
         assert tcp.supports((32, 64, 32), (3, 3, 32, 32)) is None
 
     def test_plan_fits_shared_memory(self):
-        """At every odd k K1 takes, the Hopper core's plan: whole chunks of
-        16-64 channels over cin, channel blocks over cout, within the 227 KB
-        of shared memory; K5's layout (resident weights where they fit) at k
-        3/5/7, the streamed mode's elsewhere."""
-        for k in range(1, 50, 2):
+        """At every odd k (1-129, 201, 255), the Hopper core's plan: whole
+        chunks of 16-64 channels over cin, channel blocks over cout, within
+        the 227 KB of shared memory; K5's layout (resident weights where
+        they fit) at k 3/5/7, the streamed mode's elsewhere. The streamed
+        mode's shared memory is that of its widest stencil block (at most
+        13 taps, the blocks balanced and covering the stencil once), at
+        every chunk and width: it no longer grows with k."""
+        for k in [*range(1, 130, 2), 201, 255]:
+            streamed = k not in tpk._K_CONV
+            blocks = tpk._stream_blocks(k)
+            widest = max(size for _, size in blocks)
+            assert [o for o, _ in blocks] == [sum(s for _, s in blocks[:i])
+                                              for i in range(len(blocks))]
+            assert sum(s for _, s in blocks) == k and widest <= 13
+            assert widest - min(s for _, s in blocks) <= 1 and (len(blocks) == 1) == (k <= 13)
+            if streamed:
+                for cchunk in tpk._SM90_CHUNKS[False]:
+                    for n_tiles in (1, 2, 4, 8):
+                        assert tpk._sm90_smem_bytes(k, cchunk, n_tiles, streamed=True) == (
+                            tpk._sm90_smem_bytes(widest, cchunk, n_tiles, streamed=True))
             for cin in (1, 6, 16, 33, 64, 100, 256):
                 for cout in (1, 8, 9, 33, 64):
-                    if k > tcp._max_k(cout):
-                        assert tcp._sm90_plan(k, cin, cout) is None
-                        continue
                     plan = tcp._sm90_plan(k, cin, cout)
                     assert plan is not None, (k, cin, cout)
                     cchunk, n_tiles, n_cb = plan
                     assert cchunk in tpk._SM90_CHUNKS[False] and cchunk < 2 * max(cin, 16)
                     assert n_tiles * 8 * n_cb >= cout > n_tiles * 8 * (n_cb - 1)
-                    streamed = k not in tpk._K_CONV
                     res = 0 if streamed else tpk._sm90_res_chunks((cin,), plan, True)
                     assert tpk._sm90_smem_bytes(k, cchunk, n_tiles, False, False, res,
                                                 streamed) <= tpk._SMEM_MAX
 
 
-@pytest.mark.parametrize("k,cin,cout", [(1, 40, 12), (9, 6, 32), (13, 33, 20), (37, 3, 40)])
+@pytest.mark.parametrize("k,cin,cout", [(1, 40, 12), (9, 6, 32), (13, 33, 20), (37, 3, 40),
+                                        (65, 32, 32)])
 def test_weight_fragments_layout(rng, k, cin, cout):
-    """The weights K1 launches with at the k off DIRECT's (1, 9, 13, and 37,
-    where a narrower N and two channel blocks fit beside the halo): the
-    core's layout for K1's plan, every bf16 weight where the wgmma
-    descriptor reads it and each dy row of a chunk one contiguous slab of
-    k taps, as the streamed mode copies it, zero in padded channels."""
+    """The weights K1 launches with at the k off DIRECT's (1, 9, 13, 37 and
+    65, a stencil of five blocks a side): the core's layout for K1's plan,
+    every bf16 weight where the wgmma descriptor reads it (below k 65: at
+    65 that is 4.3 million weights), zero in padded channels. Each copy the
+    streamed mode makes, one (chunk, block, dy) slab, starts where the
+    address formula puts its first tap, ends where it puts its last, holds
+    the block's taps of that dy row in the layout the consumer reads, and
+    the copies cover the buffer once."""
     plan = tcp._sm90_plan(k, cin, cout)
     assert plan == tpk._sm90_plan(k, (cin,), cout, streamed=True)
     cchunk, n_tiles, n_cb = plan
-    assert n_cb == (2 if k == 37 else 1)
+    assert n_cb == 1
     w = torch.from_numpy((rng.standard_normal((k, k, cin, cout)) * 0.1).astype(np.float32))
-    pr = {"wfrag": tpk._sm90_weights(w, (cin,), cchunk, n_tiles), "plan": plan}
-    check_sm90_layout(pr, w, k, False, (cin,))
-    slab = k * cchunk * n_tiles * 8 * 2
-    assert pr["wfrag"].permute(*tpk._SM90_ORDER).numel() * 2 == (
-        n_cb * -(-cin // cchunk) * k * slab)
+    wfrag = tpk._sm90_weights(w, (cin,), cchunk, n_tiles)
+    if k < 65:
+        check_sm90_layout({"wfrag": wfrag, "plan": plan}, w, k, False, (cin,))
+    flat = wfrag.permute(*tpk._SM90_ORDER).reshape(-1)
+    n_chunks, big_n = -(-cin // cchunk), n_tiles * 8
+    tap_bytes = cchunk * big_n * 2
+    assert flat.numel() * 2 == n_cb * n_chunks * k * k * tap_bytes
+    blocks = tpk._stream_blocks(k)
+    copied = np.zeros(flat.numel(), np.int64)
+    for ox, tx in blocks:
+        # the block's taps of every dy row, laid out alone: what one slab holds
+        want = tpk._sm90_weights(w[:, ox:ox + tx], (cin,), cchunk, n_tiles).permute(
+            *tpk._SM90_ORDER)
+        for cb in range(n_cb):
+            for ch in range(n_chunks):
+                for oy, ty in blocks:
+                    for dy in range(oy, oy + ty):
+                        # the kernel's source address (produce_stream)
+                        off = (((cb * n_chunks + ch) * k + dy) * k + ox) * tap_bytes
+                        assert off == sm90_offset(ch * cchunk, cb * big_n, dy, ox, cchunk,
+                                                  n_tiles, k, k, n_chunks, False)
+                        last = sm90_offset(ch * cchunk + cchunk - 1, cb * big_n + big_n - 1,
+                                           dy, ox + tx - 1, cchunk, n_tiles, k, k, n_chunks,
+                                           False)
+                        assert last + 2 == off + tx * tap_bytes
+                        slab = flat[off // 2:(off + tx * tap_bytes) // 2]
+                        assert torch.equal(slab, want[cb, ch, dy].reshape(-1))
+                        copied[off // 2:(off + tx * tap_bytes) // 2] += 1
+    assert (copied == 1).all()
+
+
+def test_wide_k_matches_xla_conv(rng):
+    """A site beyond the port's former k range (k 41, cout 64), which the
+    reference's kernel takes: routed to K1, and on the CPU its plain version
+    agrees with the JAX package's XLA conv in bf16 at the reference's 3e-2
+    bar (the interpreted JAX kernel takes minutes at this k)."""
+    x, w, b = _case(rng, 1, 16, 32, 8, 64, 41)
+    xs, ws = x.shape, w.shape
+    assert jcp.supports(xs, ws) is not None and tcp.supports(xs, ws) is not None
+    want = np.asarray(jcp._conv_xla(
+        jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(w), jnp.asarray(b), 0.1
+    ).astype(jnp.float32))
+    got = tcp.conv2d_fused(
+        torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(w), torch.from_numpy(b), 0.1)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 16, 32, 64)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=3e-2, rtol=3e-2)
 
 
 def test_kernel_refuses_cuda_without_gpu(rng):

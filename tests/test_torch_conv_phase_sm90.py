@@ -3,8 +3,8 @@
 ``csrc/conv_packed_sm90.cu``: mode DIRECT with one bf16 operand at k 3/5/7,
 the streamed mode at the other odd k): the plan and shared memory at each
 of the plain U-Net's nine site classes, the weights it prepares (K5's
-one-operand layout, ``prep_conv``), its routing (``supports`` as before the
-core took every k) and that a tensor without a kernel raises instead of
+one-operand layout, ``prep_conv``), its routing (``supports`` takes every
+odd k, every cin and cout up to 64) and that a tensor without a kernel raises instead of
 falling back. Host side only: the kernels run on the card
 (``chip_smoke.py``)."""
 
@@ -57,7 +57,9 @@ def test_plan_at_every_site_class():
     for k in (1, 9):
         assert tcp._sm90_plan(k, 32, 32) == tpk._sm90_plan(k, (32,), 32, streamed=True)
     assert tcp._sm90_plan(9, 32, 32) == (32, 4, 1)
-    assert tcp._sm90_plan(51, 32, 8) is None and tcp._sm90_plan(39, 32, 64) is None
+    for k, cin, cout in ((51, 32, 8), (39, 32, 64)):
+        assert tcp._sm90_plan(k, cin, cout) == tpk._sm90_plan(k, (cin,), cout, streamed=True)
+        assert tcp._sm90_plan(k, cin, cout) is not None
 
 
 @pytest.mark.parametrize("k,cin,cout", [(7, 6, 32), (3, 40, 4)])
@@ -104,40 +106,24 @@ def test_wrapper_prepares_one_operand(rng, monkeypatch):
     assert len(asked) == 1
 
 
-def _retired_plan(k, cin, cout):
-    """The routing of K1 before the Hopper core took every k, frozen: the
-    chunk of its first kernel's plan (an 8 x 32 tile of ``mma.sync``
-    m16n8k16 over a halo of cchunk + 8 channels a pixel and one dy row of
-    weight fragments, within 232,448 bytes of shared memory), or None."""
-    if k % 2 == 0 or k < 1 or cin < 1 or not 1 <= cout <= 64:
-        return None
-    n_tiles = next(n for n in (1, 2, 4, 8) if n * 8 >= cout)
-    for cchunk in (64, 48, 32, 16):
-        if cchunk > -(-cin // 16) * 16:
-            continue
-        halo = (8 + k - 1) * (32 + k - 1) * (cchunk + 8) * 2
-        if halo + k * (cchunk // 16) * n_tiles * 256 <= 232448:
-            return cchunk
-    return None
-
-
 def test_supports_as_before_on_a_grid():
-    """``supports`` accepts exactly what the retired routing accepted, for
-    odd k 1-51 (and rejects even k), whatever H and W: odd k up to
-    ``MAX_K`` by cout, 1 <= cout <= 64; it answers the core's plan's chunk,
-    K5's plan at k 3/5/7, the streamed mode's at the other k."""
-    for k in range(1, 52, 2):
+    """``supports`` takes every odd k 1-129, every cout 1-64 and every cin,
+    whatever H and W, and answers the core's plan's chunk: K5's plan at k
+    3/5/7, the streamed mode's at the other k. It refuses even k, cout > 64
+    and a stencil that is not square."""
+    for k in range(1, 130, 2):
         for cin in (1, 3, 6, 9, 10, 16, 32, 48, 64, 128, 256, 512):
-            for cout in (1, 2, 3, 4, 8, 9, 16, 17, 32, 33, 64, 65, 128):
+            for cout in range(1, 65):
+                plan = tpk._sm90_plan(k, (cin,), cout, resident=k in tpk._K_CONV,
+                                      streamed=k not in tpk._K_CONV)
+                assert plan is not None, (k, cin, cout)
                 for hw in ((32, 64), (1088, 1920), (33, 45)):
                     got = tcp.supports((1, *hw, cin), (k, k, cin, cout))
-                    if _retired_plan(k, cin, cout) is None:
-                        assert got is None, (k, cin, cout)
-                        continue
-                    plan = tpk._sm90_plan(k, (cin,), cout, resident=k in tpk._K_CONV,
-                                          streamed=k not in tpk._K_CONV)
-                    assert got is not None and got == plan[0], (k, cin, cout)
+                    assert got == plan[0], (k, cin, cout, hw)
+            for cout in (65, 128):
+                assert tcp.supports((1, 32, 64, cin), (k, k, cin, cout)) is None
         assert tcp.supports((1, 32, 64, 32), (k, k + 1, 32, 32)) is None
+        assert tcp.supports((1, 32, 64, 32), (k + 1, k + 1, 32, 32)) is None
     assert tcp.supports((1, 32, 64, 32), (4, 4, 32, 32)) is None
 
 
